@@ -1,0 +1,81 @@
+"""Carry configuration and state from the reference package into the port.
+
+The system has no weights; what a run carries is configuration and state.
+``config_from_reference`` turns any of the reference's ``ScodaConfig``,
+``CMSConfig``, ``FA2Config``, ``BGVConfig``, ``StreamConfig`` or
+``RenderConfig`` into the port's, by duck typing on attributes — it never
+imports the reference package. ``state_from_numpy`` builds port tensors
+from host arrays (the reference's state converted with ``np.asarray``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.cms import CMSConfig
+from repro_torch.core.forceatlas2 import FA2Config
+from repro_torch.core.pipeline import BGVConfig
+from repro_torch.core.scoda import ScodaConfig
+from repro_torch.core.stream import StreamConfig
+from repro_torch.core.supergraph import Supergraph
+from repro_torch.render.raster import RenderConfig
+
+# Attribute that identifies each config class, checked in this order.
+_KINDS = (
+    ("scoda", BGVConfig),
+    ("degree_threshold", ScodaConfig),
+    ("repulsion_k", FA2Config),
+    ("supersample", RenderConfig),
+    ("agg_backend", StreamConfig),
+    ("rows", CMSConfig),
+)
+
+
+def config_from_reference(cfg):
+    """The port's config equal, field for field, to a reference config."""
+    for attr, cls in _KINDS:
+        if hasattr(cfg, attr):
+            break
+    else:
+        raise TypeError(f"not a known BigGraphVis config: {type(cfg).__name__}")
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if not hasattr(cfg, f.name):
+            continue
+        value = getattr(cfg, f.name)
+        if cls is BGVConfig and f.name in ("scoda", "cms", "layout"):
+            value = config_from_reference(value)
+        kwargs[f.name] = value
+    return cls(**kwargs)
+
+
+def state_from_numpy(kind: str, value, device="cpu"):
+    """Port state from host arrays.
+
+    ``kind``: ``"scoda"`` — ``(com, deg)`` int32 [n+1]; ``"agg"`` —
+    ``(a, b, w, n)`` aggregation state; ``"supergraph"`` — any object with
+    the ``Supergraph`` fields; ``"pos0"`` — [n, 2] float32 positions.
+    """
+    def t(x, dtype):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+    if kind == "scoda":
+        com, deg = value
+        return t(com, torch.int32), t(deg, torch.int32)
+    if kind == "agg":
+        a, b, w, n = value
+        return t(a, torch.int32), t(b, torch.int32), t(w, torch.float32), t(n, torch.int32)
+    if kind == "supergraph":
+        return Supergraph(
+            edges=t(value.edges, torch.int32),
+            weights=t(value.weights, torch.float32),
+            sizes=t(value.sizes, torch.float32),
+            n_supernodes=t(value.n_supernodes, torch.int32),
+            n_superedges=t(value.n_superedges, torch.int32),
+            labels=t(value.labels, torch.int32),
+        )
+    if kind == "pos0":
+        return t(value, torch.float32)
+    raise ValueError(f"unknown state kind {kind!r}: scoda, agg, supergraph, pos0")

@@ -1,0 +1,81 @@
+"""Count–min sketch (paper §3.3) — community sizing without exact counters.
+
+A CMS is a *linear* sketch: updates commute and shards merge by addition.
+
+Hashing: multiply-shift universal hashing modulo 2^32, then mod ``cols``;
+the paper uses 4 hash rows and cols ≈ 1e-4 × |E|. torch's uint32 lacks add,
+shift and mod on the CPU, so the hash runs in int64: ``((a·k + b) mod 2^32)
+>> 5``. The low 32 bits of the int64 product are right even when it wraps,
+so the buckets equal the uint32 ones bit for bit.
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class CMSConfig:
+    rows: int = 4
+    cols: int = 5000
+    seed: int = 0x5EED
+
+
+def hash_params(cfg: CMSConfig) -> tuple[np.ndarray, np.ndarray]:
+    """Per-row (a, b) multiply-shift constants (odd a), as uint32 numpy —
+    drawn from numpy's generator, so the constants match the reference."""
+    rng = np.random.default_rng(cfg.seed)
+    a = rng.integers(1, 2**31, size=cfg.rows, dtype=np.uint32) * 2 + 1
+    b = rng.integers(0, 2**31, size=cfg.rows, dtype=np.uint32)
+    return a, b
+
+
+def hash_keys(keys, a, b, cols: int):
+    """[rows, n] int64 bucket indices for int32 keys."""
+    dev = keys.device
+    k = (keys.long() & 0xFFFFFFFF)[None, :]  # the key's uint32 bit pattern
+    at = torch.as_tensor(a.astype(np.int64), device=dev)[:, None]
+    bt = torch.as_tensor(b.astype(np.int64), device=dev)[:, None]
+    h = ((at * k + bt) & 0xFFFFFFFF) >> 5
+    return h % cols
+
+
+def init_sketch(cfg: CMSConfig, dtype=torch.float32, device="cpu"):
+    return torch.zeros((cfg.rows, cfg.cols), dtype=dtype, device=device)
+
+
+def update(sketch, keys, weights, cfg: CMSConfig):
+    """Add ``weights`` at ``keys``; negative-key slots are masked (padding).
+    Returns a new sketch."""
+    a, b = hash_params(cfg)
+    h = hash_keys(keys, a, b, cfg.cols)
+    w = torch.where(keys >= 0, weights, 0).to(sketch.dtype)
+    rows = torch.arange(cfg.rows, device=sketch.device)[:, None].expand_as(h)
+    out = sketch.clone()
+    out.index_put_((rows, h), w[None, :].expand_as(h), accumulate=True)
+    return out
+
+
+def query(sketch, keys, cfg: CMSConfig):
+    """Point-query: min over hash rows (classic CMS estimate)."""
+    a, b = hash_params(cfg)
+    h = hash_keys(keys, a, b, cfg.cols)
+    rows = torch.arange(cfg.rows, device=sketch.device)[:, None]
+    return sketch[rows, h].min(dim=0).values
+
+
+def merge(*sketches):
+    """CMS is linear: shard-local sketches merge by addition."""
+    return functools.reduce(torch.add, sketches)
+
+
+# Chunk-incremental API (core/stream.py engine): the sketch is linear, so
+# ``update`` already *is* the chunk step; ``finalize`` is the identity.
+init = init_sketch
+
+
+def finalize(sketch):
+    return sketch

@@ -1,0 +1,316 @@
+"""ForceAtlas2 (Jacomy et al. 2014) — paper §3.1 / Algorithm 1, ``"exact"``
+repulsion backend.
+
+Force model:
+  * gravity            f_g(i)  = kg · m_i · (towards origin)
+  * attraction         f_a(e)  = w_e · (x_v − x_u)            (linear FA2)
+  * repulsion          f_r(i,j)= kr · m_i · m_j / d(i,j)       (along unit vec)
+  * adaptive speed     swing/traction + global & local speeds  (Algorithm 1 l.23)
+
+with mass m_i = community size for supernodes (paper §4.1: radius ∝ √size;
+repulsion distance shifted by radii so big supernodes get the space they
+need). Repulsion is the exact O(n²) pairwise sum: kernel K2 on the card
+(``kernels/repulsion``), its plain version on the CPU. The ``"grid"``,
+``"grid_pallas"`` and ``"grid_dense"`` backends are not in this slice and
+raise.
+
+``layout`` hoists everything reusable out of the iteration loop: radii
+√mass are computed once, and attraction edges are sorted once into a
+directed source-sorted layout whose per-iteration sum is one
+``index_add_``. The loop is Python; with ``stop_tolerance`` > 0 it stops
+once the controller's global swing falls to ``stop_tolerance`` × global
+traction (after ``min_iterations``), leaving the remaining trace rows zero
+— frozen iterations do no work. That test reads one flag from the device
+per iteration, so it is only paid when the stop is enabled.
+
+``nan_guard`` rolls back an iteration whose forces hold a non-finite value
+(positions and controller memory kept, global speed halved) and traces it
+as a ``[-1, -1, damped]`` row, without reading anything back to the host.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.repulsion import ops as repulsion_ops
+from repro_torch.obs.trace import get_tracer
+
+_GOLDEN_ANGLE = 2.3999632297286533  # π(3 − √5)
+_ROADMAP_GRID = "ROADMAP.md, modules to port, item 9 (full-graph layout)"
+
+
+@dataclass(frozen=True)
+class FA2Config:
+    iterations: int = 100
+    gravity: float = 1.0
+    repulsion_k: float = 80.0  # paper §5.1: kr = 80, kg = 1 for all networks
+    strong_gravity: bool = False
+    jitter_tolerance: float = 1.0  # τ in the FA2 speed controller
+    repulsion: str = "exact"  # only "exact" in this slice
+    use_radii: bool = True  # supernode radii shift repulsion distances
+    seed: int = 0
+    dtype: str = "float32"  # position/force dtype of the layout loop
+    stop_tolerance: float = 0.0  # adaptive stop (0.0 = fixed iterations)
+    min_iterations: int = 0  # never stop before this many iterations
+    init: str = "random"  # "random" | "degree" | "bfs"
+    init_bfs_rounds: int = 32  # BFS depth-propagation rounds for init="bfs"
+    nan_guard: bool = False  # divergence sentinel (see module docstring)
+
+
+def _check_backend(cfg: FA2Config) -> None:
+    if cfg.repulsion != "exact":
+        if cfg.repulsion in ("grid", "grid_pallas", "grid_dense"):
+            raise NotImplementedError(
+                f"repro_torch does not port repulsion={cfg.repulsion!r} yet: "
+                f"{_ROADMAP_GRID}"
+            )
+        raise ValueError(f"unknown repulsion backend {cfg.repulsion!r}")
+
+
+def init_positions(n: int, generator: torch.Generator, scale: float = 1000.0,
+                   dtype=torch.float32, device="cpu"):
+    """Uniform positions in [-scale, scale)², drawn on the CPU from
+    ``generator`` (the same numbers on every device)."""
+    u = torch.rand((n, 2), generator=generator, dtype=torch.float32)
+    return (u * (2 * scale) - scale).to(device=device, dtype=dtype)
+
+
+def init_positions_degree(n: int, mass, scale: float = 1000.0,
+                          dtype=torch.float32):
+    """Degree-greedy sunflower init: nodes placed on a golden-angle spiral
+    in descending-mass order, so hubs start at the center and leaves at the
+    rim. Deterministic (the stable sort breaks ties by index)."""
+    order = torch.argsort(-mass, stable=True)
+    rank = torch.empty(n, dtype=torch.int32, device=mass.device)
+    rank[order] = torch.arange(n, dtype=torch.int32, device=mass.device)
+    rf = rank.to(torch.float32)
+    r = scale * torch.sqrt((rf + 0.5) / n)
+    theta = rf * _GOLDEN_ANGLE
+    pos = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=1)
+    return pos.to(dtype)
+
+
+def init_positions_bfs(edges, mass, n: int, generator: torch.Generator,
+                       rounds: int = 32, smooth_rounds: int = 10,
+                       scale: float = 1000.0, dtype=torch.float32):
+    """BFS-ring + neighbor-smoothing init: hop depths from the heaviest node
+    via ``rounds`` scatter-min relaxations, radius ∝ depth, golden-angle
+    azimuth with a small radial jitter from ``generator``; then
+    ``smooth_rounds`` sweeps pull each node halfway to its neighbors'
+    centroid (rescaled to the scaffold's RMS radius). Padded edge slots
+    (endpoint == n) write to a trash row that is reset or dropped."""
+    dev = mass.device
+    e = edges.long().clamp(0, n)
+    u, v = e[:, 0], e[:, 1]
+    seed_node = int(torch.argmax(mass))
+    unreached = rounds + 1
+    depth = torch.full((n + 1,), unreached, dtype=torch.int32, device=dev)
+    depth[seed_node] = 0
+    for _ in range(rounds):
+        new = depth.scatter_reduce(0, v, depth[u] + 1, "amin", include_self=True)
+        new = new.scatter_reduce(0, u, depth[v] + 1, "amin", include_self=True)
+        new[n] = unreached
+        depth = new
+    depth = depth[:n]
+    deepest = torch.where(depth >= unreached, 0, depth).max()
+    d = torch.where(depth >= unreached, deepest + 1, depth).to(torch.float32)
+    r = scale * (d + 0.5) / (deepest.to(torch.float32) + 1.5)
+    jitter = torch.rand(n, generator=generator, dtype=torch.float32).to(dev)
+    r = r * (0.9 + 0.2 * jitter)
+    theta = torch.arange(n, dtype=torch.float32, device=dev) * _GOLDEN_ANGLE
+    pos = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=1)
+
+    one = torch.ones(u.shape[0], dtype=torch.float32, device=dev)
+    deg = torch.zeros(n + 1, dtype=torch.float32, device=dev)
+    deg.index_add_(0, u, one).index_add_(0, v, one)
+    degn = torch.clamp(deg[:n], min=1.0)
+    has_nbr = (deg[:n] > 0.0)[:, None]
+    rms0 = torch.sqrt(torch.mean(torch.sum(pos * pos, dim=1)))
+    for _ in range(smooth_rounds):
+        ext = torch.cat([pos, torch.zeros((1, 2), dtype=pos.dtype, device=dev)])
+        s = torch.zeros((n + 1, 2), dtype=pos.dtype, device=dev)
+        s.index_add_(0, u, ext[v]).index_add_(0, v, ext[u])
+        mean = s[:n] / degn[:, None]
+        new = torch.where(has_nbr, 0.5 * pos + 0.5 * mean, pos)
+        rms = torch.sqrt(torch.mean(torch.sum(new * new, dim=1)))
+        pos = new * (rms0 / torch.clamp(rms, min=1e-9))
+    return pos.to(dtype)
+
+
+def initial_positions(edges, mass, n: int, cfg: FA2Config):
+    """Dispatch ``cfg.init``; "random" and "bfs" draw from
+    ``torch.Generator().manual_seed(cfg.seed)``."""
+    dtype = getattr(torch, cfg.dtype)
+    if cfg.init == "random":
+        gen = torch.Generator().manual_seed(cfg.seed)
+        return init_positions(n, gen, dtype=dtype, device=mass.device)
+    if cfg.init == "degree":
+        return init_positions_degree(n, mass, dtype=dtype)
+    if cfg.init == "bfs":
+        gen = torch.Generator().manual_seed(cfg.seed)
+        return init_positions_bfs(edges, mass, n, gen, rounds=cfg.init_bfs_rounds,
+                                  dtype=dtype)
+    raise ValueError(
+        f"unknown init {cfg.init!r}: expected 'random', 'degree', or 'bfs'"
+    )
+
+
+def _gravity(pos, mass, cfg: FA2Config):
+    if cfg.strong_gravity:
+        return -cfg.gravity * mass[:, None] * pos
+    d = torch.linalg.vector_norm(pos, dim=-1, keepdim=True)
+    unit = pos / torch.clamp(d, min=1e-9)
+    return -cfg.gravity * mass[:, None] * unit
+
+
+def _attraction(pos, edges, weights, n: int):
+    """Σ over incident edges of w·(x_other − x_self); padded slots hit trash.
+    Unsorted two-scatter form — the single-``step`` path."""
+    e = edges.long().clamp(0, n)
+    u, v = e[:, 0], e[:, 1]
+    pos_ext = torch.cat([pos, torch.zeros((1, 2), dtype=pos.dtype, device=pos.device)])
+    f = weights[:, None] * (pos_ext[v] - pos_ext[u])  # force on u toward v
+    force = torch.zeros((n + 1, 2), dtype=pos.dtype, device=pos.device)
+    force.index_add_(0, u, f)
+    force.index_add_(0, v, -f)
+    return force[:n]
+
+
+def _attraction_edge_layout(edges, weights):
+    """Directed source-sorted layout, built once per ``layout`` call: both
+    edge directions concatenated and stably sorted by source node. Padded
+    slots (trash endpoints == n) sort last and are dropped by the sum."""
+    u, v = edges[:, 0].long(), edges[:, 1].long()
+    src = torch.cat([u, v])
+    dst = torch.cat([v, u])
+    w2 = torch.cat([weights, weights])
+    order = torch.argsort(src, stable=True)
+    return src[order], dst[order], w2[order]
+
+
+def _attraction_sorted(pos, src, dst, w, n: int):
+    """Σ over directed incident edges of w·(x_dst − x_src), by one
+    ``index_add_`` over the source ids (ids ≥ n land in a dropped row)."""
+    pos_ext = torch.cat([pos, torch.zeros((1, 2), dtype=pos.dtype, device=pos.device)])
+    s, d = src.clamp(0, n), dst.clamp(0, n)
+    f = w[:, None] * (pos_ext[d] - pos_ext[s])
+    out = torch.zeros((n + 1, 2), dtype=pos.dtype, device=pos.device)
+    out.index_add_(0, s, f)
+    return out[:n]
+
+
+def _repulsion_forces(pos, mass, radii, cfg: FA2Config):
+    _check_backend(cfg)
+    return repulsion_ops.repulsion(
+        pos, mass, cfg.repulsion_k, radii=radii if cfg.use_radii else None
+    )
+
+
+def _apply_speed(state, f, mass, cfg: FA2Config):
+    """FA2 speed controller (Algorithm 1): swing/traction → displacement.
+
+    Returns the updated ``(pos, f, global_speed)`` state and the trace row
+    ``[g_swing, g_traction, global_speed]``.
+    """
+    pos, prev_force, global_speed = state
+    swing = torch.linalg.vector_norm(f - prev_force, dim=-1)
+    traction = 0.5 * torch.linalg.vector_norm(f + prev_force, dim=-1)
+    g_swing = torch.sum(mass * swing) + 1e-9
+    g_traction = torch.sum(mass * traction)
+    new_gs = cfg.jitter_tolerance * g_traction / g_swing
+    global_speed = torch.minimum(new_gs, 1.5 * global_speed + 1e-3)
+
+    fmag = torch.linalg.vector_norm(f, dim=-1)
+    local_speed = global_speed / (1.0 + global_speed * torch.sqrt(swing))
+    # FA2 caps node displacement: speed ≤ 10 / |f|.
+    local_speed = torch.minimum(local_speed, 10.0 / torch.clamp(fmag, min=1e-9))
+    pos = pos + local_speed[:, None] * f
+    row = torch.stack([g_swing, g_traction, global_speed])
+    return (pos, f, global_speed), row
+
+
+def _apply_speed_guarded(state, f, mass, cfg: FA2Config):
+    """``_apply_speed`` behind the divergence sentinel.
+
+    With ``cfg.nan_guard`` off this IS ``_apply_speed``. With it on, a
+    non-finite force array keeps positions and controller memory, halves
+    the global speed, and traces ``[-1, -1, damped_speed]`` — selected on
+    the device, with no host read.
+    """
+    if not cfg.nan_guard:
+        return _apply_speed(state, f, mass, cfg)
+    pos, prev_force, global_speed = state
+    ok = torch.isfinite(f).all()
+    (new_pos, new_f, new_gs), row = _apply_speed(state, f, mass, cfg)
+    damped = 0.5 * global_speed
+    neg = -torch.ones((), dtype=damped.dtype, device=damped.device)
+    rec_row = torch.stack([neg, neg, damped])
+    return (
+        (torch.where(ok, new_pos, pos), torch.where(ok, new_f, prev_force),
+         torch.where(ok, new_gs, damped)),
+        torch.where(ok, row, rec_row),
+    )
+
+
+def recovery_count(trace) -> int:
+    """Number of iterations the ``nan_guard`` sentinel rolled back in a
+    ``layout``/``step`` trace (negative-g_swing rows)."""
+    if isinstance(trace, torch.Tensor):
+        trace = trace.detach().cpu().numpy()
+    return int((np.asarray(trace)[:, 0] < 0).sum())
+
+
+def step(state, edges, weights, mass, radii, cfg: FA2Config, n: int):
+    """One FA2 iteration (Algorithm 1 body): forces → speeds → displacement.
+    Returns ``(state, trace_row)``."""
+    pos = state[0]
+    f = _gravity(pos, mass, cfg)
+    f = f + _attraction(pos, edges, weights, n)
+    f = f + _repulsion_forces(pos, mass, radii, cfg)
+    return _apply_speed_guarded(state, f, mass, cfg)
+
+
+def layout(edges, weights, mass, n: int, cfg: FA2Config, pos0=None, device=None):
+    """Run up to ``cfg.iterations`` FA2 steps on ``device`` (None = CUDA).
+
+    ``edges`` [E, 2] (padded slots = n), ``weights`` [E], ``mass`` [n]:
+    tensors or arrays. Returns ``(positions [n,2], trace [iterations,3],
+    iterations_run)``; trace rows are (g_swing, g_traction, global_speed),
+    zero past ``iterations_run``.
+    """
+    _check_backend(cfg)
+    device = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    edges = torch.as_tensor(edges, device=device)
+    weights = torch.as_tensor(weights, device=device).to(dtype)
+    mass = torch.as_tensor(mass, device=device).to(dtype)
+    with get_tracer().span(
+        "fa2.layout", n=n, iterations=cfg.iterations,
+        repulsion=cfg.repulsion, adaptive=cfg.stop_tolerance > 0.0,
+    ):
+        if pos0 is None:
+            pos0 = initial_positions(edges, mass, n, cfg)
+        pos = torch.as_tensor(pos0, device=device).to(dtype)
+        radii = torch.sqrt(torch.clamp(mass, min=0.0))  # paper: radius ∝ √size
+        src, dst, w2 = _attraction_edge_layout(edges, weights)
+        state = (pos, torch.zeros_like(pos), torch.ones((), dtype=dtype, device=device))
+        trace = torch.zeros((cfg.iterations, 3), dtype=dtype, device=device)
+        adaptive = cfg.stop_tolerance > 0.0
+        it_run = 0
+        for it in range(cfg.iterations):
+            p = state[0]
+            f = _gravity(p, mass, cfg)
+            f = f + _attraction_sorted(p, src, dst, w2, n)
+            f = f + _repulsion_forces(p, mass, radii, cfg)
+            state, row = _apply_speed_guarded(state, f, mass, cfg)
+            trace[it] = row
+            it_run += 1
+            if adaptive and it + 1 >= cfg.min_iterations:
+                # row[0] < 0 marks a nan_guard recovery — never "converged".
+                done = (row[0] >= 0) & (row[0] <= cfg.stop_tolerance * row[1])
+                if bool(done):
+                    break
+    return state[0], trace, it_run

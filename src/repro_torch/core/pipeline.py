@@ -1,0 +1,211 @@
+"""End-to-end BigGraphVis pipeline (paper Fig. 2 / Algorithm 3):
+
+    edge stream ──► SCoDA communities ──► CMS sizing ──► supergraph
+                ──► ForceAtlas2 layout ──► colored supernode drawing
+                ──► rasterized image (``BGVResult.render``)
+
+Every edge-consuming stage runs through the streaming chunked-edge engine
+(core/stream.py): ``biggraphvis()`` processes the edge list as one chunk by
+default and as fixed-size chunks (device residency independent of |E|)
+when given a ``StreamConfig``. Both produce identical results.
+
+Not in this slice: ``full_layout_colored`` (it needs the grid repulsion
+backend) and checkpoint/resume.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from repro_torch.core import cms as cms_lib
+from repro_torch.core import forceatlas2 as fa2
+from repro_torch.core.coloring import color_groups
+from repro_torch.core.scoda import ScodaConfig
+from repro_torch.core.stream import StreamConfig, StreamStats, stream_pipeline
+from repro_torch.core.supergraph import Supergraph
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.obs.metrics import REGISTRY
+from repro_torch.obs.trace import get_tracer
+
+
+@dataclass(frozen=True)
+class BGVConfig:
+    scoda: ScodaConfig
+    cms: cms_lib.CMSConfig
+    layout: fa2.FA2Config
+    s_cap: int = 65536  # supernode capacity
+    max_super_edges: int = 262144
+    obs: object = None  # explicit Tracer for the whole run (None = global)
+
+
+@dataclass
+class BGVResult:
+    positions: np.ndarray  # [s_cap, 2]
+    sizes: np.ndarray  # [s_cap]
+    groups: np.ndarray  # [s_cap] color group
+    labels: np.ndarray  # [n] node → dense community
+    supergraph: Supergraph
+    modularity: float
+    n_supernodes: int
+    n_superedges: int
+    timings: dict = field(default_factory=dict)
+    stream: StreamStats | None = None  # chunked-engine accounting
+    obs: object = field(default=None, repr=False)  # Tracer from the run
+    device: torch.device | None = None  # where the run's tensors live
+
+    def render(self, path: str | None = None, cfg=None):
+        """Rasterize this result's supergraph drawing (paper §4.3) on the
+        device the result was computed on. ``path`` additionally writes a
+        PNG; ``cfg`` is an optional ``RenderConfig``. Returns ``(image
+        [H, W, 3] uint8, RenderStats)`` and records the wall time in
+        ``timings["render_s"]``."""
+        import dataclasses
+
+        from repro_torch.render.raster import RenderConfig
+        from repro_torch.render.raster import render as render_result
+
+        tr = self.obs if self.obs is not None else get_tracer()
+        if self.obs is not None:
+            if cfg is None:
+                cfg = RenderConfig(obs=tr)
+            elif getattr(cfg, "obs", None) is None:
+                cfg = dataclasses.replace(cfg, obs=tr)
+        t0 = time.perf_counter()
+        with tr.span("render", path=path or ""):
+            out = render_result(self, path, cfg=cfg, device=self.device)
+        self.timings["render_s"] = time.perf_counter() - t0
+        return out
+
+
+def default_cms_cols(n_edges: int) -> int:
+    """Count-min-sketch width used by ``default_config``:
+    ``max(256, |E| // 1000)`` — one column per ~1000 edges keeps the §4.2
+    size estimates reliable for 4 hash rows."""
+    return max(256, n_edges // 1000)
+
+
+def default_config(
+    n_nodes: int,
+    n_edges: int,
+    degree_threshold: int,
+    rounds: int = 4,
+    iterations: int = 100,
+    s_cap: int | None = None,
+    repulsion: str = "exact",
+    stop_tolerance: float = 0.0,
+    min_iterations: int = 0,
+    init: str = "random",
+    nan_guard: bool = False,
+) -> BGVConfig:
+    """Paper-shaped defaults: 4 hash rows, CMS cols = ``default_cms_cols``,
+    δ = mode degree. Only ``repulsion="exact"`` runs in this slice; the
+    grid backends and their knobs come with their own slice.
+    """
+    cols = default_cms_cols(n_edges)
+    return BGVConfig(
+        scoda=ScodaConfig(degree_threshold=degree_threshold, rounds=rounds),
+        cms=cms_lib.CMSConfig(rows=4, cols=cols),
+        layout=fa2.FA2Config(
+            iterations=iterations, repulsion=repulsion,
+            stop_tolerance=stop_tolerance, min_iterations=min_iterations,
+            init=init, nan_guard=nan_guard,
+        ),
+        s_cap=s_cap or min(n_nodes, 65536),
+        max_super_edges=min(4 * n_edges, 262144),
+    )
+
+
+def layout_supergraph(sg: Supergraph, cfg: BGVConfig, tracer=None,
+                      device=None) -> tuple[torch.Tensor, int]:
+    """ForceAtlas2 on the (small, device-resident) supergraph.
+
+    Returns ``(positions [s_cap, 2], iterations_run)``. The layout is sized
+    to the LIVE supernode count padded to a power of two (≥ 64, ≤ s_cap):
+    laying out the full s_cap padding would erase the paper's headline
+    speedup.
+    """
+    tr = tracer if tracer is not None else get_tracer()
+    device = resolve_device(device if device is not None else sg.sizes.device)
+    s_live = max(int(sg.n_supernodes), 2)
+    s_layout = 1 << (s_live - 1).bit_length()
+    s_layout = min(max(s_layout, 64), cfg.s_cap)
+    e_live = max(int(sg.n_superedges), 1)
+    e_layout = min(1 << (e_live - 1).bit_length(), sg.edges.shape[0])
+    live = torch.arange(s_layout, device=device) < sg.n_supernodes
+    mass = torch.clamp(sg.sizes[:s_layout], min=0.0) + live.to(torch.float32)
+    mass = torch.where(live, mass, 0.0)
+    sedges = torch.clamp(sg.edges[:e_layout], max=s_layout)  # trash → s_layout
+    with tr.span("layout.supergraph", n=s_layout, edges=e_layout, sharded=False):
+        pos_live, trace, iters_run = fa2.layout(
+            sedges, sg.weights[:e_layout], mass, s_layout, cfg.layout, device=device
+        )
+        synchronize(device)
+    if cfg.layout.nan_guard:
+        recovered = fa2.recovery_count(trace)
+        if recovered:
+            REGISTRY.counter("errors.fa2_recoveries").inc(recovered)
+    pos = torch.zeros((cfg.s_cap, 2), dtype=pos_live.dtype, device=device)
+    pos[:s_layout] = pos_live
+    return pos, int(iters_run)
+
+
+def biggraphvis(source, n_nodes: int, cfg: BGVConfig,
+                stream: StreamConfig | None = None, *, checkpoint=None,
+                resume=False, device=None) -> BGVResult:
+    """Run the whole pipeline on one host and ``device`` (None = CUDA;
+    raises without it).
+
+    ``source`` is any engine edge source: an [E,2] unpadded int32 host
+    array, an ``EdgeStore``, or a path to a ``.npy`` / ``.bin`` edge file or
+    shard directory. ``stream=None`` feeds the whole edge list as a single
+    chunk; a ``StreamConfig`` streams it in fixed-size chunks. Both produce
+    identical results. ``checkpoint``/``resume`` are not in this slice and
+    raise.
+    """
+    device = resolve_device(device)
+    tr = cfg.obs
+    if tr is None and stream is not None:
+        tr = stream.obs
+    if tr is None:
+        tr = get_tracer()
+    with tr.span("biggraphvis", n_nodes=n_nodes, s_cap=cfg.s_cap):
+        labels, _gdeg, sg, q, stats = stream_pipeline(
+            source, n_nodes, cfg.scoda, cfg.cms, cfg.s_cap, cfg.max_super_edges,
+            stream, tracer=tr, checkpoint=checkpoint, resume=resume,
+            device=device,
+        )
+        t = {
+            "scoda_s": stats.stage_seconds["detect_s"],
+            "supergraph_s": stats.stage_seconds["supergraph_s"],
+        }
+        t0 = time.perf_counter()
+        with tr.span("layout", iterations=cfg.layout.iterations,
+                     repulsion=cfg.layout.repulsion):
+            pos, layout_iters = layout_supergraph(sg, cfg, tracer=tr, device=device)
+        t["layout_s"] = time.perf_counter() - t0
+        t["layout_iterations"] = layout_iters
+        REGISTRY.counter("layout.runs").inc()
+        REGISTRY.gauge("layout.iterations_run").set(layout_iters)
+        REGISTRY.gauge("layout.seconds").set(t["layout_s"])
+        REGISTRY.gauge("layout.converged").set(
+            int(layout_iters < cfg.layout.iterations)
+        )
+        groups = color_groups(sg.sizes)
+    return BGVResult(
+        positions=pos.cpu().numpy(),
+        sizes=sg.sizes.cpu().numpy(),
+        groups=groups.cpu().numpy(),
+        labels=sg.labels.cpu().numpy(),
+        supergraph=sg,
+        modularity=float(q),
+        n_supernodes=int(sg.n_supernodes),
+        n_superedges=int(sg.n_superedges),
+        timings=t,
+        stream=stats,
+        obs=cfg.obs if cfg.obs is not None
+        else (stream.obs if stream is not None else None),
+        device=device,
+    )

@@ -1,0 +1,148 @@
+"""Build, load and call the port's hand-written CUDA kernels.
+
+Route: every source ``src/repro_torch/csrc/<name>.cu`` exposes a plain C
+interface and is compiled by ``nvcc`` into its own shared library, which
+is loaded with ``ctypes`` (pointers and the stream are ``c_void_p``). No
+PyTorch header is compiled, so a build takes seconds, not minutes.
+
+The build happens at first use, from the sources in the checkout only, into
+``build/repro_torch_kernels/`` at the repository root. A library's file name
+carries a hash of its source and flags, so an edited source rebuilds and an
+unchanged one is reused. ``build()`` starts one ``nvcc`` per missing source,
+all at once, and waits for all of them.
+
+Every C entry point launches on the stream it is given, allocates nothing,
+and returns ``cudaGetLastError()``; ``check`` raises on a non-zero code, so
+a refused launch never passes silently.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+KERNELS = ("merge_scatter", "repulsion_nbody", "count_scatter", "disk_accum")
+# Launches per kernel in this process: each wrapper adds one where it
+# launches its kernel, and nowhere else (a run reads them to show which
+# kernels its path went through; set them to 0 before the run).
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+@dataclass
+class BuildResult:
+    name: str
+    path: Path
+    seconds: float  # nvcc wall time (0 when the library was already built)
+    log: str  # nvcc/ptxas output: registers, shared memory, spills
+
+
+def nvcc_path() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    cands += ["/usr/local/cuda/bin/nvcc", shutil.which("nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "repro_torch: nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+        "the CUDA kernels are built from src/repro_torch/csrc at first use"
+    )
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build(names=KERNELS) -> dict:
+    """Compile every named kernel not built yet, one ``nvcc`` each, all
+    started together. Returns ``{name: BuildResult}``; raises with the
+    compiler's output if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    results, running = {}, {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            results[name] = BuildResult(name, out, 0.0, "")
+            continue
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        results[name] = BuildResult(name, out, time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("repro_torch kernel build failed:\n" + "\n".join(failed))
+    return results
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel (built on first call)."""
+    lib = ctypes.CDLL(str(build((name,))[name].path))
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+def entry(name: str, argtypes: list):
+    """The C entry point ``name`` of library ``name``, typed."""
+    fn = getattr(library(name), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(name: str, code: int) -> None:
+    if code != 0:
+        msg = getattr(library(name), f"{name}_error_string")(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed with error {code} ({msg})")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require(t: torch.Tensor, what: str, dtype: torch.dtype, device: torch.device,
+            shape: tuple | None = None) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{what}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")

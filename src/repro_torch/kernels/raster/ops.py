@@ -1,0 +1,77 @@
+"""Public wrappers for the raster primitives: kernels K3
+(``csrc/count_scatter.cu``) and K4 (``csrc/disk_accum.cu``) for CUDA
+tensors, the plain PyTorch versions (``ref.py``) for CPU tensors. A tensor
+anywhere else raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.raster.ref import count_scatter_into_ref, disk_accum_ref
+
+_SCATTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+_DISK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+MAX_GROUPS = 16  # register counters per thread in csrc/disk_accum.cu
+
+
+def count_scatter_into(acc, pos, inc=None):
+    """Add ``inc`` (None = 1) into ``acc`` at ``pos``, in place; returns acc.
+
+    ``acc`` [size] int32, ``pos``/``inc`` [N] int32; positions outside
+    ``[0, size)`` are dropped.
+    """
+    dev = acc.device
+    if dev.type == "cpu":
+        return count_scatter_into_ref(acc, pos, inc)
+    if dev.type != "cuda":
+        raise ValueError(f"count_scatter_into: unsupported device {dev}")
+    n = pos.shape[0]
+    build.require(acc, "acc", torch.int32, dev)
+    build.require(pos, "pos", torch.int32, dev, (n,))
+    if inc is not None:
+        build.require(inc, "inc", torch.int32, dev, (n,))
+    fn = build.entry("count_scatter", _SCATTER_ARGTYPES)
+    with torch.cuda.device(dev):
+        code = fn(
+            build.ptr(pos), build.ptr(inc) if inc is not None else None, n,
+            acc.shape[0], build.ptr(acc), build.stream(dev),
+        )
+    build.check("count_scatter", code)
+    build.LAUNCHES["count_scatter"] += 1
+    return acc
+
+
+
+def count_scatter(pos, inc, size: int):
+    """[N] positions + [N] increments → fresh [size] int32 counts."""
+    acc = torch.zeros(size, dtype=torch.int32, device=pos.device)
+    return count_scatter_into(acc, pos, inc)
+
+
+def disk_accum(cx, cy, r, group, n_groups: int, h: int, w: int):
+    """Per-pixel disk coverage counts by color group, [n_groups, h, w] int32."""
+    dev = cx.device
+    if dev.type == "cpu":
+        return disk_accum_ref(cx, cy, r, group, n_groups, h, w)
+    if dev.type != "cuda":
+        raise ValueError(f"disk_accum: unsupported device {dev}")
+    if not 0 <= n_groups <= MAX_GROUPS:
+        raise ValueError(f"disk_accum: n_groups={n_groups} outside [0, {MAX_GROUPS}]")
+    n = cx.shape[0]
+    for name, t, dt in (("cx", cx, torch.float32), ("cy", cy, torch.float32),
+                        ("r", r, torch.float32), ("group", group, torch.int32)):
+        build.require(t, name, dt, dev, (n,))
+    out = torch.empty((n_groups, h, w), dtype=torch.int32, device=dev)
+    fn = build.entry("disk_accum", _DISK_ARGTYPES)
+    with torch.cuda.device(dev):
+        code = fn(
+            build.ptr(cx), build.ptr(cy), build.ptr(r), build.ptr(group),
+            n, n_groups, h, w, build.ptr(out), build.stream(dev),
+        )
+    build.check("disk_accum", code)
+    build.LAUNCHES["disk_accum"] += 1
+    return out

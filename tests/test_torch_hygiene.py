@@ -1,0 +1,143 @@
+"""The port stands alone: every ``repro_torch`` module imports with ``jax``
+and the reference package ``repro`` blocked, no file of the port names
+either, ``chip_smoke.py`` imports neither, and the entry points refuse to
+fall back to the CPU when no card is present."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+_BLOCKED_IMPORT = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None      # any import of jax raises ImportError
+sys.modules["repro"] = None    # so does any import of the reference package
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+for name in repro_torch.__all__:
+    getattr(repro_torch, name)
+sys.path.insert(0, {root!r})
+import chip_smoke
+bad = sorted(
+    m for m, mod in sys.modules.items()
+    if mod is not None and (m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+)
+assert not bad, bad
+print(len(names))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_every_module_imports_without_jax_or_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT.format(root=str(ROOT))],
+        capture_output=True, text=True, env=_env(), timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20  # modules walked
+
+
+@pytest.mark.parametrize("pattern", [r"\bjax\b", r"(?<![\w/])repro\."])
+def test_no_port_file_names_jax_or_the_reference(pattern):
+    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu")]
+    files.append(ROOT / "chip_smoke.py")
+    hits = [
+        f"{p.relative_to(ROOT)}:{i}"
+        for p in files
+        for i, line in enumerate(p.read_text().splitlines(), 1)
+        if re.search(pattern, line, re.IGNORECASE)
+    ]
+    assert not hits, hits
+
+
+def test_device_none_raises_without_cuda(monkeypatch):
+    import repro_torch
+    from repro_torch.graph.generators import planted_partition
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    edges, _ = planted_partition(60, 3, 0.3, 0.02, seed=0)
+    cfg = repro_torch.default_config(60, len(edges), 3, iterations=2)
+    for call in (
+        lambda: repro_torch.biggraphvis(edges, 60, cfg),
+        lambda: repro_torch.layout(edges, np.ones(len(edges), np.float32),
+                                   np.ones(60, np.float32), 60, cfg.layout),
+        lambda: repro_torch.render_arrays(np.zeros((4, 2)), np.ones(4), np.zeros(4)),
+        lambda: repro_torch.stream_pipeline(edges, 60, cfg.scoda, cfg.cms, 60, 64),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_unported_knobs_raise_naming_the_roadmap():
+    import repro_torch
+    from repro_torch.graph.generators import planted_partition
+
+    edges, _ = planted_partition(60, 3, 0.3, 0.02, seed=0)
+    cfg = repro_torch.default_config(60, len(edges), 3, iterations=2)
+    for kwargs in ({"checkpoint": object()}, {"resume": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            repro_torch.biggraphvis(edges, 60, cfg, device="cpu", **kwargs)
+    for scfg in (repro_torch.StreamConfig(mesh=object()),
+                 repro_torch.StreamConfig(shard_detect=True),
+                 repro_torch.StreamConfig(validation=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            repro_torch.biggraphvis(edges, 60, cfg, scfg, device="cpu")
+
+
+def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
+    """A wrapper takes the plain version only for CPU tensors; any other
+    device is refused rather than moved."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.merge import ops as merge_ops
+    from repro_torch.kernels.raster import ops as raster_ops
+    from repro_torch.kernels.repulsion import ops as rep_ops
+
+    before = dict(build.LAUNCHES)
+    i = torch.zeros(4, dtype=torch.int32)
+    f = torch.zeros(4)
+    merge_ops.scatter_combine(i, i, i, f, 4)
+    rep_ops.repulsion(torch.zeros(4, 2), f, 80.0)
+    raster_ops.count_scatter_into(i.clone(), i)
+    raster_ops.disk_accum(f, f, f, i, 11, 3, 3)
+    assert build.LAUNCHES == before  # no kernel launch counted on the CPU
+    m = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rep_ops.repulsion(torch.zeros(4, 2, device="meta"), m, 80.0)
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    """Without CUDA the smoke exits non-zero and prints no result line; a
+    directory holding only the script fails too, even where CUDA is (here:
+    claimed) available."""
+    env = _env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    alone = shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    claim_cuda = (
+        "import runpy, torch; torch.cuda.is_available = lambda: True; "
+        f"runpy.run_path({str(alone)!r}, run_name='__main__')"
+    )
+    for cwd, cmd in ((ROOT, [str(ROOT / "chip_smoke.py")]), (tmp_path, ["-c", claim_cuda])):
+        out = subprocess.run(
+            [sys.executable, *cmd], cwd=cwd, capture_output=True,
+            text=True, env=env if cwd == ROOT else {**env, "PYTHONPATH": ""},
+            timeout=120,
+        )
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+    assert "not found" in out.stderr

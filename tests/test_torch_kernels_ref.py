@@ -1,0 +1,273 @@
+"""Plain PyTorch versions of the port's four CUDA kernels (K1–K4) against the
+reference package: its plain version and its Pallas kernel in interpret
+mode, on the CPU. Inputs are made with numpy from a seed and handed to both.
+
+K1 (merge scatter), K3 (count scatter) and K4 (disk coverage) are integer
+or exactly-placed results and must match bitwise. K2 (n-body repulsion)
+sums in another order than the reference, so it is held to
+``|f − f_ref| ≤ 1e-5·|f_ref| + 1e-5·max|f_ref|``: float32 rounding of
+sums over at most 1024 terms, with the reference's own Pallas/dense
+disagreement (tests/test_kernels.py) about ten times larger.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.kernels.merge.ref import merge_combine_ref as jax_merge_ref  # noqa: E402
+from repro.kernels.merge.sorted_merge import merge_combine_pallas  # noqa: E402
+from repro.kernels.raster.ref import count_scatter_ref as jax_count_ref  # noqa: E402
+from repro.kernels.raster.ref import disk_accum_ref as jax_disk_ref  # noqa: E402
+from repro.kernels.raster.splat import (  # noqa: E402
+    count_scatter_pallas,
+    disk_accum_pallas,
+)
+from repro.kernels.repulsion.nbody import repulsion_pallas  # noqa: E402
+from repro.kernels.repulsion.ref import repulsion_ref as jax_rep_ref  # noqa: E402
+
+from repro_torch.kernels.merge import ops as merge_ops  # noqa: E402
+from repro_torch.kernels.merge.ref import (  # noqa: E402
+    merge_combine_ref,
+    scatter_combine_ref,
+)
+from repro_torch.kernels.raster import ops as raster_ops  # noqa: E402
+from repro_torch.kernels.raster.ref import (  # noqa: E402
+    count_scatter_into_ref,
+    disk_accum_ref,
+)
+from repro_torch.kernels.repulsion import ops as rep_ops  # noqa: E402
+from repro_torch.kernels.repulsion.ref import (  # noqa: E402
+    repulsion_chunked,
+    repulsion_ref,
+)
+
+INT32_MAX = np.iinfo(np.int32).max
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+def _eq(got, want, msg=""):
+    np.testing.assert_array_equal(
+        np.asarray(got.numpy() if isinstance(got, torch.Tensor) else got),
+        np.asarray(want), err_msg=msg,
+    )
+
+
+# ------------------------------------------------------------ K1: merge
+def _sorted_run(pairs: dict, size: int, s_cap: int):
+    items = sorted(pairs.items())
+    a = np.full(size, s_cap, np.int32)
+    b = np.full(size, s_cap, np.int32)
+    w = np.zeros(size, np.float32)
+    for i, ((x, y), ww) in enumerate(items):
+        a[i], b[i], w[i] = x, y, ww
+    return a, b, w
+
+
+def _rand_pairs(rng, k: int, s_cap: int, max_w: int = 5) -> dict:
+    pairs = {}
+    while len(pairs) < k:
+        x, y = sorted(rng.choice(s_cap, size=2, replace=False))
+        pairs[(int(x), int(y))] = float(rng.integers(1, max_w + 1))
+    return pairs
+
+
+def _merge_case(case):
+    rng = np.random.default_rng(7)
+    s_cap, cap, c = 16, 32, 16
+    state = _rand_pairs(rng, 12, s_cap)
+    if case == "random":
+        s_cap, cap, c = 32, 100, 24
+        state, chunk = _rand_pairs(rng, 77, s_cap), _rand_pairs(rng, 20, s_cap)
+    elif case == "empty_chunk":
+        chunk = {}
+    elif case == "all_duplicate":
+        chunk = {p: 1.0 for p in list(state)[:c]}
+    elif case == "all_padding_state_too":
+        state, chunk = {}, {}
+    elif case == "state_at_capacity":
+        state = _rand_pairs(rng, cap, s_cap)
+        chunk = _rand_pairs(rng, c, s_cap)
+    elif case == "chunk_below_state":
+        state = {(8, j): 1.0 for j in range(9, 16)}
+        chunk = {(0, j): 2.0 for j in range(1, 8)}
+    elif case == "chunk_above_state":
+        state = {(0, j): 1.0 for j in range(1, 8)}
+        chunk = {(8, j): 2.0 for j in range(9, 16)}
+    else:  # s_cap at the packing limit: keys brush the sentinel
+        s_cap, cap, c = 1 << 16, 16, 8
+        top = s_cap - 1
+        state = {(0, 1): 1.0, (top - 1, top): 2.0}
+        chunk = {(0, 1): 1.0, (top - 2, top): 3.0, (top - 1, top): 1.0}
+    return _sorted_run(state, cap, s_cap) + _sorted_run(chunk, c, s_cap) + (s_cap,)
+
+
+@pytest.mark.parametrize("case", [
+    "random", "empty_chunk", "all_duplicate", "all_padding_state_too",
+    "state_at_capacity", "chunk_below_state", "chunk_above_state",
+    "s_cap_packing_limit",
+])
+def test_merge_plain_matches_reference_ref_and_pallas(case):
+    sa, sb, sw, ca, cb, cw, s_cap = _merge_case(case)
+    args = [jnp.asarray(x) for x in (sa, sb, sw, ca, cb, cw)]
+    want = jax_merge_ref(*args, s_cap)
+    pallas = merge_combine_pallas(*args, s_cap, tn=32, blk=32, interpret=True)
+    targs = [_t(x) for x in (sa, sb, sw, ca, cb, cw)]
+    for got in (merge_combine_ref(*targs, s_cap), merge_ops.merge_combine(*targs, s_cap)):
+        for g, w_, p in zip(got, want, pallas):
+            _eq(g, w_, case)
+            _eq(g, p, case)
+
+
+def test_merge_scatter_plain_drops_out_of_range_rows():
+    """K1's plain version on unsorted rows with negative and overflowing
+    positions: keys by max, weights by +, unhit slots (-1, -1, 0)."""
+    rng = np.random.default_rng(5)
+    n, cap = 400, 64
+    pos = rng.integers(-8, cap + 8, n).astype(np.int32)
+    pos[::5] = INT32_MAX
+    a =rng.integers(0, 50, n).astype(np.int32)
+    b = rng.integers(0, 50, n).astype(np.int32)
+    w = rng.integers(1, 5, n).astype(np.float32)
+    oa, ob, ow = scatter_combine_ref(_t(pos), _t(a), _t(b), _t(w), cap)
+    ea = np.full(cap, -1, np.int32)
+    eb = np.full(cap, -1, np.int32)
+    ew = np.zeros(cap, np.float32)
+    for p, x, y, z in zip(pos, a, b, w):
+        if 0 <= p < cap:
+            ea[p], eb[p] = max(ea[p], x), max(eb[p], y)
+            ew[p] += z
+    _eq(oa, ea)
+    _eq(ob, eb)
+    _eq(ow, ew)
+
+
+def test_merge_rejects_oversized_s_cap():
+    z = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="s_cap"):
+        merge_combine_ref(z, z, z.float(), z, z, z.float(), (1 << 16) + 1)
+
+
+# -------------------------------------------------------- K2: repulsion
+def _assert_forces_close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("n,tile", [(128, 128), (300, 128), (1024, 512)])
+@pytest.mark.parametrize("use_radii", [True, False])
+def test_repulsion_plain_matches_reference(n, tile, use_radii):
+    rng = np.random.default_rng(n + use_radii)
+    pos = rng.uniform(-100, 100, (n, 2)).astype(np.float32)
+    mass = rng.uniform(0.5, 4.0, n).astype(np.float32)
+    radii = rng.uniform(0.0, 2.0, n).astype(np.float32)
+    r = radii if use_radii else None
+    want = jax_rep_ref(jnp.asarray(pos), jnp.asarray(mass), 80.0,
+                       radii=jnp.asarray(r) if use_radii else None)
+    tr = _t(r) if use_radii else None
+    dense = repulsion_ref(_t(pos), _t(mass), 80.0, radii=tr)
+    chunked = repulsion_chunked(_t(pos), _t(mass), 80.0, radii=tr, chunk=96)
+    _assert_forces_close(dense, want)
+    _assert_forces_close(chunked, want)
+    _assert_forces_close(rep_ops.repulsion(_t(pos), _t(mass), 80.0, radii=tr), want)
+    if n % tile == 0:
+        pallas = repulsion_pallas(
+            jnp.asarray(pos), jnp.asarray(mass), jnp.asarray(radii), kr=80.0,
+            ti=tile, tj=tile, use_radii=use_radii, interpret=True,
+        )
+        _assert_forces_close(dense, pallas)
+
+
+def test_repulsion_padding_neutral_and_cpu_dispatch_above_2048():
+    """Mass-0 padding exerts and receives no force; above 2048 nodes the CPU
+    wrapper takes the j-chunked plain version, equal to the dense one."""
+    rng = np.random.default_rng(4)
+    n = 2100
+    pos = _t(rng.uniform(-50, 50, (n, 2)).astype(np.float32))
+    mass = _t(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    mass[n - 52:] = 0.0
+    got = rep_ops.repulsion(pos, mass, 80.0)
+    _assert_forces_close(got[: n - 52], repulsion_ref(pos[: n - 52], mass[: n - 52], 80.0))
+    assert float(got[n - 52:].abs().max()) == 0.0
+
+
+# ----------------------------------------------------- K3: count scatter
+def _count_case(case):
+    rng = np.random.default_rng(3)
+    if case == "random":
+        n, size = 777, 1000
+        pos = rng.integers(0, size, n).astype(np.int32)
+        pos[::7] = INT32_MAX
+        pos[::11] = size + 3
+    else:
+        n, size = 640, 256
+        if case == "one_pixel":
+            pos = np.full(n, 77, np.int32)
+        elif case == "all_padding":
+            pos = np.full(n, INT32_MAX, np.int32)
+        else:  # negatives must drop, not wrap
+            pos = rng.integers(-5, size, n).astype(np.int32)
+    inc = rng.integers(1, 6, n).astype(np.int32)
+    return pos, inc, size
+
+
+@pytest.mark.parametrize("case", ["random", "one_pixel", "all_padding", "negatives"])
+def test_count_scatter_plain_matches_reference(case):
+    pos, inc, size = _count_case(case)
+    want = jax_count_ref(jnp.asarray(pos), jnp.asarray(inc), size)
+    pallas = count_scatter_pallas(
+        jnp.asarray(pos), jnp.asarray(inc), size, tn=64, blk=128, interpret=True
+    )
+    got = raster_ops.count_scatter(_t(pos), _t(inc), size)
+    _eq(got, want, case)
+    _eq(got, pallas, case)
+    # Accumulating form with unit increments == reference with ones.
+    base = np.random.default_rng(9).integers(0, 3, size).astype(np.int32)
+    acc = _t(base.copy())
+    count_scatter_into_ref(acc, _t(pos), None)
+    want1 = base + np.asarray(
+        jax_count_ref(jnp.asarray(pos), jnp.ones(len(pos), jnp.int32), size)
+    )
+    _eq(acc, want1, case)
+
+
+# ------------------------------------------------------ K4: disk coverage
+def _disk_case(case):
+    rng = np.random.default_rng(11)
+    n, h, w = 96, 24, 40
+    g = rng.integers(0, 11, n).astype(np.int32)
+    if case == "random":
+        n, h, w = 300, 60, 100
+        cx = rng.uniform(-10, w + 10, n).astype(np.float32)
+        cy = rng.uniform(-10, h + 10, n).astype(np.float32)
+        r = rng.uniform(-2, 12, n).astype(np.float32)
+        g = rng.integers(-2, 13, n).astype(np.int32)  # dead / out-of-range groups
+    elif case == "one_pixel":
+        cx = np.full(n, 13.4, np.float32)
+        cy = np.full(n, 7.2, np.float32)
+        r = rng.uniform(0.5, 0.6, n).astype(np.float32)
+    elif case == "zero_extent":
+        cx = np.full(n, 20.0, np.float32)
+        cy = np.full(n, 12.0, np.float32)
+        r = rng.uniform(0.0, 6.0, n).astype(np.float32)
+    else:  # all dead
+        cx = rng.uniform(0, w, n).astype(np.float32)
+        cy = rng.uniform(0, h, n).astype(np.float32)
+        r = -rng.uniform(0, 2, n).astype(np.float32)
+    return cx, cy, r, g, h, w
+
+
+@pytest.mark.parametrize("case", ["random", "one_pixel", "zero_extent", "all_dead"])
+def test_disk_accum_plain_matches_reference(case):
+    cx, cy, r, g, h, w = _disk_case(case)
+    jargs = [jnp.asarray(x) for x in (cx, cy, r, g)]
+    want = jax_disk_ref(*jargs, 11, h, w)
+    pallas = disk_accum_pallas(*jargs, 11, h, w, tp=128, blk=64, interpret=True)
+    targs = [_t(x) for x in (cx, cy, r, g)]
+    for got in (disk_accum_ref(*targs, 11, h, w), raster_ops.disk_accum(*targs, 11, h, w)):
+        _eq(got, want, case)
+        _eq(got, pallas, case)
