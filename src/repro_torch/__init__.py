@@ -8,7 +8,8 @@ modules:
     from repro_torch import biggraphvis, default_config, render
 
 * pipeline — ``biggraphvis`` / ``default_config`` / ``BGVConfig`` /
-  ``BGVResult`` (with ``BGVResult.render``) / ``layout``
+  ``BGVResult`` (with ``BGVResult.render``) / ``full_layout_colored`` /
+  ``layout``
 * streaming engine — ``stream_pipeline`` / ``StreamConfig`` /
   ``StreamStats`` / ``EdgeStore`` sources (``as_edge_store``)
 * rendering — ``render`` / ``render_arrays`` / ``RenderConfig``
@@ -34,6 +35,7 @@ _EXPORTS = {
     "biggraphvis": "repro_torch.core.pipeline",
     "default_config": "repro_torch.core.pipeline",
     "enable_tracing": "repro_torch.obs",
+    "full_layout_colored": "repro_torch.core.pipeline",
     "get_tracer": "repro_torch.obs",
     "layout": "repro_torch.core.forceatlas2",
     "render": "repro_torch.render",

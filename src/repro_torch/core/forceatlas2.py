@@ -1,5 +1,4 @@
-"""ForceAtlas2 (Jacomy et al. 2014) — paper §3.1 / Algorithm 1, ``"exact"``
-repulsion backend.
+"""ForceAtlas2 (Jacomy et al. 2014) — paper §3.1 / Algorithm 1.
 
 Force model:
   * gravity            f_g(i)  = kg · m_i · (towards origin)
@@ -7,21 +6,38 @@ Force model:
   * repulsion          f_r(i,j)= kr · m_i · m_j / d(i,j)       (along unit vec)
   * adaptive speed     swing/traction + global & local speeds  (Algorithm 1 l.23)
 
-with mass m_i = community size for supernodes (paper §4.1: radius ∝ √size;
-repulsion distance shifted by radii so big supernodes get the space they
-need). Repulsion is the exact O(n²) pairwise sum: kernel K2 on the card
-(``kernels/repulsion``), its plain version on the CPU. The ``"grid"``,
-``"grid_pallas"`` and ``"grid_dense"`` backends are not in this slice and
-raise.
+with mass m_i = deg_i + 1 for plain graphs and m_i = community size for
+supernodes (paper §4.1: radius ∝ √size; repulsion distance shifted by radii
+so big supernodes get the space they need).
+
+Repulsion backends (``repulsion=``); the device of the tensors picks the
+kernels, so there is no backend per kernel:
+
+  * "exact"       — the O(n²) pairwise sum: kernel K2 on the card
+                    (``kernels/repulsion``), its plain version on the CPU.
+                    The only backend that honours ``use_radii``; right for
+                    supergraphs.
+  * "grid"        — uniform-grid monopole far field + banded same-cell near
+                    field (``kernels/grid``): kernels K5, K6 and K7 on the
+                    card. O(n·(G² + W)) work — the full-graph path.
+  * "grid_pallas" — the same as "grid". The reference uses the name to
+                    force its TPU kernels; here the device already decides.
+  * "grid_dense"  — the dense baseline, plain torch only, materialising an
+                    [n, G², 2] far-field tensor per iteration (≈ 22 GB at
+                    685,230 nodes with G = 64). Kept as a semantics oracle
+                    for tests; never run it at full width.
 
 ``layout`` hoists everything reusable out of the iteration loop: radii
 √mass are computed once, and attraction edges are sorted once into a
 directed source-sorted layout whose per-iteration sum is one
-``index_add_``. The loop is Python; with ``stop_tolerance`` > 0 it stops
-once the controller's global swing falls to ``stop_tolerance`` × global
-traction (after ``min_iterations``), leaving the remaining trace rows zero
-— frozen iterations do no work. That test reads one flag from the device
-per iteration, so it is only paid when the stop is enabled.
+``index_add_``. The grid backends carry (cell ids, cell-sorted order) through
+the loop and rebuild them every ``grid_rebuild`` iterations (iteration 0
+always rebuilds; 1 = every iteration). The loop is Python; with
+``stop_tolerance`` > 0 it stops once the controller's global swing falls to
+``stop_tolerance`` × global traction (after ``min_iterations``), leaving the
+remaining trace rows zero — frozen iterations do no work. That test reads
+one flag from the device per iteration, so it is only paid when the stop is
+enabled.
 
 ``nan_guard`` rolls back an iteration whose forces hold a non-finite value
 (positions and controller memory kept, global speed halved) and traces it
@@ -35,11 +51,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.grid import ops as grid_ops
 from repro_torch.kernels.repulsion import ops as repulsion_ops
 from repro_torch.obs.trace import get_tracer
 
 _GOLDEN_ANGLE = 2.3999632297286533  # π(3 − √5)
-_ROADMAP_GRID = "ROADMAP.md, modules to port, item 9 (full-graph layout)"
+_BACKENDS = ("exact", "grid", "grid_pallas", "grid_dense")
 
 
 @dataclass(frozen=True)
@@ -49,7 +66,10 @@ class FA2Config:
     repulsion_k: float = 80.0  # paper §5.1: kr = 80, kg = 1 for all networks
     strong_gravity: bool = False
     jitter_tolerance: float = 1.0  # τ in the FA2 speed controller
-    repulsion: str = "exact"  # only "exact" in this slice
+    repulsion: str = "exact"  # "exact" | "grid" | "grid_pallas" | "grid_dense"
+    grid_size: int = 64
+    grid_window: int = 32  # near-field band half-width of grid repulsion
+    grid_rebuild: int = 1  # re-bin/re-sort cells every k iterations
     use_radii: bool = True  # supernode radii shift repulsion distances
     seed: int = 0
     dtype: str = "float32"  # position/force dtype of the layout loop
@@ -61,13 +81,10 @@ class FA2Config:
 
 
 def _check_backend(cfg: FA2Config) -> None:
-    if cfg.repulsion != "exact":
-        if cfg.repulsion in ("grid", "grid_pallas", "grid_dense"):
-            raise NotImplementedError(
-                f"repro_torch does not port repulsion={cfg.repulsion!r} yet: "
-                f"{_ROADMAP_GRID}"
-            )
-        raise ValueError(f"unknown repulsion backend {cfg.repulsion!r}")
+    if cfg.repulsion not in _BACKENDS:
+        raise ValueError(
+            f"unknown repulsion backend {cfg.repulsion!r}: expected one of {_BACKENDS}"
+        )
 
 
 def init_positions(n: int, generator: torch.Generator, scale: float = 1000.0,
@@ -202,8 +219,67 @@ def _attraction_sorted(pos, src, dst, w, n: int):
     return out[:n]
 
 
-def _repulsion_forces(pos, mass, radii, cfg: FA2Config):
+def _pair_force(dpos, mi, mj, kr):
+    """kr·mi·mj/d along the unit vector, for a [..., 2] displacement."""
+    d2 = torch.sum(dpos * dpos, dim=-1)
+    mag = kr * mi * mj / torch.clamp(d2, min=1e-4)  # (1/d along unit) = 1/d²·vec
+    return mag[..., None] * dpos
+
+
+def _grid_repulsion(pos, mass, cfg: FA2Config):
+    """Dense uniform-grid repulsion — the ``grid_dense`` baseline.
+
+    The monopole far field and banded near field of ``kernels/grid`` in the
+    fully materialised form: an [n, G², 2] far-field tensor (the own-cell
+    monopole added and subtracted again) and an [n, 2W+1] near-field gather
+    per call. Plain torch on any device; a semantics oracle for tests.
+    """
+    g = cfg.grid_size
+    window = cfg.grid_window
+    n = pos.shape[0]
+    kr = cfg.repulsion_k
+    dev = pos.device
+    lo = pos.min(dim=0).values
+    hi = pos.max(dim=0).values
+    extent = torch.clamp(hi - lo, min=1e-6)
+    cell2d = torch.clamp(((pos - lo) / extent * g).to(torch.int32), 0, g - 1)
+    cell = (cell2d[:, 0] * g + cell2d[:, 1]).long()
+    n_cells = g * g
+    cmass = torch.zeros(n_cells, dtype=pos.dtype, device=dev).index_add_(0, cell, mass)
+    cpos = torch.zeros((n_cells, 2), dtype=pos.dtype, device=dev).index_add_(
+        0, cell, pos * mass[:, None])
+    ccent = cpos / torch.clamp(cmass, min=1e-9)[:, None]
+
+    # Far field: node → every cell monopole, then the own cell subtracted.
+    diff = pos[:, None, :] - ccent[None, :, :]  # [n, G², 2]
+    force = torch.sum(_pair_force(diff, mass[:, None], cmass[None, :], kr), dim=1)
+    force = force - _pair_force(pos - ccent[cell], mass, cmass[cell], kr)
+
+    # Exact near field: same-cell neighbours are contiguous after sorting.
+    order = torch.argsort(cell, stable=True)
+    inv = torch.empty(n, dtype=torch.long, device=dev)
+    inv[order] = torch.arange(n, device=dev)
+    pos_s, mass_s, cell_s = pos[order], mass[order], cell[order]
+    p = torch.arange(n, device=dev)
+    raw = p[:, None] + torch.arange(-window, window + 1, device=dev)[None, :]
+    in_range = (raw >= 0) & (raw < n)  # clipping would duplicate endpoints
+    nbr = torch.clamp(raw, 0, n - 1)
+    same = in_range & (cell_s[nbr] == cell_s[:, None]) & (nbr != p[:, None])
+    dn = pos_s[:, None, :] - pos_s[nbr]
+    fn = _pair_force(dn, mass_s[:, None], torch.where(same, mass_s[nbr], 0.0), kr)
+    return force + torch.sum(fn, dim=1)[inv]
+
+
+def _repulsion_forces(pos, mass, radii, cfg: FA2Config, cell=None, order=None):
+    """One iteration's repulsion on the configured backend."""
     _check_backend(cfg)
+    if cfg.repulsion == "grid_dense":
+        return _grid_repulsion(pos, mass, cfg)
+    if cfg.repulsion in ("grid", "grid_pallas"):
+        return grid_ops.grid_repulsion(
+            pos, mass, cfg.repulsion_k, cfg.grid_size, cfg.grid_window,
+            cell=cell, order=order,
+        )
     return repulsion_ops.repulsion(
         pos, mass, cfg.repulsion_k, radii=radii if cfg.use_radii else None
     )
@@ -263,13 +339,18 @@ def recovery_count(trace) -> int:
     return int((np.asarray(trace)[:, 0] < 0).sum())
 
 
-def step(state, edges, weights, mass, radii, cfg: FA2Config, n: int):
+def step(state, edges, weights, mass, radii, cfg: FA2Config, n: int,
+         cell=None, order=None):
     """One FA2 iteration (Algorithm 1 body): forces → speeds → displacement.
-    Returns ``(state, trace_row)``."""
+
+    For the grid backends, ``(cell, order)`` from ``kernels/grid.bin_and_sort``
+    skip the per-call re-bin and sort (a caller of repeated steps refreshes
+    them every ``cfg.grid_rebuild`` steps, as ``layout`` does). Returns
+    ``(state, trace_row)``."""
     pos = state[0]
     f = _gravity(pos, mass, cfg)
     f = f + _attraction(pos, edges, weights, n)
-    f = f + _repulsion_forces(pos, mass, radii, cfg)
+    f = f + _repulsion_forces(pos, mass, radii, cfg, cell=cell, order=order)
     return _apply_speed_guarded(state, f, mass, cfg)
 
 
@@ -299,12 +380,16 @@ def layout(edges, weights, mass, n: int, cfg: FA2Config, pos0=None, device=None)
         state = (pos, torch.zeros_like(pos), torch.ones((), dtype=dtype, device=device))
         trace = torch.zeros((cfg.iterations, 3), dtype=dtype, device=device)
         adaptive = cfg.stop_tolerance > 0.0
+        grid_state = cfg.repulsion in ("grid", "grid_pallas")
+        cell = order = None
         it_run = 0
         for it in range(cfg.iterations):
             p = state[0]
+            if grid_state and (cfg.grid_rebuild <= 1 or it % cfg.grid_rebuild == 0):
+                cell, order = grid_ops.bin_and_sort(p, cfg.grid_size)
             f = _gravity(p, mass, cfg)
             f = f + _attraction_sorted(p, src, dst, w2, n)
-            f = f + _repulsion_forces(p, mass, radii, cfg)
+            f = f + _repulsion_forces(p, mass, radii, cfg, cell=cell, order=order)
             state, row = _apply_speed_guarded(state, f, mass, cfg)
             trace[it] = row
             it_run += 1

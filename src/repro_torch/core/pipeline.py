@@ -4,13 +4,16 @@
                 ──► ForceAtlas2 layout ──► colored supernode drawing
                 ──► rasterized image (``BGVResult.render``)
 
+plus the paper's second output mode, ``full_layout_colored``: a full-graph
+ForceAtlas2 layout (grid repulsion above 4,096 nodes) colored by the
+detected communities (§4.3).
+
 Every edge-consuming stage runs through the streaming chunked-edge engine
 (core/stream.py): ``biggraphvis()`` processes the edge list as one chunk by
 default and as fixed-size chunks (device residency independent of |E|)
 when given a ``StreamConfig``. Both produce identical results.
 
-Not in this slice: ``full_layout_colored`` (it needs the grid repulsion
-backend) and checkpoint/resume.
+Not in this slice: checkpoint/resume.
 """
 from __future__ import annotations
 
@@ -23,10 +26,11 @@ import torch
 from repro_torch.core import cms as cms_lib
 from repro_torch.core import forceatlas2 as fa2
 from repro_torch.core.coloring import color_groups
-from repro_torch.core.scoda import ScodaConfig
+from repro_torch.core.scoda import ScodaConfig, detect_communities
 from repro_torch.core.stream import StreamConfig, StreamStats, stream_pipeline
-from repro_torch.core.supergraph import Supergraph
+from repro_torch.core.supergraph import Supergraph, build_supergraph
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.graph.utils import degrees, pad_edges
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import get_tracer
 
@@ -95,21 +99,31 @@ def default_config(
     iterations: int = 100,
     s_cap: int | None = None,
     repulsion: str = "exact",
+    grid_size: int = 64,
+    grid_window: int = 32,
+    grid_rebuild: int = 1,
     stop_tolerance: float = 0.0,
     min_iterations: int = 0,
     init: str = "random",
     nan_guard: bool = False,
 ) -> BGVConfig:
     """Paper-shaped defaults: 4 hash rows, CMS cols = ``default_cms_cols``,
-    δ = mode degree. Only ``repulsion="exact"`` runs in this slice; the
-    grid backends and their knobs come with their own slice.
+    δ = mode degree.
+
+    ``repulsion``/``grid_*`` select the FA2 backend of the supergraph layout
+    and seed the grid knobs ``full_layout_colored`` reuses ("exact" for
+    supergraphs, "grid" for full graphs). ``stop_tolerance``/
+    ``min_iterations`` enable the adaptive stop, ``init`` picks the starting
+    positions ("random" | "degree" | "bfs") and ``nan_guard`` the divergence
+    sentinel; ``full_layout_colored`` inherits them too.
     """
     cols = default_cms_cols(n_edges)
     return BGVConfig(
         scoda=ScodaConfig(degree_threshold=degree_threshold, rounds=rounds),
         cms=cms_lib.CMSConfig(rows=4, cols=cols),
         layout=fa2.FA2Config(
-            iterations=iterations, repulsion=repulsion,
+            iterations=iterations, repulsion=repulsion, grid_size=grid_size,
+            grid_window=grid_window, grid_rebuild=grid_rebuild,
             stop_tolerance=stop_tolerance, min_iterations=min_iterations,
             init=init, nan_guard=nan_guard,
         ),
@@ -209,3 +223,73 @@ def biggraphvis(source, n_nodes: int, cfg: BGVConfig,
         else (stream.obs if stream is not None else None),
         device=device,
     )
+
+
+def full_layout_colored(edges_np: np.ndarray, n_nodes: int, cfg: BGVConfig,
+                        iterations: int = 500, stop_tolerance: float | None = None,
+                        min_iterations: int | None = None,
+                        device=None) -> tuple[np.ndarray, np.ndarray]:
+    """The paper's comparison path on ``device`` (None = CUDA): a full-graph
+    FA2 layout colored by the BigGraphVis communities. Returns host arrays
+    ``(pos [n, 2], groups [n])``.
+
+    ``cfg.layout.repulsion == "exact"`` (the supergraph default) counts as
+    unset here and becomes "grid" above 4,096 nodes (an exact full-graph
+    layout at larger n is a deliberate O(n²) choice: call ``fa2.layout``
+    for that). ``stop_tolerance``/``min_iterations`` override the config's
+    adaptive-stop knobs for this call; None inherits them.
+
+    Stages run in the spans ``layout.full.detect``, ``layout.full.supergraph``
+    and ``layout.full``, each ending in a device synchronize so its duration
+    is the device's; the gauge ``layout.full_iterations_run`` holds the live
+    iteration count.
+    """
+    device = resolve_device(device)
+    tr = cfg.obs if cfg.obs is not None else get_tracer()
+    e_cap = len(edges_np)
+    edges = torch.as_tensor(pad_edges(edges_np, e_cap, n_nodes), device=device)
+    with tr.span("layout.full.detect", n=n_nodes, edges=e_cap):
+        deg = degrees(edges, n_nodes)
+        labels, _ = detect_communities(edges, n_nodes, cfg.scoda)
+        synchronize(device)
+    with tr.span("layout.full.supergraph", s_cap=cfg.s_cap):
+        sg = build_supergraph(edges, labels, deg, n_nodes, cfg.s_cap,
+                              cfg.max_super_edges, cfg.cms)
+        synchronize(device)
+    repulsion = (
+        cfg.layout.repulsion
+        if cfg.layout.repulsion != "exact"
+        else ("grid" if n_nodes > 4096 else "exact")
+    )
+    lcfg = fa2.FA2Config(
+        iterations=iterations,
+        repulsion=repulsion,
+        grid_size=cfg.layout.grid_size,
+        grid_window=cfg.layout.grid_window,
+        grid_rebuild=cfg.layout.grid_rebuild,
+        use_radii=False,
+        gravity=cfg.layout.gravity,
+        repulsion_k=cfg.layout.repulsion_k,
+        dtype=cfg.layout.dtype,
+        stop_tolerance=(
+            cfg.layout.stop_tolerance if stop_tolerance is None else stop_tolerance
+        ),
+        min_iterations=(
+            cfg.layout.min_iterations if min_iterations is None else min_iterations
+        ),
+        init=cfg.layout.init,
+        init_bfs_rounds=cfg.layout.init_bfs_rounds,
+        nan_guard=cfg.layout.nan_guard,
+    )
+    mass = deg.to(torch.float32) + 1.0
+    w = torch.ones(edges.shape[0], dtype=torch.float32, device=device)
+    with tr.span("layout.full", n=n_nodes, repulsion=repulsion):
+        pos, trace, iters_run = fa2.layout(edges, w, mass, n_nodes, lcfg, device=device)
+        synchronize(device)
+    if lcfg.nan_guard:
+        recovered = fa2.recovery_count(trace)
+        if recovered:
+            REGISTRY.counter("errors.fa2_recoveries").inc(recovered)
+    REGISTRY.gauge("layout.full_iterations_run").set(int(iters_run))
+    node_groups = color_groups(sg.sizes)[torch.clamp(sg.labels, 0, cfg.s_cap - 1).long()]
+    return pos.cpu().numpy(), node_groups.cpu().numpy()

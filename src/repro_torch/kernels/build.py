@@ -31,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("merge_scatter", "repulsion_nbody", "count_scatter", "disk_accum")
+KERNELS = ("merge_scatter", "repulsion_nbody", "count_scatter", "disk_accum",
+           "far_field", "near_field", "segment_sum", "cms_update")
 # Launches per kernel in this process: each wrapper adds one where it
 # launches its kernel, and nowhere else (a run reads them to show which
 # kernels its path went through; set them to 0 before the run).

@@ -140,6 +140,8 @@ def test_single_step_matches():
 
 
 def test_random_and_bfs_inits_are_seeded_and_grid_backends_raise():
+    """The seeded inits repeat; an unknown repulsion backend raises. (The
+    grid backends run since the full-graph slice: test_torch_full_layout.py.)"""
     edges, w, mass, _, n = _inputs(seed=6)
     for init in ("random", "bfs"):
         cfg = fa2.FA2Config(init=init, seed=3)
@@ -147,7 +149,7 @@ def test_random_and_bfs_inits_are_seeded_and_grid_backends_raise():
         b = fa2.initial_positions(torch.as_tensor(edges), torch.as_tensor(mass), n, cfg)
         assert a.shape == (n, 2) and torch.isfinite(a).all()
         assert torch.equal(a, b)
-    for backend in ("grid", "grid_pallas", "grid_dense"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for backend in ("barnes_hut", "Grid", ""):
+        with pytest.raises(ValueError, match="unknown repulsion backend"):
             fa2.layout(edges, w, mass, n, fa2.FA2Config(repulsion=backend),
                        device="cpu")

@@ -79,6 +79,7 @@ def test_device_none_raises_without_cuda(monkeypatch):
                                    np.ones(60, np.float32), 60, cfg.layout),
         lambda: repro_torch.render_arrays(np.zeros((4, 2)), np.ones(4), np.zeros(4)),
         lambda: repro_torch.stream_pipeline(edges, 60, cfg.scoda, cfg.cms, 60, 64),
+        lambda: repro_torch.full_layout_colored(edges, 60, cfg, iterations=2),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -103,22 +104,38 @@ def test_unported_knobs_raise_naming_the_roadmap():
 def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     """A wrapper takes the plain version only for CPU tensors; any other
     device is refused rather than moved."""
+    from repro_torch.core import cms as cms_lib
     from repro_torch.kernels import build
+    from repro_torch.kernels.cms import ops as cms_ops
+    from repro_torch.kernels.grid import ops as grid_ops
     from repro_torch.kernels.merge import ops as merge_ops
     from repro_torch.kernels.raster import ops as raster_ops
     from repro_torch.kernels.repulsion import ops as rep_ops
+    from repro_torch.kernels.segment import ops as seg_ops
 
     before = dict(build.LAUNCHES)
+    assert set(before) == set(build.KERNELS) and len(before) == 8
     i = torch.zeros(4, dtype=torch.int32)
     f = torch.zeros(4)
+    p = torch.zeros(4, 2)
     merge_ops.scatter_combine(i, i, i, f, 4)
-    rep_ops.repulsion(torch.zeros(4, 2), f, 80.0)
+    rep_ops.repulsion(p, f, 80.0)
     raster_ops.count_scatter_into(i.clone(), i)
     raster_ops.disk_accum(f, f, f, i, 11, 3, 3)
+    grid_ops.far_field(p, f, i, p, f, 80.0)
+    grid_ops.near_field_sorted(p, f, i, 80.0, 2)
+    seg_ops.segment_sum(p, i, 4)
+    cfg = cms_lib.CMSConfig(rows=2, cols=8)
+    cms_ops.update(cms_lib.init_sketch(cfg), i, f, cfg)
     assert build.LAUNCHES == before  # no kernel launch counted on the CPU
     m = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         rep_ops.repulsion(torch.zeros(4, 2, device="meta"), m, 80.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        seg_ops.segment_sum(torch.zeros(4, 3, device="meta"), i.to("meta"), 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cms_ops.update_hashed(torch.zeros(2, 8, device="meta"),
+                              torch.zeros(2, 4, dtype=torch.int32, device="meta"), m)
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

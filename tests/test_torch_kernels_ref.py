@@ -1,6 +1,7 @@
-"""Plain PyTorch versions of the port's four CUDA kernels (K1–K4) against the
-reference package: its plain version and its Pallas kernel in interpret
-mode, on the CPU. Inputs are made with numpy from a seed and handed to both.
+"""Plain PyTorch versions of the port's CUDA kernels K1–K4, K7 and K8
+against the reference package: its plain version and its Pallas kernel in
+interpret mode, on the CPU. Inputs are made with numpy from a seed and
+handed to both. (K5 and K6, the grid fields, are in test_torch_grid.py.)
 
 K1 (merge scatter), K3 (count scatter) and K4 (disk coverage) are integer
 or exactly-placed results and must match bitwise. K2 (n-body repulsion)
@@ -8,6 +9,14 @@ sums in another order than the reference, so it is held to
 ``|f − f_ref| ≤ 1e-5·|f_ref| + 1e-5·max|f_ref|``: float32 rounding of
 sums over at most 1024 terms, with the reference's own Pallas/dense
 disagreement (tests/test_kernels.py) about ten times larger.
+
+K7 (segment sum) adds each row into its segment in row order, as the
+reference's scatter does on the CPU: bitwise against its plain version.
+Against the Pallas kernel, whose one-hot product sums in another order,
+``|Δ| ≤ 1e-5·Σ|data|`` per segment (float32 rounding of sums of ≤ 2,048
+rows), and bf16 data within 2e-2 relative (one bf16 rounding of the sum).
+K8 (CMS update) on integer-valued weights is exact in any order, so
+bitwise; on float weights within 1e-5·Σ|w| per bucket.
 """
 import numpy as np
 import pytest
@@ -23,8 +32,19 @@ from repro.kernels.raster.splat import (  # noqa: E402
     count_scatter_pallas,
     disk_accum_pallas,
 )
+from repro.core import cms as jax_cms  # noqa: E402
+from repro.kernels.cms import ops as jax_cms_ops  # noqa: E402
+from repro.kernels.cms.cms_update import cms_update_pallas  # noqa: E402
+from repro.kernels.cms.ref import cms_update_ref as jax_cms_ref  # noqa: E402
 from repro.kernels.repulsion.nbody import repulsion_pallas  # noqa: E402
 from repro.kernels.repulsion.ref import repulsion_ref as jax_rep_ref  # noqa: E402
+from repro.kernels.segment.ref import segment_sum_ref as jax_seg_ref  # noqa: E402
+from repro.kernels.segment.seg_matmul import segment_sum_pallas  # noqa: E402
+
+from repro_torch.convert import config_from_reference  # noqa: E402
+from repro_torch.core import cms as cms_lib  # noqa: E402
+from repro_torch.kernels.cms import ops as cms_ops  # noqa: E402
+from repro_torch.kernels.cms.ref import cms_update_ref  # noqa: E402
 
 from repro_torch.kernels.merge import ops as merge_ops  # noqa: E402
 from repro_torch.kernels.merge.ref import (  # noqa: E402
@@ -41,6 +61,8 @@ from repro_torch.kernels.repulsion.ref import (  # noqa: E402
     repulsion_chunked,
     repulsion_ref,
 )
+from repro_torch.kernels.segment import ops as seg_ops  # noqa: E402
+from repro_torch.kernels.segment.ref import segment_sum_ref  # noqa: E402
 
 INT32_MAX = np.iinfo(np.int32).max
 
@@ -271,3 +293,112 @@ def test_disk_accum_plain_matches_reference(case):
     for got in (disk_accum_ref(*targs, 11, h, w), raster_ops.disk_accum(*targs, 11, h, w)):
         _eq(got, want, case)
         _eq(got, pallas, case)
+
+
+# ------------------------------------------------------- K7: segment sum
+def _seg_case(case):
+    rng = np.random.default_rng(13)
+    e, d, n = 2048, 3, 80
+    data = rng.standard_normal((e, d)).astype(np.float32)
+    if case == "random":
+        seg = rng.integers(0, n, e)
+    elif case == "out_of_range_and_negative":
+        seg = rng.integers(-6, n + 6, e)
+        seg[::9] = np.iinfo(np.int32).min
+    elif case == "sorted_with_trash_tail":
+        seg = np.sort(rng.integers(0, n, e))
+        seg[-40:] = n  # the edge-padding trash id sorts last and drops
+    elif case == "one_segment":
+        seg = np.full(e, 7)
+    elif case == "all_dropped":
+        seg = np.full(e, n)
+    else:  # wide rows, few segments
+        e, d, n = 500, 64, 5
+        data = rng.standard_normal((e, d)).astype(np.float32)
+        seg = rng.integers(0, n, e)
+    return data, seg.astype(np.int32), n
+
+
+@pytest.mark.parametrize("case", [
+    "random", "out_of_range_and_negative", "sorted_with_trash_tail",
+    "one_segment", "all_dropped", "wide_rows",
+])
+def test_segment_sum_plain_matches_reference(case):
+    data, seg, n = _seg_case(case)
+    is_sorted = bool(np.all(np.diff(seg) >= 0))
+    want = jax_seg_ref(jnp.asarray(data), jnp.asarray(seg), n,
+                       indices_are_sorted=is_sorted)
+    for got in (segment_sum_ref(_t(data), _t(seg), n, is_sorted),
+                seg_ops.segment_sum(_t(data), _t(seg), n, indices_are_sorted=is_sorted),
+                seg_ops.segment_sum(_t(data), _t(seg), n)):
+        _eq(got, want, case)
+    # The Pallas kernel sums each segment in another order.
+    pallas = np.asarray(segment_sum_pallas(jnp.asarray(data), jnp.asarray(seg), n,
+                                           tn=128, blk=256, interpret=True))
+    keep = (seg >= 0) & (seg < n)
+    scale = np.zeros((n, data.shape[1]), np.float64)
+    np.add.at(scale, seg[keep], np.abs(data[keep]).astype(np.float64))
+    got = segment_sum_ref(_t(data), _t(seg), n).numpy()
+    assert np.all(np.abs(got.astype(np.float64) - pallas) <= 1e-5 * scale), case
+
+
+def test_segment_sum_bf16_accumulates_in_float32():
+    rng = np.random.default_rng(21)
+    data = rng.standard_normal((1000, 8)).astype(np.float32)
+    seg = rng.integers(0, 100, 1000).astype(np.int32)
+    jdata = jnp.asarray(data).astype(jnp.bfloat16)
+    want = segment_sum_pallas(jdata, jnp.asarray(seg), 100, tn=128, blk=256,
+                              interpret=True)
+    got = segment_sum_ref(torch.as_tensor(np.array(jdata.astype(jnp.float32)))
+                          .to(torch.bfloat16), _t(seg), 100)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=2e-2, atol=1e-2)
+
+
+# -------------------------------------------------------- K8: CMS update
+@pytest.mark.parametrize("rows,cols,n", [(1, 128, 700), (4, 512, 2000), (4, 5000, 4096)])
+def test_cms_update_plain_matches_reference(rows, cols, n):
+    rng = np.random.default_rng(rows * cols)
+    h = rng.integers(0, cols, (rows, n)).astype(np.int32)
+    h[:, ::7] = -1  # padding, in every row, as ops.update produces it
+    sketch = rng.integers(0, 50, (rows, cols)).astype(np.float32)
+    wi = rng.integers(0, 9, n).astype(np.float32)
+    args = [jnp.asarray(x) for x in (sketch, h, wi)]
+    want = jax_cms_ref(*args)
+    pallas = cms_update_pallas(*args, cols, blk=256, interpret=True)
+    for got in (cms_update_ref(_t(sketch), _t(h), _t(wi)),
+                cms_ops.update_hashed(_t(sketch), _t(h), _t(wi))):
+        _eq(got, want)
+        _eq(got, pallas)
+    # Float weights: any order, rounded.
+    wf = rng.uniform(0, 3, n).astype(np.float32)
+    want = np.asarray(jax_cms_ref(jnp.asarray(sketch), jnp.asarray(h), jnp.asarray(wf)))
+    got = cms_update_ref(_t(sketch), _t(h), _t(wf)).numpy()
+    assert np.all(np.abs(got - want) <= 1e-5 * (sketch + wf.sum()))
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_padding", "one_key"])
+def test_cms_ops_update_matches_reference_ops(case):
+    rng = np.random.default_rng(11)
+    cfg = jax_cms.CMSConfig(rows=4, cols=256, seed=3)
+    keys = rng.integers(0, 100, 500).astype(np.int32)
+    if case == "mixed":
+        keys[::5] = -1
+    elif case == "all_padding":
+        keys[:] = -1
+    else:
+        keys[:] = 42
+    w = rng.integers(1, 6, 500).astype(np.float32)
+    s0 = jax_cms.init_sketch(cfg)
+    want_ref = jax_cms_ops.update(s0, jnp.asarray(keys), jnp.asarray(w), cfg, backend="ref")
+    want_pal = jax_cms_ops.update(s0, jnp.asarray(keys), jnp.asarray(w), cfg,
+                                  backend="interpret")
+    tcfg = config_from_reference(cfg)
+    got = cms_ops.update(cms_lib.init_sketch(tcfg), _t(keys), _t(w), tcfg)
+    _eq(got, want_ref, case)
+    _eq(got, want_pal, case)
+    # The pipeline's own update (index_put_) gives the same counts.
+    _eq(got, cms_lib.update(cms_lib.init_sketch(tcfg), _t(keys), _t(w), tcfg), case)
+    if case == "all_padding":
+        assert not got.any()
