@@ -9,13 +9,15 @@ Phases, each printing its wall seconds:
 
 1. card      — ``nvidia-smi`` name and power limit.
 2. build     — compiles the eight kernels from ``src/repro_torch/csrc``
-               (one ``nvcc`` per source, all at once).
+               (one ``nvcc`` per source, all at once), prints each one's
+               registers and fails if one spills.
 3. kernels   — each kernel against its plain PyTorch version on the card,
                on adversarial inputs and on synthetic inputs at the paths'
                shapes: K1, K3, K4, K6, K8 bitwise, K2 and K5 within their
-               tolerances, K7 bitwise against its plain version on the CPU,
-               within its bound of the one on the card, and bitwise run to
-               run.
+               tolerances and bitwise run to run (K2 also near contact,
+               where eff = d − ri − rj cancels), K7 bitwise against its
+               plain version on the CPU, within its bound of the one on the
+               card, and bitwise run to run.
 4. main path — ``biggraphvis`` + ``BGVResult.render`` on a planted-partition
                graph at web-BerkStan's size (685,230 nodes, ≈ 6.6 M edges),
                with every launch counter set to 0 just before and read just
@@ -49,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -75,11 +78,14 @@ PEAK_F32_PER_S = 67e12
 # radii only) and max ε (1); mi·mj (1); eff·d (1); divide (1); f += mag·dx,
 # mag·dy (4). kr·mi is hoisted per node.
 K2_OPS_PER_PAIR = {True: 17, False: 15}
-# Per node i and axis: |f_kernel − f_plain| ≤ K2_TOL · Σ_j |f_ij|. Each pair
-# force rounds identically in both, so only the order of the f32 sum over j
-# differs. The kernel adds 256-node tile sums, erring by at most about
-# (256 + n/256) · 2⁻²⁴ of Σ|f_ij| (3.1e-5 at n = 65,536, the largest
-# s_layout); the plain version's 1,024-node chunks of tree sums err less.
+# Per node i and axis: |f_kernel − f_plain| ≤ K2_TOL · Σ_j |f_ij|. Both
+# compute d², d and eff with the same roundings (near contact eff cancels,
+# so the kernel keeps them exact); the kernel's approximate reciprocal
+# (≤ 2⁻²³) and its hoisting of kr·m_i move each pair force by a few ulp.
+# It adds 256-source tile sums, then a slice's tiles, then the S slices:
+# at most about (8 + 256 + T/S + S) · 2⁻²⁴ of Σ|f_ij| (1.9e-5 at n = 65,536,
+# the largest s_layout), and the plain version's 1,024-source chunks of
+# tree sums err less.
 K2_TOL = 1e-4
 # Per (disk, pixel) pair inside the disk's bounding box: dx, dy (2);
 # dx², dy² (2); add (1); compare with r² (1).
@@ -88,10 +94,12 @@ K4_OPS_PER_PAIR = 6
 # (1); ·M_j (1, kr·m_i hoisted); divide (1); own-cell select (1); mag·dx,
 # mag·dy (2); the two tile-sum adds (2).
 K5_OPS_PER_PAIR = 13
-# Per node and axis: |f_kernel − f_plain| ≤ K5_TOL · Σ_j |f_ij|. Each pair
-# force rounds identically in both; the kernel adds 256-cell tile sums,
-# erring by at most about (256 + C/256) · 2⁻²⁴ of Σ|f_ij| (1.6e-5 at
-# C = 4,096), and the plain version's tree sum over the C cells less.
+# Per node and axis: |f_kernel − f_plain| ≤ K5_TOL · Σ_j |f_ij|. The
+# kernel fuses d² into an FMA (≤ 1 ulp), takes an approximate reciprocal
+# (≤ 2⁻²³) and applies kr·m_i once per node, so each pair force differs by
+# a few ulp; it adds 256-cell tile sums, erring by at most about
+# (12 + 256 + C/256) · 2⁻²⁴ of Σ|f_ij| (1.7e-5 at C = 4,096), and the plain
+# version's tree sum over the C cells less.
 K5_TOL = 1e-4
 # K6: one compare per in-range band slot, and per same-cell pair dx, dy (2);
 # dx², dy², sum (3); max (1); ·m_j (1); divide (1); mag·dx, mag·dy (2);
@@ -309,25 +317,55 @@ def kernel_checks(torch, np):
          scatter_combine_ref(pos, a, a, w, 4000))
     log("K1 merge_scatter: bitwise on 6 merges + raw scatter")
 
-    # K2: ragged n, both radii settings, overlapping and coincident nodes in
-    # a ±500 box, and a ±50,000 box where d > ri + rj for almost every pair.
-    worst = 0.0
-    for n, use_radii, half in ((1000, True, 500), (1000, False, 500), (8191, True, 500),
-                               (16384, True, 500), (4096, True, 50_000),
-                               (16384, True, 50_000)):
-        p = torch.as_tensor(rng.uniform(-half, half, (n, 2)).astype(np.float32), device=dev)
-        p[1] = p[0]  # coincident pair: d clamps to EPS
-        m = torch.as_tensor(rng.integers(1, 2000, n).astype(np.float32), device=dev)
-        m[-7:] = 0.0  # dead padding
-        r = torch.sqrt(m) if use_radii else None
+    # K2: ragged n (one node, one short of a node block, one past it, the
+    # largest s_layout), both radii settings, overlapping and coincident
+    # nodes in a ±500 box, a ±50,000 box where d > ri + rj for almost every
+    # pair, and near contact (below). Two launches must give the same bits.
+    def k2_case(name, p, m, r):
         got = rep_ops.repulsion(p, m, 80.0, radii=r)
+        check(torch.equal(got, rep_ops.repulsion(p, m, 80.0, radii=r)),
+              f"K2 {name}: two launches differ")
         want = repulsion_chunked(p, m, 80.0, radii=r)
         ratio, err, fmax, fmed = k2_compare(torch, got, want,
                                             k2_row_scale(torch, p, m, 80.0, r))
-        log(f"K2 n={n} radii={use_radii} box ±{half}: worst |Δf|/Σ|f_ij| {ratio}, "
-            f"max|Δf| {err}, max|f| {fmax}, median|f| {fmed}")
-        worst = max(worst, ratio)
-        check(ratio <= K2_TOL, f"K2 n={n} radii={use_radii}: {ratio} > {K2_TOL}")
+        log(f"K2 {name}: worst |Δf|/Σ|f_ij| {ratio}, max|Δf| {err}, max|f| {fmax}, "
+            f"median|f| {fmed}")
+        check(ratio <= K2_TOL, f"K2 {name}: {ratio} > {K2_TOL}")
+        return ratio
+
+    worst = 0.0
+    for n, use_radii, half in ((1, True, 500), (255, True, 500), (257, False, 500),
+                               (1000, True, 500), (1000, False, 500), (8191, True, 500),
+                               (16384, True, 500), (4096, True, 50_000),
+                               (16384, True, 50_000), (65536, True, 5_000)):
+        p = torch.as_tensor(rng.uniform(-half, half, (n, 2)).astype(np.float32), device=dev)
+        m = torch.as_tensor(rng.integers(1, 2000, n).astype(np.float32), device=dev)
+        if n > 8:
+            p[1] = p[0]  # coincident pair: d clamps to EPS
+            m[-7:] = 0.0  # dead padding
+        r = torch.sqrt(m) if use_radii else None
+        worst = max(worst, k2_case(f"n={n} radii={use_radii} box ±{half}", p, m, r))
+    # Near contact: 2,048 pairs 1,000 apart, the members of a pair 60–160
+    # apart along an axis or a diagonal. rj is set from the pair's d as the
+    # plain version computes it, so that d − ri − rj runs from a few ulp of
+    # d (clamped to EPS) up to 1e-3: eff is tiny, one ulp of d would move
+    # it by percent, and that pair dominates its row.
+    k = 2048
+    dist = rng.uniform(60.0, 160.0, k)
+    ang = np.where(np.arange(k) % 2 == 0, 0.0, rng.uniform(0, 2 * np.pi, k))
+    a = np.stack([np.zeros(k), np.arange(k) * 1000.0], 1)
+    b = a + dist[:, None] * np.stack([np.cos(ang), np.sin(ang)], 1)
+    p = torch.as_tensor(np.concatenate([a, b]).astype(np.float32), device=dev)
+    dxy = p[:k] - p[k:]
+    d = torch.sqrt(torch.clamp(dxy[:, 0] * dxy[:, 0] + dxy[:, 1] * dxy[:, 1], min=1e-8))
+    ri = d * torch.as_tensor(rng.uniform(0.2, 0.8, k).astype(np.float32), device=dev)
+    gap = torch.as_tensor(np.geomspace(2e-5, 1e-3, k).astype(np.float32), device=dev)
+    rr = torch.cat([ri, d - ri - gap])
+    m = torch.as_tensor(rng.integers(100, 2000, 2 * k).astype(np.float32), device=dev)
+    eff = d - rr[:k] - rr[k:]
+    log(f"K2 near contact: d − ri − rj in [{float(eff.min())}, {float(eff.max())}], "
+        f"{int((eff < 1e-4).sum())} of {k} pairs clamped to EPS")
+    worst = max(worst, k2_case("near contact", p, m, rr))
     log(f"K2 repulsion_nbody: worst |Δf_i|/Σ_j|f_ij| {worst} (tolerance {K2_TOL})")
 
     # K3: negatives, one hot pixel, all padding, main-path-sized splat.
@@ -403,14 +441,18 @@ def grid_kernel_checks(torch, np, rng):
         return pos[o].contiguous(), mass[o].contiguous(), cell[o].contiguous()
 
     # K5: one cell, zero extent, empty cells (clumps), mass-0 padding with
-    # cell −1, a spread-out box where no pair reaches the EPS2 clamp, and
-    # the full path's shape.
+    # cell −1, a spread-out box where no pair reaches the EPS2 clamp, a cell
+    # count that is not a multiple of the 256-cell tile (G = 45), every
+    # cell empty but the nodes' own (empty cells at random centroids), and
+    # the full path's shape. Two launches must give the same bits.
     worst5 = 0.0
     cases5 = [("one_cell", 3000, 1, 500.0, "random"),
               ("zero_extent", 2000, 64, 500.0, "zero_extent"),
               ("clustered", 20000, 64, 500.0, "clustered"),
               ("padding", 5000, 64, 500.0, "random"),
               ("spread", 20000, 64, 5e6, "random"),
+              ("ragged_cells", 20000, 45, 500.0, "random"),
+              ("own_only", 5000, 64, 500.0, "random"),
               ("full_shape", NODES, GRID, 1e4, "clustered")]
     for name, n, g, half, kind in cases5:
         pos_s, mass_s, cell_s = sorted_grid(n, g, half, kind)
@@ -418,6 +460,12 @@ def grid_kernel_checks(torch, np, rng):
         if name == "padding":  # dead rows after the stats: they must receive nothing
             mass_s[-300:] = 0.0
             cell_s[-300:] = -1
+        if name == "own_only":  # all nodes in cell 1,234, the only one with mass
+            cell_s[:] = 1234
+            ccent = torch.as_tensor(rng.uniform(-500, 500, (g * g, 2)).astype(np.float32),
+                                    device=dev)
+            cmass = torch.zeros(g * g, device=dev)
+            cmass[1234] = float(mass_s.sum())
         if name == "spread":
             p64, c64 = pos_s.double(), ccent.double()
             d2 = ((p64[:, 0:1] - c64[None, :, 0]) ** 2
@@ -427,10 +475,12 @@ def grid_kernel_checks(torch, np, rng):
             d2min = float(torch.where(other, d2, torch.inf).min())
             check(d2min > 1e-4, f"K5 spread case reaches the EPS2 clamp ({d2min})")
         got = grid_ops.far_field(pos_s, mass_s, cell_s, ccent, cmass, 80.0)
+        check(torch.equal(got, grid_ops.far_field(pos_s, mass_s, cell_s, ccent, cmass, 80.0)),
+              f"K5 {name}: two launches differ")
         want = far_field_ref(pos_s, mass_s, cell_s, ccent, cmass, 80.0)
         scale = k5_row_scale(torch, pos_s, mass_s, cell_s, ccent, cmass, 80.0)
         ratio, err, fmax, _ = k2_compare(torch, got, want, scale)
-        if name in ("one_cell", "zero_extent"):
+        if name in ("one_cell", "zero_extent", "own_only"):
             check(not got.any() and not want.any(), f"K5 {name}: forces not zero")
         if name == "padding":
             check(not got[-300:].any(), "K5 padding rows receive force")
@@ -870,6 +920,7 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
     k2 = cap.fn("repulsion_nbody")
     fk = k2(p, m, kr, radii=radii)
     fr = repulsion_chunked(p, m, kr, radii=radii)
+    check(torch.equal(fk, k2(p, m, kr, radii=radii)), "K2 main-path input: two launches differ")
     ratio, err, fmax, fmed = k2_compare(torch, fk, fr, k2_row_scale(torch, p, m, kr, radii))
     log(f"K2 main-path worst |Δf|/Σ|f_ij| {ratio}, max|Δf| {err}, max|f| {fmax}, "
         f"median|f| {fmed}")
@@ -937,8 +988,11 @@ def time_grid_kernels(torch, np, cap: Capture, row):
     # K5, held per row against Σ_j |f_ij|.
     _, (pos, mass, cell, ccent, cmass, kr), _ = cap.calls["far_field"]
     k5 = cap.fn("far_field")
+    f5 = k5(pos, mass, cell, ccent, cmass, kr)
+    check(torch.equal(f5, k5(pos, mass, cell, ccent, cmass, kr)),
+          "K5 full-path input: two launches differ")
     ratio, err, fmax, fmed = k2_compare(
-        torch, k5(pos, mass, cell, ccent, cmass, kr),
+        torch, f5,
         far_field_ref(pos, mass, cell, ccent, cmass, kr),
         k5_row_scale(torch, pos, mass, cell, ccent, cmass, kr))
     log(f"K5 full-path worst |Δf|/Σ|f_ij| {ratio}, max|Δf| {err}, max|f| {fmax}, "
@@ -1154,6 +1208,8 @@ def run() -> int:
             ptx = [ln.strip() for ln in res.log.splitlines()
                    if "registers" in ln or "spill" in ln]
             log(f"built {name} in {res.seconds:.3f} s: " + " | ".join(ptx))
+            spills = [ln for ln in ptx if re.search(r"[1-9]\d* bytes spill", ln)]
+            check(not spills, f"{name} spills registers: {spills}")
     with phase("kernels"):
         kernel_checks(torch, np)
     cap = Capture(torch)

@@ -7,89 +7,176 @@
 //   eff_ij = max(d_ij - r_i - r_j, EPS)   (use_radii)   or max(d_ij, EPS)
 // and the self pair is masked by index.
 //
-// One thread per node i; a block of TILE threads walks all j in tiles of
-// TILE nodes staged in shared memory (positions, masses, radii), and each
-// thread accumulates its force in float32 registers: each tile's sum first,
-// then the tile sums, so a rounding error is at most about
-// (TILE + n/TILE) * 2^-24 of the row's sum of |f_ij| (one running sum would
-// allow n * 2^-24: once a near pair has made it large, the far pairs' small
-// terms round away). A ragged n is masked in
-// the kernel, so nothing is padded. The TPU's 2-D (i, j) grid with a carried
-// output block becomes the j loop inside the block.
+// Bound: operations, n^2 pairs against 16 bytes per node. At the main
+// path's n = 16,384 one block per 256 nodes would give 64 blocks on 132
+// SMs, each thread walking all n sources in one dependent chain. So:
+// - The source axis is split into `slices` contiguous slices of whole
+//   TILE-source tiles (slice s holds tiles [s*T/S, (s+1)*T/S) of the
+//   T = ceil(n/TILE); kernels/repulsion/ops.py source_slices chooses S from
+//   n and the SM count and spells out the same bounds). The grid is
+//   node blocks x slices, 1,024 blocks at n = 16,384. Each block writes
+//   its partial forces to scratch [S, n, 2]; sum_slices adds the S
+//   partials of each node in the order s = 0 .. S-1. No float atomics, so
+//   the result is the same bits from run to run.
+// - Each source is staged in shared memory as one float4 (x, y, m, r), and
+//   each thread holds R = 2 nodes, so one broadcast load feeds two
+//   independent chains.
+// - kr * m_i leaves the sum (one product per node and slice), and the
+//   divide becomes m_j * rcp.approx(eff * d).
+// - d and eff are NOT approximated: near contact eff = d - r_i - r_j
+//   cancels (at d = 100 one ulp of d, 7.6e-6, moves eff = 1e-4 by 7.6 %),
+//   so d^2 is written with the round-to-nearest intrinsics (no fused
+//   multiply-add), d is the correctly rounded square root of
+//   max(d^2, EPS^2), and eff subtracts r_i and then r_j, exactly as the
+//   plain version (kernels/repulsion/ref.py) rounds them.
+// - The self-pair select runs only in the tiles where the block's nodes
+//   meet themselves (block-uniform); a ragged slice end is padded with
+//   mass-0 sources, which add exactly 0.
 //
-// Bound: operations. 17 float operations per pair with radii, 15 without
-// (one sqrt and one divide among them), against n^2 pairs; the inputs are
-// 16 bytes per node.
-//
-// Each pair force rounds like the plain version: |p_i - p_j|^2 is written
-// with the round-to-nearest intrinsics so nvcc cannot contract it into a
-// fused multiply-add, which near d = r_i + r_j would move eff by far more
-// than an ulp. Only the order of the sum over j differs, so the two agree
-// to a tolerance scaled by each row's sum of |f_ij|, not bitwise.
+// Error against the plain version: eff and d are the plain version's bits,
+// the reciprocal errs by at most 2^-23 and m_j / kr*m_i round once each, so
+// a pair force differs by a few ulp of |f_ij|. Sums run over TILE sources,
+// then over a slice's tiles, then over the S slices, so a row errs by at
+// most about (8 + TILE + T/S + S) * 2^-24 of its sum of |f_ij|
+// (1.9e-5 at n = 65,536, the largest s_layout).
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE = 256;
+constexpr int THREADS = 128;  // threads per block
+constexpr int R = 2;          // nodes per thread, i = block base + r*THREADS + t
+constexpr int NODES = THREADS * R;
+constexpr int TILE = 256;     // sources staged per tile
+constexpr int U = 4;          // sources per unrolled step
 constexpr float EPS = 1e-4f;
 constexpr float EPS2 = 1e-8f;
 
-__global__ void __launch_bounds__(TILE)
-repulsion_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
-                 const float* __restrict__ radii, int n, float kr,
-                 int use_radii, float* __restrict__ out) {
-  __shared__ float sx[TILE], sy[TILE], sm[TILE], sr[TILE];
-  const int t = threadIdx.x;
-  const int i = blockIdx.x * TILE + t;
-  const bool live = i < n;
-  const float xi = live ? pos[2 * i] : 0.f;
-  const float yi = live ? pos[2 * i + 1] : 0.f;
-  const float kmi = live ? kr * mass[i] : 0.f;
-  const float ri = (live && use_radii) ? radii[i] : 0.f;
-  float fx = 0.f, fy = 0.f;
-  for (int j0 = 0; j0 < n; j0 += TILE) {
-    const int j = j0 + t;
-    if (j < n) {
-      sx[t] = pos[2 * j];
-      sy[t] = pos[2 * j + 1];
-      sm[t] = mass[j];
-      sr[t] = use_radii ? radii[j] : 0.f;
-    }
-    __syncthreads();
-    const int jn = min(TILE, n - j0);
-    if (live) {
-      float tx = 0.f, ty = 0.f;  // this tile's sum, added to fx, fy below
-      for (int k = 0; k < jn; ++k) {
-        const float dx = xi - sx[k];
-        const float dy = yi - sy[k];
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One tile's sums of m_j / (eff * d) * (p_i - p_j) for the R nodes; with
+// MASK, the source whose index is i[r] is left out for node r.
+template <bool RADII, bool MASK>
+__device__ __forceinline__ void tile_sum(const float4* src, int kend, int j0,
+                                         const int (&i)[R], const float (&x)[R],
+                                         const float (&y)[R], const float (&ri)[R],
+                                         float (&tx)[R], float (&ty)[R]) {
+  for (int k0 = 0; k0 < kend; k0 += U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float4 s = src[k0 + u];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float dx = x[r] - s.x;
+        const float dy = y[r] - s.y;
         const float d2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-        const float d = sqrtf(fmaxf(d2, EPS2));
-        const float eff = use_radii ? fmaxf(d - ri - sr[k], EPS) : fmaxf(d, EPS);
-        const float mag = (j0 + k == i) ? 0.f : kmi * sm[k] / (eff * d);
-        tx += mag * dx;
-        ty += mag * dy;
+        const float d = __fsqrt_rn(fmaxf(d2, EPS2));
+        const float eff = RADII ? fmaxf(d - ri[r] - s.w, EPS) : fmaxf(d, EPS);
+        float w = s.z * rcp_approx(eff * d);
+        if (MASK) w = (j0 + k0 + u == i[r]) ? 0.f : w;
+        tx[r] = fmaf(w, dx, tx[r]);
+        ty[r] = fmaf(w, dy, ty[r]);
       }
-      fx += tx;
-      fy += ty;
+    }
+  }
+}
+
+template <bool RADII>
+__global__ void __launch_bounds__(THREADS)
+repulsion_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
+                 const float* __restrict__ radii, int n, float kr, int slices,
+                 float* __restrict__ part) {
+  __shared__ float4 src[TILE];
+  const int t = threadIdx.x;
+  const int b0 = blockIdx.x * NODES;  // this block's nodes: [b0, b0 + NODES)
+  const int s = blockIdx.y;
+  const long long tiles = (n + TILE - 1) / TILE;
+  const int j_begin = (int)(s * tiles / slices) * TILE;
+  const int j_end = min(n, (int)((s + 1) * tiles / slices) * TILE);
+  int i[R];
+  float x[R], y[R], ri[R], fx[R], fy[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    i[r] = b0 + r * THREADS + t;
+    const bool live = i[r] < n;
+    x[r] = live ? pos[2 * i[r]] : 0.f;
+    y[r] = live ? pos[2 * i[r] + 1] : 0.f;
+    ri[r] = (live && RADII) ? radii[i[r]] : 0.f;
+    fx[r] = 0.f;
+    fy[r] = 0.f;
+  }
+  for (int j0 = j_begin; j0 < j_end; j0 += TILE) {
+    for (int k = t; k < TILE; k += THREADS) {
+      const int j = j0 + k;
+      src[k] = j < j_end
+          ? make_float4(pos[2 * j], pos[2 * j + 1], mass[j], RADII ? radii[j] : 0.f)
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+    const int jn = min(TILE, j_end - j0);
+    const int kend = (jn + U - 1) / U * U;
+    float tx[R], ty[R];  // this tile's sums, added to fx, fy below
+#pragma unroll
+    for (int r = 0; r < R; ++r) tx[r] = ty[r] = 0.f;
+    if (j0 < b0 + NODES && b0 < j0 + jn)  // the block meets itself here
+      tile_sum<RADII, true>(src, kend, j0, i, x, y, ri, tx, ty);
+    else
+      tile_sum<RADII, false>(src, kend, j0, i, x, y, ri, tx, ty);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      fx[r] += tx[r];
+      fy[r] += ty[r];
     }
     __syncthreads();
   }
-  if (live) {
-    out[2 * i] = fx;
-    out[2 * i + 1] = fy;
+  float* dst = part + (size_t)s * n * 2;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (i[r] < n) {
+      const float kmi = kr * mass[i[r]];
+      dst[2 * i[r]] = kmi * fx[r];
+      dst[2 * i[r] + 1] = kmi * fy[r];
+    }
   }
+}
+
+// out[k] = part[0][k] + part[1][k] + ... + part[S-1][k], in that order.
+__global__ void sum_slices(const float* __restrict__ part, int slices, int len,
+                           float* __restrict__ out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= len) return;
+  float acc = part[k];
+  for (int s = 1; s < slices; ++s) acc += part[(size_t)s * len + k];
+  out[k] = acc;
 }
 
 }  // namespace
 
+// scratch: [slices, n, 2] float32, unused (may be null) when slices == 1,
+// in which case the one slice is written to out directly.
 extern "C" int repulsion_nbody(const void* pos, const void* mass,
                                const void* radii, int n, float kr,
-                               int use_radii, void* out, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + TILE - 1) / TILE;
-    repulsion_kernel<<<blocks, TILE, 0, (cudaStream_t)stream>>>(
-        (const float*)pos, (const float*)mass, (const float*)radii, n, kr,
-        use_radii, (float*)out);
+                               int use_radii, int slices, void* scratch,
+                               void* out, void* stream) {
+  if (n > 0 && slices > 0) {
+    cudaStream_t st = (cudaStream_t)stream;
+    float* part = slices == 1 ? (float*)out : (float*)scratch;
+    const dim3 grid((n + NODES - 1) / NODES, slices);
+    if (use_radii)
+      repulsion_kernel<true><<<grid, THREADS, 0, st>>>(
+          (const float*)pos, (const float*)mass, (const float*)radii, n, kr,
+          slices, part);
+    else
+      repulsion_kernel<false><<<grid, THREADS, 0, st>>>(
+          (const float*)pos, (const float*)mass, (const float*)radii, n, kr,
+          slices, part);
+    if (slices > 1) {
+      const int len = 2 * n;
+      sum_slices<<<(len + 255) / 256, 256, 0, st>>>(part, slices, len, (float*)out);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -217,6 +217,28 @@ def test_repulsion_padding_neutral_and_cpu_dispatch_above_2048():
     assert float(got[n - 52:].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 16_384, 65_536])
+def test_repulsion_source_slices_cover_every_source_once(n):
+    """K2's split of the source axis on a 132-SM card: S ≥ 1 slices, in
+    order, each a run of whole source tiles, that together hold every
+    source index exactly once; enough blocks to fill the card where n
+    allows it, and at most MAX_SLICES."""
+    s = rep_ops.source_slices(n, 132)
+    assert 1 <= s <= rep_ops.MAX_SLICES
+    bounds = rep_ops.slice_bounds(n, s)
+    assert len(bounds) == s
+    hits = np.zeros(n, np.int64)
+    prev_end = 0
+    for j0, j1 in bounds:
+        assert j0 == prev_end and j0 < j1 and j0 % rep_ops.SOURCE_TILE == 0
+        hits[j0:j1] += 1
+        prev_end = j1
+    assert prev_end == n and (hits == 1).all()
+    node_blocks = -(-n // rep_ops.NODES_PER_BLOCK)
+    tiles = -(-n // rep_ops.SOURCE_TILE)
+    assert (node_blocks * s >= 4 * 132 or s == min(rep_ops.MAX_SLICES, tiles))
+
+
 # ----------------------------------------------------- K3: count scatter
 def _count_case(case):
     rng = np.random.default_rng(3)
