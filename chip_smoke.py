@@ -69,6 +69,7 @@ ITERATIONS = 100  # FA2 iterations, the default
 # and the grid of default_config.
 FULL_ITERATIONS, GRID, WINDOW = 500, 64, 32
 REPS = 20  # back-to-back launches per CUDA-event timing
+QUEUE_CYCLES = 100_000_000  # ≈ 50 ms of device sleep ahead of each timing
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
 # outside the tensor cores (a fused multiply-add counts as two operations).
@@ -105,6 +106,11 @@ K5_TOL = 1e-4
 # dx², dy², sum (3); max (1); ·m_j (1); divide (1); mag·dx, mag·dy (2);
 # two adds (2).
 K6_OPS_PER_PAIR = 12
+# The layouts of src/repro_torch/csrc/near_field.cu (sorted nodes a block,
+# the window with its own kernel) and segment_sum.cu (floats a warp stages
+# at a time), for the edge cases.
+K6_BLOCK_NODES, K6_FIXED_WINDOW = 512, 32
+K7_CHUNK_FLOATS = 1024
 
 KERNELS = {
     "merge_scatter": {
@@ -171,12 +177,16 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
-    """Mean milliseconds of ``fn`` over ``reps`` back-to-back launches."""
+    """Mean milliseconds of ``fn`` over ``reps`` back-to-back launches. A
+    sleep kernel holds the stream while the host queues the launches, so a
+    kernel shorter than its wrapper's host time is timed on the device, not
+    at the host's launch rate."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -493,30 +503,142 @@ def grid_kernel_checks(torch, np, rng):
     # K6: occupancy far above the window (one cell), window 0, window > n,
     # a window wider than one staged chunk of shifts, mass-0 padding, ties
     # (coincident nodes reach the EPS2 clamp), and the full path's shape.
+    # Against the kernel's layout (K6_BLOCK_NODES nodes a block; W = 32
+    # compiled apart, every other window generic): ragged tails at one and
+    # two blocks ± 1 node, n < W, runs of one cell across every block edge,
+    # W = 31 and 33 beside 32, edge and interior blocks in one launch, and
+    # blocks whose masses or distances leave the range of its inline divide
+    # (they take __fdiv_rn). The inline divide's range (divides_in_range in
+    # near_field.cu: staged |x|, |y| <= 2^28, masses and kr·masses +0 or in
+    # [2^-30, 2^30]) is held at its edges, at kr = 1 and 80: masses and
+    # kr·masses at 2^-30 and 2^30 and with all-ones significands just
+    # inside, coordinates at ±2^28 and just inside, coincident and distant
+    # pairs (quotients from about 2^-119 to 2^73), every block on the inline
+    # divide; and records just outside each bound, which send their blocks
+    # to __fdiv_rn. Two launches give the same bits on every case.
+    nb = K6_BLOCK_NODES
+    f32 = np.float32
+
+    def fast_blocks(pos, mass, kr, w):
+        """(blocks whose staged records all pass divides_in_range and so
+        take the inline divide, blocks), as near_field.cu decides it."""
+        n = pos.shape[0]
+        blocks = -(-n // nb)
+        if min(w, n - 1) != K6_FIXED_WINDOW:  # the generic kernel: __fdiv_rn only
+            return 0, blocks
+
+        def moderate(v):
+            u = v.contiguous().view(torch.int32)
+            return (u == 0) | ((u >= 0x30800000) & (u <= 0x4E800000))
+
+        ok = (pos.abs() <= 2.0**28).all(1) & moderate(mass) & moderate(mass * kr)
+        bad = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                         (~ok).long().cumsum(0)])
+        b0 = torch.arange(0, n, nb, device=dev)
+        span = bad[(b0 + nb + w).clamp(max=n)] - bad[(b0 - w).clamp(min=0)]
+        return int((span == 0).sum()), blocks
+
+    def range_input(n, kr, outside=False):
+        """n records in runs of 37 a cell at the edges of the inline
+        divide's range; with ``outside``, one record just beyond a bound in
+        each of blocks 0, 1 and 3."""
+        lo, hi, kr32 = f32(2.0**-30), f32(2.0**30), f32(kr)
+
+        def inside(m):
+            return lo <= m <= hi and lo <= kr32 * m <= hi
+
+        def nearest_inside(v, toward):
+            v = f32(v)
+            while not inside(v):
+                v = np.nextafter(v, f32(toward))
+            return v
+
+        masses = [nearest_inside(max(lo, lo / kr32), np.inf),
+                  nearest_inside(min(hi, hi / kr32), -np.inf)]
+        masses += [m for m in (f32((2 - 2**-23) * 2.0**-30), f32((2 - 2**-23) * 2.0**29),
+                               f32(1), f32(3), f32(299)) if inside(m)]
+        edge = f32(2.0**28)
+        coords = np.array([edge, -edge, f32((2 - 2**-23) * 2.0**27),
+                           -f32((2 - 2**-23) * 2.0**27), 0, 2.0**-10, -(2.0**-10)],
+                          dtype=np.float32)
+        p = rng.uniform(-(2.0**28), 2.0**28, (n, 2)).astype(np.float32)
+        pick = rng.random((n, 2)) < 0.7
+        p[pick] = rng.choice(coords, int(pick.sum()))
+        m = rng.choice(np.array(masses, dtype=np.float32), n)
+        if outside:
+            p[5, 0] = np.nextafter(edge, f32(np.inf))
+            m[nb + 300] = np.nextafter(lo, f32(0))
+            m[3 * nb + 200] = np.nextafter(hi, f32(np.inf))
+        return (torch.as_tensor(p, device=dev), torch.as_tensor(m, device=dev),
+                torch.arange(n, dtype=torch.int32, device=dev) // 37)
+
+    # Which blocks take the inline divide, where a case is about that.
+    on_inline = {"range_kr1": "all", "range_kr80": "all", "range_outside": "some",
+                 "tiny_masses": "some", "far_coords": "none"}
+    range_kr = {"range_kr1": 1.0, "range_kr80": 80.0, "range_outside": 1.0}
     cases6 = [("one_cell", 5000, 1, 32), ("window_0", 3000, 16, 0),
               ("window_gt_n", 100, 1, 256), ("wide_window", 5000, 4, 600),
               ("padding", 4000, 8, 32), ("coincident", 3000, 8, 32),
-              ("full_shape", NODES, GRID, WINDOW)]
+              ("full_shape", NODES, GRID, WINDOW),
+              ("block_minus_1", nb - 1, 4, 32), ("block", nb, 4, 32),
+              ("block_plus_1", nb + 1, 4, 32),
+              ("two_blocks_minus_1", 2 * nb - 1, 4, 32), ("two_blocks", 2 * nb, 4, 32),
+              ("two_blocks_plus_1", 2 * nb + 1, 4, 32),
+              ("n_lt_w", 20, 1, 32), ("straddle", 9 * nb + 77, 0, 32),
+              ("straddle_w33", 9 * nb + 77, 0, 33),
+              ("w31", 20000, 16, 31), ("w33", 20000, 16, 33),
+              ("edge_and_interior", 4 * nb + 100, 8, 32),
+              ("tiny_masses", 20000, 16, 32), ("far_coords", 5000, 8, 32),
+              ("far_coords_w33", 5000, 8, 33),
+              ("range_kr1", 4 * nb + 100, 0, 32), ("range_kr80", 4 * nb + 100, 0, 32),
+              ("range_outside", 4 * nb + 100, 0, 32)]
     for name, n, g, w in cases6:
-        pos_s, mass_s, cell_s = sorted_grid(n, g, 500.0, "clustered")
+        kr = range_kr.get(name, 80.0)
+        if name in range_kr:
+            pos_s, mass_s, cell_s = range_input(n, kr, outside=name == "range_outside")
+        elif g:
+            pos_s, mass_s, cell_s = sorted_grid(n, g, 500.0, "clustered")
+        else:  # runs of 37 nodes a cell: every block edge falls inside a run
+            pos_s, mass_s, _ = sorted_grid(n, 4, 500.0, "clustered")
+            cell_s = torch.arange(n, dtype=torch.int32, device=dev) // 37
         if name == "padding":
             mass_s[-100:] = 0.0
         if name == "coincident":
             pos_s[1::2] = pos_s[0::2][: pos_s[1::2].shape[0]]
-        got = grid_ops.near_field_sorted(pos_s, mass_s, cell_s, 80.0, w)
-        want = near_field_ref(pos_s, mass_s, cell_s, 80.0, w)
+        if name == "tiny_masses":  # a few blocks with a divide outside the fast range
+            mass_s[3 * nb + 7::5 * nb] = 1e-38
+        if name.startswith("far_coords"):  # d² above 2⁶⁰: every block off the fast range
+            pos_s = pos_s * 1e9
+        if name in on_inline:
+            fast, blocks = fast_blocks(pos_s, mass_s, kr, w)
+            log(f"K6 {name}: {fast} of {blocks} blocks take the inline divide")
+            check({"all": fast == blocks, "some": 0 < fast < blocks,
+                   "none": fast == 0}[on_inline[name]],
+                  f"K6 {name}: {fast} of {blocks} blocks on the inline divide, "
+                  f"expected {on_inline[name]}")
+        got = grid_ops.near_field_sorted(pos_s, mass_s, cell_s, kr, w)
+        check(torch.equal(got, grid_ops.near_field_sorted(pos_s, mass_s, cell_s, kr, w)),
+              f"K6 {name}: two launches differ")
+        want = near_field_ref(pos_s, mass_s, cell_s, kr, w)
         check(torch.equal(got, want), f"K6 {name}: kernel differs from plain version")
         if w == 0:
             check(not got.any(), "K6 window 0: forces not zero")
-    log(f"K6 near_field: bitwise on {len(cases6)} cases")
+    log(f"K6 near_field: bitwise on {len(cases6)} cases, and run to run")
 
     # K7: negative and out-of-range ids (unsorted: the wrapper sorts), the
     # trash tail, one segment holding every row, all rows dropped, wide
-    # rows, and the full path's cell statistics.
+    # rows, and the full path's cell statistics. Against the kernel's
+    # layout (a warp per segment staging K7_CHUNK_FLOATS floats at a time,
+    # 32 columns a pass): one segment far longer than a chunk at D = 3 and
+    # D = 64, empty segments between occupied ones and at both ends, and
+    # D = 1 through the wrapper's 1-D input.
+    cases7 = (("out_of_range", 50000, 3, 4096), ("trash_tail", 50000, 3, 80),
+              ("one_segment", 200000, 3, 16), ("all_dropped", 5000, 3, 16),
+              ("wide_rows", 20000, 64, 50), ("full_shape", NODES, 3, GRID * GRID),
+              ("long_segment", 60000, 3, 300), ("long_segment_wide", 6000, 64, 40),
+              ("empty_gaps", 30000, 3, 500), ("one_column", 40000, 1, 200))
     worst7 = 0.0
-    for name, e, d, n_seg in (("out_of_range", 50000, 3, 4096), ("trash_tail", 50000, 3, 80),
-                              ("one_segment", 200000, 3, 16), ("all_dropped", 5000, 3, 16),
-                              ("wide_rows", 20000, 64, 50), ("full_shape", NODES, 3, GRID * GRID)):
+    for name, e, d, n_seg in cases7:
         data = torch.as_tensor(rng.standard_normal((e, d)).astype(np.float32) * 1e3, device=dev)
         if name == "out_of_range":
             seg = rng.integers(-50, n_seg + 50, e)
@@ -524,6 +646,12 @@ def grid_kernel_checks(torch, np, rng):
             seg = np.full(e, 7)
         elif name == "all_dropped":
             seg = np.full(e, n_seg)
+        elif name.startswith("long_segment"):  # segment 5 holds 10 chunks' worth of rows
+            seg = rng.integers(0, n_seg, e)
+            seg[: 10 * K7_CHUNK_FLOATS // d] = 5
+            seg = np.sort(seg)
+        elif name == "empty_gaps":  # only every third of segments 10 .. n − 11 is occupied
+            seg = np.sort(rng.choice(np.arange(10, n_seg - 10, 3), e))
         else:
             seg = np.sort(rng.integers(0, n_seg, e))
             if name == "trash_tail":
@@ -533,8 +661,10 @@ def grid_kernel_checks(torch, np, rng):
         if name == "full_shape":
             pos_s, mass_s, seg = sorted_grid(e, GRID, 1e4, "clustered")
             data = torch.cat([pos_s * mass_s[:, None], mass_s[:, None]], 1)
+        if name == "one_column":
+            data = data[:, 0].contiguous()
         worst7 = max(worst7, k7_check(torch, name, data, seg, n_seg, sorted_ids))
-    log(f"K7 segment_sum: bitwise on the CPU and run to run on 6 cases; worst "
+    log(f"K7 segment_sum: bitwise on the CPU and run to run on {len(cases7)} cases; worst "
         f"|Δ| / 2γ(k−1)Σ|x| against the card's plain version {worst7}")
 
     # K8: integer weights (exact in any order), all padding, one hot
@@ -750,7 +880,7 @@ def full_path(torch, np, cap: Capture, edges, delta, main_wall: float):
     import repro_torch
     from repro_torch.core import forceatlas2 as fa2
     from repro_torch.graph.generators import planted_partition
-    from repro_torch.graph.utils import degrees, mode_degree, pad_edges
+    from repro_torch.graph.utils import mode_degree
     from repro_torch.obs.metrics import REGISTRY
     from repro_torch.obs.trace import Tracer
     from repro_torch.render import raster
@@ -827,7 +957,19 @@ def full_path(torch, np, cap: Capture, edges, delta, main_wall: float):
           and sq["final"]["stress"] < sq["initial"]["stress"],
           "6,000-node full layout: neighbourhoods or stress no better than its start")
 
-    # Record K5–K7's inputs at the final layout, outside the measured run.
+    record_grid_inputs(torch, cap, edges, pos)
+    return launches
+
+
+def record_grid_inputs(torch, cap: Capture, edges, pos):
+    """One grid iteration from the full path's final layout ``pos``,
+    through ``repro_torch.layout``, recording K5–K7's inputs in ``cap``
+    (outside any measured run)."""
+    import repro_torch
+    from repro_torch.core import forceatlas2 as fa2
+    from repro_torch.graph.utils import degrees, pad_edges
+
+    n, e = NODES, len(edges)
     edges_t = torch.as_tensor(pad_edges(edges, e, n), device="cuda")
     mass = degrees(edges_t, n).to(torch.float32) + 1.0
     lcfg = fa2.FA2Config(iterations=1, repulsion="grid", grid_size=GRID,
@@ -841,7 +983,6 @@ def full_path(torch, np, cap: Capture, edges, delta, main_wall: float):
     torch.cuda.synchronize()
     log(f"one grid layout iteration at full width: peak {torch.cuda.max_memory_allocated() - base} "
         f"bytes above its {base} bytes of inputs (recorded copies included)")
-    return launches
 
 
 def layout_quality(np, pos, edges, n):

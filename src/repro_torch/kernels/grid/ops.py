@@ -26,6 +26,8 @@ _FAR_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_fl
 _NEAR_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [
     ctypes.c_void_p
 ] * 2
+# K6 indexes in 32 bits, with room for one block (512 nodes) and its band.
+NEAR_MAX_N = 2**31 - 1 - 2048
 
 
 def cell_stats(pos_s, mass_s, cell_s, n_cells: int):
@@ -70,6 +72,8 @@ def near_field_sorted(pos_s, mass_s, cell_s, kr: float, window: int):
     if dev.type != "cuda":
         raise ValueError(f"near_field_sorted: unsupported device {dev}")
     n = pos_s.shape[0]
+    if n > NEAR_MAX_N:
+        raise ValueError(f"near_field_sorted: {n} nodes, the kernel takes at most {NEAR_MAX_N}")
     build.require(pos_s, "pos_s", torch.float32, dev, (n, 2))
     build.require(mass_s, "mass_s", torch.float32, dev, (n,))
     build.require(cell_s, "cell_s", torch.int32, dev, (n,))

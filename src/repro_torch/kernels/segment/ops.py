@@ -30,6 +30,8 @@ def segment_sum(data, seg_ids, n_segments: int, indices_are_sorted: bool = False
     if dev.type != "cuda":
         raise ValueError(f"segment_sum: unsupported device {dev}")
     e = data.shape[0]
+    if e >= 2**31:
+        raise ValueError(f"segment_sum: {e} rows, the kernel takes fewer than 2**31")
     x = data.to(torch.float32).reshape(e, -1)
     build.require(seg_ids, "seg_ids", torch.int32, dev, (e,))
     if not indices_are_sorted:

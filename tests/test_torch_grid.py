@@ -151,6 +151,9 @@ def test_far_field_padding_and_empty_cells_are_neutral():
     (256, 16, 0),    # empty band
     (100, 1, 256),   # window > n, one cell
     (1, 1, 4),       # a single node
+    (600, 8, 31),    # windows beside the full layout's 32
+    (600, 8, 33),
+    (20, 2, 32),     # n < window
 ])
 def test_near_field(n, g, window):
     pos, mass = _points(n, n + window)

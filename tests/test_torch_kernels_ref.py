@@ -334,6 +334,12 @@ def _seg_case(case):
         seg = np.full(e, 7)
     elif case == "all_dropped":
         seg = np.full(e, n)
+    elif case == "long_segment":  # segment 9 holds 1,500 of the rows
+        seg = rng.integers(0, n, e)
+        seg[:1500] = 9
+        seg = np.sort(seg)
+    elif case == "empty_ends":  # segments 0-4 and n-5 .. n-1 empty, gaps between
+        seg = np.sort(rng.choice(np.arange(5, n - 5, 3), e))
     else:  # wide rows, few segments
         e, d, n = 500, 64, 5
         data = rng.standard_normal((e, d)).astype(np.float32)
@@ -343,7 +349,7 @@ def _seg_case(case):
 
 @pytest.mark.parametrize("case", [
     "random", "out_of_range_and_negative", "sorted_with_trash_tail",
-    "one_segment", "all_dropped", "wide_rows",
+    "one_segment", "all_dropped", "wide_rows", "long_segment", "empty_ends",
 ])
 def test_segment_sum_plain_matches_reference(case):
     data, seg, n = _seg_case(case)
