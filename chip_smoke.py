@@ -13,11 +13,16 @@ Phases, each printing its wall seconds:
                registers and fails if one spills.
 3. kernels   — each kernel against its plain PyTorch version on the card,
                on adversarial inputs and on synthetic inputs at the paths'
-               shapes: K1, K3, K4, K6, K8 bitwise, K2 and K5 within their
-               tolerances and bitwise run to run (K2 also near contact,
-               where eff = d − ri − rj cancels), K7 bitwise against its
-               plain version on the CPU, within its bound of the one on the
-               card, and bitwise run to run.
+               shapes: K1, K3, K4, K6, K8 bitwise (K1, K4 and K6 also run
+               to run), K2 and K5 within their tolerances and bitwise run
+               to run (K2 also near contact, where eff = d − ri − rj
+               cancels), K7 bitwise against its plain version on the CPU,
+               within its bound of the one on the card, and bitwise run to
+               run. K1's cases hold merges at capacity, with all-duplicate,
+               all-new and all-sentinel chunks, −0.0 weights and ragged
+               capacities; K4's hold 40 groups, r = +inf, NaN and far
+               centres, pixels exactly on the circle, 2,000 coincident
+               disks and the accumulating form.
 4. main path — ``biggraphvis`` + ``BGVResult.render`` on a planted-partition
                graph at web-BerkStan's size (685,230 nodes, ≈ 6.6 M edges),
                with every launch counter set to 0 just before and read just
@@ -33,7 +38,8 @@ Phases, each printing its wall seconds:
 6. timing    — each kernel on the inputs its path gave it (recorded in
                phases 4 and 5): held against its plain version again, and
                timed with CUDA events beside the plain version, one PyTorch
-               library call where there is one, and its bound.
+               library call where there is one, and its bound. K1's generic
+               scatter (on no path) is timed on K1's rows, concatenated.
 7. consistency — a 3,000-node graph through ``biggraphvis`` and an
                8,000-node graph through ``full_layout_colored`` on the card
                and on the CPU: labels, groups, supergraph, cell ids and
@@ -111,6 +117,7 @@ K6_OPS_PER_PAIR = 12
 # at a time), for the edge cases.
 K6_BLOCK_NODES, K6_FIXED_WINDOW = 512, 32
 K7_CHUNK_FLOATS = 1024
+K1_TILE = 512  # output slots a merge_place block owns (csrc/merge_scatter.cu)
 
 KERNELS = {
     "merge_scatter": {
@@ -145,6 +152,12 @@ KERNELS = {
         "source": "src/repro_torch/csrc/cms_update.cu",
         "replaces": "src/repro/kernels/cms/cms_update.py:64",
     },
+    # The generic scatter for arbitrary positions: the second entry of K1's
+    # library, on no path.
+    "scatter_combine": {
+        "source": "src/repro_torch/csrc/merge_scatter.cu",
+        "replaces": "src/repro/kernels/merge/sorted_merge.py:96",
+    },
 }
 MAIN_KERNELS = ("merge_scatter", "repulsion_nbody", "count_scatter", "disk_accum")
 FULL_KERNELS = ("far_field", "near_field", "segment_sum")  # one launch per iteration
@@ -166,6 +179,16 @@ def phase(name: str):
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(msg)
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Same shape, dtype and bits (−0.0 differs from +0.0; NaN equals the
+    same NaN)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
 
 
 def nvidia_smi_line() -> str:
@@ -278,7 +301,11 @@ def kernel_checks(torch, np):
     from repro_torch.kernels.merge import ops as merge_ops
     from repro_torch.kernels.merge.ref import merge_combine_ref, scatter_combine_ref
     from repro_torch.kernels.raster import ops as raster_ops
-    from repro_torch.kernels.raster.ref import count_scatter_into_ref, disk_accum_ref
+    from repro_torch.kernels.raster.ref import (
+        count_scatter_into_ref,
+        disk_accum_into_ref,
+        disk_accum_ref,
+    )
     from repro_torch.kernels.repulsion import ops as rep_ops
     from repro_torch.kernels.repulsion.ref import repulsion_chunked
 
@@ -288,12 +315,13 @@ def kernel_checks(torch, np):
 
     def same(name, got, want):
         for g, w in zip(got, want):
-            check(torch.equal(g, w), f"{name}: kernel differs from plain version")
+            check(bits_equal(torch, g, w), f"{name}: kernel differs from plain version")
 
     # K1: merge of sorted deduped runs (full wrapper path) and raw scatter.
-    def run_pair(s_cap, cap, c, ks, kc, dup=0):
+    def run_pair(s_cap, cap, c, ks, kc, dup=0, neg_zero=False):
         """A sorted state run of ``ks`` unique pairs and a sorted chunk run
-        of ``kc`` pairs, ``dup`` of them already in the state."""
+        of ``kc`` pairs, ``dup`` of them already in the state; with
+        ``neg_zero``, every other weight of each run is −0.0."""
         a = rng.integers(0, s_cap - 1, 3 * (ks + kc) + 16)
         b = rng.integers(a + 1, s_cap)
         keys = rng.permutation(np.unique(a * s_cap + b))[: ks + kc]
@@ -305,19 +333,39 @@ def kernel_checks(torch, np):
             out[0][:len(k)] = k // s_cap
             out[1][:len(k)] = k % s_cap
             out[2][:len(k)] = rng.integers(1, 9, len(k))
+            if neg_zero:
+                out[2][:len(k):2] = -0.0
             return out
 
         st = run(keys[:ks], cap)
         ch = run(np.concatenate([keys[ks:ks + kc - dup], keys[:dup]]), c)
         return [torch.as_tensor(x, device=dev) for x in st + ch], s_cap
 
-    cases = [(16, 32, 16, 12, 8, 4), (16, 32, 16, 32, 16, 2), (16, 32, 16, 0, 0, 0),
-             (64, 100, 24, 77, 20, 5), (1 << 16, 16, 8, 12, 6, 3),
-             (65536, 262144, 65536, 200000, 40000, 15000)]
-    for s_cap, cap, c, ks, kc, dup in cases:
-        args, s_cap = run_pair(s_cap, cap, c, ks, kc, dup)
-        same(f"K1 merge s_cap={s_cap} cap={cap}",
-             merge_ops.merge_combine(*args, s_cap), merge_combine_ref(*args, s_cap))
+    # (name, s_cap, cap, C, state pairs, chunk pairs, of them duplicates).
+    # merge_place owns K1_TILE slots a block; the state at capacity
+    # overflows (the union is truncated), as on the main path.
+    cases = [("small", 16, 32, 16, 12, 8, 4), ("small_full", 16, 32, 16, 32, 16, 2),
+             ("all_padding", 16, 32, 16, 0, 0, 0), ("random", 64, 100, 24, 77, 20, 5),
+             ("packing_limit", 1 << 16, 16, 8, 12, 6, 3),
+             ("main_shape", 65536, 262144, 65536, 200000, 40000, 15000),
+             ("at_capacity", 65536, 262144, 65536, 262144, 65536, 20000),
+             ("all_duplicates", 65536, 262144, 65536, 150000, 65536, 65536),
+             ("all_new", 65536, 262144, 65536, 150000, 65536, 0),
+             ("empty_state", 65536, 262144, 65536, 0, 60000, 0),
+             ("all_sentinel_chunk", 65536, 262144, 65536, 150000, 0, 0),
+             ("neg_zero", 512, 4000, 1500, 3000, 1500, 700), ("cap_1", 64, 1, 8, 1, 5, 1),
+             ("cap_1_new", 64, 1, 8, 0, 5, 0), ("cap_ragged", 512, 1000, 300, 900, 300, 50),
+             ("cap_ragged_large", 65536, K1_TILE * 500 - 1, 4096, K1_TILE * 500 - 1, 4096, 99)]
+    for name, s_cap, cap, c, ks, kc, dup in cases:
+        args, s_cap = run_pair(s_cap, cap, c, ks, kc, dup, neg_zero=name == "neg_zero")
+        got = merge_ops.merge_combine(*args, s_cap)
+        same(f"K1 merge {name}", got, merge_combine_ref(*args, s_cap))
+        same(f"K1 merge {name} run to run", got, merge_ops.merge_combine(*args, s_cap))
+        if name == "at_capacity":
+            check(int(got[3]) > cap, "K1 at_capacity: the union does not overflow")
+        if name == "neg_zero":
+            check(bool((got[2] == 0).any()) and not bool(torch.signbit(got[2]).any()),
+                  "K1 neg_zero: a −0.0 weight did not come back +0.0")
     n = 5000
     pos = torch.as_tensor(rng.integers(-50, 4000, n).astype(np.int32), device=dev)
     pos[::7] = i32max
@@ -325,7 +373,8 @@ def kernel_checks(torch, np):
     w = torch.as_tensor(rng.integers(1, 4, n).astype(np.float32), device=dev)
     same("K1 raw scatter", merge_ops.scatter_combine(pos, a, a, w, 4000),
          scatter_combine_ref(pos, a, a, w, 4000))
-    log("K1 merge_scatter: bitwise on 6 merges + raw scatter")
+    log(f"K1 merge_scatter: merge_place bitwise and run to run on {len(cases)} merges; "
+        "the generic scatter_combine bitwise on a raw scatter")
 
     # K2: ragged n (one node, one short of a node block, one past it, the
     # largest s_layout), both radii settings, overlapping and coincident
@@ -399,28 +448,79 @@ def kernel_checks(torch, np):
             check(torch.equal(got, want), f"K3 {kind}: kernel differs from plain")
     log("K3 count_scatter: bitwise on 4 cases × 2 increment forms")
 
-    # K4: one pixel, zero extent, all dead, random incl. bad groups, 1024².
-    for kind in ("one_pixel", "zero_extent", "all_dead", "random", "main"):
-        n, h, wd = 96, 24, 40
-        g = rng.integers(0, 11, n)
+    # K4: one pixel, zero extent, all dead, random incl. bad groups, 1024²;
+    # against the disk-major walk: 40 groups, r = +inf (every pixel, even
+    # for a centre at 1e30), NaN centres and radii, centres at ±1e30, integer
+    # centres and radii (pixels exactly on the circle), r one ulp above 8,
+    # one r = 128 disk alone, 2,000 coincident disks of one group (atomic
+    # contention), a 1023×769 image, no disk, and the accumulating form on a
+    # nonzero base. Two launches must give the same bits.
+    up8 = float(np.nextafter(np.float32(8.0), np.float32(9.0)))
+    k4_cases = ("one_pixel", "zero_extent", "all_dead", "random", "main", "groups_40",
+                "r_inf", "nan", "far_centre", "integer", "ulp_above_8", "r128_alone",
+                "coincident", "odd_image", "empty", "into")
+    for kind in k4_cases:
+        n, h, wd, ng = 96, 24, 40, 11
+        g = rng.integers(0, ng, n)
         if kind == "one_pixel":
             cx, cy, r = np.full(n, 13.4), np.full(n, 7.2), rng.uniform(0.5, 0.6, n)
         elif kind == "zero_extent":
             cx, cy, r = np.full(n, 20.0), np.full(n, 12.0), rng.uniform(0, 6, n)
         elif kind == "all_dead":
             cx, cy, r = rng.uniform(0, wd, n), rng.uniform(0, h, n), -rng.uniform(0, 2, n)
-        else:
-            n, h, wd = (300, 60, 100) if kind == "random" else (64, 1024, 1024)
+        elif kind in ("random", "main", "groups_40", "into"):
+            n, h, wd = (64, 1024, 1024) if kind == "main" else (300, 60, 100)
+            ng = 40 if kind == "groups_40" else 11
             cx = rng.uniform(-10, wd + 10, n)
             cy = rng.uniform(-10, h + 10, n)
-            r = rng.uniform(-2, 40 if kind == "random" else 128, n)
-            g = rng.integers(-2, 13, n)
+            r = rng.uniform(-2, 128 if kind == "main" else 40, n)
+            g = rng.integers(-2, ng + 2, n)
+        elif kind == "r_inf":
+            cx, cy = [5, 50, 1e30, -1e30, np.inf, np.nan], [5, 20, 3, 3, 4, 4]
+            r, g = [np.inf, 3, np.inf, np.inf, np.inf, np.inf], [0, 1, 2, 3, 4, 5]
+        elif kind == "nan":
+            cx, cy = [np.nan, 10, 10, 20, 30], [5, np.nan, 10, 12, 12]
+            r, g = [10, 10, np.nan, 9, 12], [0, 1, 2, 3, 4]
+        elif kind == "far_centre":  # r² finite below 1.8e19: d² overflows, nothing counts
+            cx, cy = [1e30, -1e30, 1e30, 20, -1e30], [5, 5, -1e30, 1e30, 1e30]
+            r, g = [1e18, 1e19, 5e18, 1.8e19, 1e15], [0, 1, 2, 3, 4]
+        elif kind == "integer":
+            n, h, wd = 400, 64, 96
+            cx, cy = rng.integers(-5, wd + 5, n), rng.integers(-5, h + 5, n)
+            r, g = rng.integers(1, 30, n), rng.integers(0, ng, n)
+        elif kind == "ulp_above_8":
+            n, h, wd = 200, 64, 96
+            cx, cy = rng.integers(0, wd, n) + rng.choice([0.0, 0.5], n), rng.uniform(0, h, n)
+            r, g = np.full(n, up8), rng.integers(0, ng, n)
+        elif kind == "r128_alone":
+            n, h, wd = 1, 1024, 1024
+            cx, cy, r, g = [511.5], [300.25], [128.0], [7]
+        elif kind == "coincident":
+            n, h, wd = 2000, 256, 256
+            cx, cy, r, g = np.full(n, 100.3), np.full(n, 130.6), np.full(n, 40.0), np.full(n, 3)
+        elif kind == "odd_image":
+            n, h, wd = 300, 769, 1023
+            cx, cy = rng.uniform(-100, wd + 100, n), rng.uniform(-100, h + 100, n)
+            r, g = rng.uniform(8, 128, n), rng.integers(0, ng, n)
+        else:  # empty
+            n, cx, cy, r, g = 0, [], [], [], []
         t = [torch.as_tensor(np.asarray(x, np.float32), device=dev) for x in (cx, cy, r)]
         gt = torch.as_tensor(np.asarray(g, np.int32), device=dev)
-        got = raster_ops.disk_accum(*t, gt, 11, h, wd)
-        want = disk_accum_ref(*t, gt, 11, h, wd)
+        if kind == "into":
+            base = torch.as_tensor(rng.integers(0, 7, (ng, h, wd)).astype(np.int32), device=dev)
+            got = raster_ops.disk_accum_into(base.clone(), *t, gt, ng)
+            again = raster_ops.disk_accum_into(base.clone(), *t, gt, ng)
+            want = disk_accum_into_ref(base.clone(), *t, gt, ng)
+        else:
+            got = raster_ops.disk_accum(*t, gt, ng, h, wd)
+            again = raster_ops.disk_accum(*t, gt, ng, h, wd)
+            want = disk_accum_ref(*t, gt, ng, h, wd)
         check(torch.equal(got, want), f"K4 {kind}: kernel differs from plain")
-    log("K4 disk_accum: bitwise on 5 cases")
+        check(torch.equal(got, again), f"K4 {kind}: two launches differ")
+        if kind == "r_inf":
+            check(bool((got[2:5] == 1).all()) and not bool(got[5].any()),
+                  "K4 r_inf: an r = +inf disk does not cover the image")
+    log(f"K4 disk_accum: bitwise and run to run on {len(k4_cases)} cases")
     grid_kernel_checks(torch, np, rng)
     torch.cuda.synchronize()
 
@@ -720,8 +820,9 @@ def grid_kernel_checks(torch, np, rng):
 class Capture:
     """Records kernel inputs by wrapping the module attribute each caller
     looks up (inputs cloned before the call): per site the largest call,
-    or the latest one for the grid path's sites, whose calls all have one
-    size. Launch counts stay with the wrappers themselves
+    or the latest one for the sites whose calls all have one size (the
+    grid path's, and K1's, whose last merge holds the fullest state).
+    Launch counts stay with the wrappers themselves
     (``repro_torch.kernels.build.LAUNCHES``). The CMS site is the main
     path's ``core.cms.update`` (an ``index_put_``): its input is K8's."""
 
@@ -739,15 +840,19 @@ class Capture:
         # (module, attribute, key, index of the argument whose size ranks
         # calls, keep the latest call)
         self.sites = [
-            (merge_ops, "scatter_combine", "merge_scatter", 0, False),
+            (merge_ops, "merge_place", "merge_scatter", 0, True),
             (rep_ops, "repulsion", "repulsion_nbody", 0, False),
             (raster_ops, "count_scatter_into", "count_scatter", 1, False),
-            (raster_ops, "disk_accum", "disk_accum", 0, False),
+            (raster_ops, "disk_accum_into", "disk_accum", 1, False),
             (grid_ops, "far_field", "far_field", 0, True),
             (grid_ops, "near_field_sorted", "near_field", 0, True),
             (seg_ops, "segment_sum", "segment_sum", 0, True),
             (cms_lib, "update", "cms_update", 1, False),
         ]
+        # Arguments recorded by shape only (a "meta" tensor): K4's
+        # accumulator, whose 46 MB copy would stay allocated through the
+        # full path and count in its peak memory.
+        self.shape_only = {"disk_accum": (0,)}
         self.calls = {}
 
     def fn(self, name):
@@ -771,8 +876,10 @@ class Capture:
                 size = args[_arg].numel()
                 best = self.calls.get(_key)
                 if best is None or size > best[0] or (_latest and size == best[0]):
-                    cl = tuple(x.clone() if isinstance(x, self.torch.Tensor) else x
-                               for x in args)
+                    meta = self.shape_only.get(_key, ())
+                    cl = tuple(x if not isinstance(x, self.torch.Tensor)
+                               else x.to("meta") if i in meta else x.clone()
+                               for i, x in enumerate(args))
                     self.calls[_key] = (size, cl, dict(kw))
                 return _real(*args, **kw)
 
@@ -1003,11 +1110,18 @@ def layout_quality(np, pos, edges, n):
 def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
     """One row per kernel. ``launches`` is the count from the run of the
     path the kernel is on: the main path for K1–K4, the full path for
-    K5–K7; K8 is on no path (its launches are 0). ``library_ms`` is the time
+    K5–K7; K8 and the generic scatter_combine are on no path (their
+    launches are 0). ``library_ms`` is the time
     of one PyTorch call computing the same function, or null where there is
     none; ``library`` names the call, or says there is none."""
-    from repro_torch.kernels.merge.ref import scatter_combine_ref
-    from repro_torch.kernels.raster.ref import count_scatter_into_ref, disk_accum_ref
+    from repro_torch.kernels.merge import ops as merge_ops
+    from repro_torch.kernels.merge.ref import merge_place_ref, scatter_combine_ref
+    from repro_torch.kernels.raster import ops as raster_ops
+    from repro_torch.kernels.raster.ref import (
+        count_scatter_into_ref,
+        disk_accum_into_ref,
+        disk_accum_ref,
+    )
     from repro_torch.kernels.repulsion.ref import repulsion_chunked
 
     rows = []
@@ -1030,13 +1144,20 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
             f"({library}) bound_ms {r['bound_ms']} ({r['bound_by']}: bytes {bound_b} ms, "
             f"operations {bound_o} ms) max_abs_err {err} launches {r['launches']} ({path})")
 
-    # K1. The library yardstick runs on the kept rows only (filtered
+    # K1 (merge_place) on the main path's last merge, and the generic
+    # scatter_combine on the same rows, concatenated (outside the timed
+    # span). The library yardstick runs on the kept rows only (filtered
     # outside the timed span): sending dropped rows to one scratch slot
     # would serialise the library's scatter on that slot.
-    _, (pos, a, b, w, capn), _ = cap.calls["merge_scatter"]
+    _, (pos_s, sa, sb, sw, pos_c, ca, cb, cw, capn), _ = cap.calls["merge_scatter"]
     k1 = cap.fn("merge_scatter")
-    got, want = k1(pos, a, b, w, capn), scatter_combine_ref(pos, a, b, w, capn)
-    check(all(torch.equal(g, x) for g, x in zip(got, want)), "K1 differs on main-path input")
+    runs = (pos_s, sa, sb, sw, pos_c, ca, cb, cw, capn)
+    got, want = k1(*runs), merge_place_ref(*runs)
+    check(all(bits_equal(torch, g, x) for g, x in zip(got, want)),
+          "K1 differs on main-path input")
+    check(all(bits_equal(torch, g, x) for g, x in zip(got, k1(*runs))),
+          "K1 main-path input: two launches differ")
+    pos, a, b, w = (torch.cat([x, y]) for x, y in zip((pos_s, sa, sb, sw), (pos_c, ca, cb, cw)))
     keep = (pos >= 0) & (pos < capn)
     idx, a_k, b_k, w_k = pos[keep].long(), a[keep], b[keep], w[keep]
     oa = torch.full((capn,), -1, dtype=torch.int32, device=pos.device)
@@ -1047,13 +1168,29 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
         ob.scatter_reduce_(0, idx, b_k, "amax", include_self=True)
         ow.index_put_((idx,), w_k, accumulate=True)
 
-    nrow = pos.numel()
+    # merge_place's bound counts the kept rows only: the ranks are sorted,
+    # so the rows of rank >= cap in each run's tail are never needed. The
+    # generic scatter_combine takes arbitrary positions and must read every
+    # row. Both figures go into the shape text.
+    nrow, kept = pos.numel(), idx.numel()
+    kept_bytes, all_bytes = kept * 16 + capn * 12, nrow * 16 + capn * 12
+    lib_ms = cuda_ms(torch, lib1, REPS)
+    shape = (f"N={nrow} ({pos_s.numel()} state + {pos_c.numel()} chunk) kept={kept} "
+             f"cap={capn}; bytes kept rows {kept_bytes} "
+             f"({kept_bytes / PEAK_BYTES_PER_S * 1e3} ms), all rows {all_bytes} "
+             f"({all_bytes / PEAK_BYTES_PER_S * 1e3} ms)")
+    library = "scatter_reduce_ ×2 + index_put_ on the kept rows"
     row("merge_scatter",
-        cuda_ms(torch, lambda: k1(pos, a, b, w, capn), REPS),
+        cuda_ms(torch, lambda: k1(*runs), REPS),
+        cuda_ms(torch, lambda: merge_place_ref(*runs), REPS),
+        lib_ms, 0.0, kept_bytes, nrow, shape, library)
+    gen = merge_ops.scatter_combine
+    check(all(bits_equal(torch, g, x) for g, x in zip(gen(pos, a, b, w, capn), want)),
+          "generic scatter_combine differs on main-path input")
+    row("scatter_combine",
+        cuda_ms(torch, lambda: gen(pos, a, b, w, capn), REPS),
         cuda_ms(torch, lambda: scatter_combine_ref(pos, a, b, w, capn), REPS),
-        cuda_ms(torch, lib1, REPS), 0.0,
-        nrow * 16 + capn * 12, nrow, f"N={nrow} kept={idx.numel()} cap={capn}",
-        "scatter_reduce_ ×2 + index_put_ on the kept rows")
+        lib_ms, 0.0, all_bytes, nrow, shape, library)
 
     # K2, held per row against Σ_j |f_ij|.
     _, (p, m, kr), kw = cap.calls["repulsion_nbody"]
@@ -1093,12 +1230,22 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
         f"N={pos3.numel()} kept={idx3.numel()} size={size} distinct_hits={hit} "
         f"inc={inc3 is not None}", "index_put_ (accumulate) on the kept rows")
 
-    # K4. The function needs only the pixels inside each live disk's
-    # bounding box (clipped to the image), so that is the operation count.
-    _, (cx, cy, r, g, ng, h, wd), _ = cap.calls["disk_accum"]
-    k4 = cap.fn("disk_accum")
-    check(torch.equal(k4(cx, cy, r, g, ng, h, wd), disk_accum_ref(cx, cy, r, g, ng, h, wd)),
+    # K4, fresh (zero fill included) as the table times it, on the node
+    # pass's recorded input; the accumulating form the node pass calls is
+    # logged beside it. The function needs only the pixels inside each live
+    # disk's bounding box (clipped to the image), so that is the operation
+    # count.
+    _, (acc_meta, cx, cy, r, g, ng), _ = cap.calls["disk_accum"]
+    _, h, wd = acc_meta.shape
+    base = torch.full((ng, h, wd), 3, dtype=torch.int32, device=cx.device)
+    k4 = raster_ops.disk_accum
+    got = k4(cx, cy, r, g, ng, h, wd)
+    check(torch.equal(got, disk_accum_ref(cx, cy, r, g, ng, h, wd)),
           "K4 differs on main-path input")
+    check(torch.equal(got, k4(cx, cy, r, g, ng, h, wd)), "K4 main-path input: two launches differ")
+    check(torch.equal(cap.fn("disk_accum")(base.clone(), cx, cy, r, g, ng),
+                      disk_accum_into_ref(base, cx, cy, r, g, ng)),
+          "K4 accumulating form differs on main-path input")
     n4 = cx.numel()
     live = (r > 0) & (g >= 0) & (g < ng)
 
@@ -1108,11 +1255,13 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
         return torch.clamp(hi - lo + 1, min=0)
 
     pairs = int((span(cx, wd) * span(cy, h))[live].sum())
+    into_ms = cuda_ms(torch, lambda: cap.fn("disk_accum")(base, cx, cy, r, g, ng), REPS)
     row("disk_accum",
         cuda_ms(torch, lambda: k4(cx, cy, r, g, ng, h, wd), REPS),
         cuda_ms(torch, lambda: disk_accum_ref(cx, cy, r, g, ng, h, wd), 3),
         None, 0.0, n4 * 16 + ng * h * wd * 4, K4_OPS_PER_PAIR * pairs,
-        f"n={n4} live={int(live.sum())} bbox_pairs={pairs} out={ng}x{h}x{wd}")
+        f"n={n4} live={int(live.sum())} bbox_pairs={pairs} out={ng}x{h}x{wd} "
+        f"(accumulating form, no fill: {into_ms} ms)")
     time_grid_kernels(torch, np, cap, row)
     return rows
 

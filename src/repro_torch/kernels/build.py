@@ -35,8 +35,10 @@ KERNELS = ("merge_scatter", "repulsion_nbody", "count_scatter", "disk_accum",
            "far_field", "near_field", "segment_sum", "cms_update")
 # Launches per kernel in this process: each wrapper adds one where it
 # launches its kernel, and nowhere else (a run reads them to show which
-# kernels its path went through; set them to 0 before the run).
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+# kernels its path went through; set them to 0 before the run). The
+# merge_scatter library has two entries: merge_place (K1, counted as
+# "merge_scatter") and the generic scatter_combine, counted apart.
+LAUNCHES = dict.fromkeys(KERNELS + ("scatter_combine",), 0)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -112,9 +114,10 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry(name: str, argtypes: list):
-    """The C entry point ``name`` of library ``name``, typed."""
-    fn = getattr(library(name), name)
+def entry(name: str, argtypes: list, symbol: str | None = None):
+    """The C entry point ``symbol`` (default ``name``) of library ``name``,
+    typed."""
+    fn = getattr(library(name), symbol or name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

@@ -6,7 +6,7 @@ aggregation state [cap] and a locally deduped chunk [C] — into one sorted
 deduplicated run of the state's capacity, summing the weights of pairs
 present in both. Output ranks come from binary searches
 (``torch.searchsorted``) because both runs are already sorted; the rows
-then land by one scatter (``scatter_combine_ref`` here, kernel K1 on the
+then land in their slots (``merge_place_ref`` here, kernel K1 on the
 card).
 
 Pairs compare as packed keys ``a·s_cap + b``: valid pairs satisfy
@@ -91,8 +91,21 @@ def scatter_combine_ref(pos, a, b, w, cap: int):
     return oa[:cap], ob[:cap], ow[:cap]
 
 
-def merge_combine_ref(sa, sb, sw, ca, cb, cw, s_cap: int,
-                      scatter=scatter_combine_ref):
+def merge_place_ref(pos_s, sa, sb, sw, pos_c, ca, cb, cw, cap: int):
+    """Plain version of kernel K1's ``merge_place``: the rows of the state
+    run [ns] and the chunk run [nc] at their ranks, combined by
+    ``scatter_combine_ref`` over the concatenated runs (state rows first).
+
+    The kernel relies on what ``merge_positions`` guarantees: within each
+    run ranks are nondecreasing, strictly increasing below ``cap``.
+    """
+    return scatter_combine_ref(
+        torch.cat([pos_s, pos_c]), torch.cat([sa, ca]), torch.cat([sb, cb]),
+        torch.cat([sw, cw]), cap,
+    )
+
+
+def merge_combine_ref(sa, sb, sw, ca, cb, cw, s_cap: int, place=merge_place_ref):
     """Merge a sorted deduped chunk run into the sorted state run.
 
     ``sa``/``sb``/``sw`` [cap] and ``ca``/``cb``/``cw`` [C] are int32 pairs
@@ -100,18 +113,15 @@ def merge_combine_ref(sa, sb, sw, ca, cb, cw, s_cap: int,
     padding last. Returns ``(oa [cap], ob [cap], ow [cap], n)`` with the
     union's lexicographically smallest ``cap`` pairs (overflow truncates
     the sorted tail, same contract as the lexsort path) and ``n`` the count
-    of unique valid pairs in the union (may exceed ``cap``). ``scatter``
-    places the rows: the plain version here, kernel K1 in
-    ``ops.merge_combine``.
+    of unique valid pairs in the union (may exceed ``cap``). ``place``
+    puts the ranked rows in their slots: the plain version here, kernel K1
+    in ``ops.merge_combine``.
     """
     cap = sa.shape[0]
     sk = pack_keys(sa, sb, s_cap)
     ck = pack_keys(ca, cb, s_cap)
     pos_s, pos_c, new_c = merge_positions(sk, ck)
-    oa, ob, ow = scatter(
-        torch.cat([pos_s, pos_c]), torch.cat([sa, ca]), torch.cat([sb, cb]),
-        torch.cat([sw, cw]), cap,
-    )
+    oa, ob, ow = place(pos_s, sa, sb, sw, pos_c, ca, cb, cw, cap)
     oa = torch.where(oa < 0, s_cap, oa)
     ob = torch.where(ob < 0, s_cap, ob)
     n = ((sk != SENTINEL).sum() + new_c.sum()).to(torch.int32)

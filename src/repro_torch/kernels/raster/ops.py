@@ -10,12 +10,11 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.raster.ref import count_scatter_into_ref, disk_accum_ref
+from repro_torch.kernels.raster.ref import count_scatter_into_ref, disk_accum_into_ref
 
 _SCATTER_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                      ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
-_DISK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-MAX_GROUPS = 16  # register counters per thread in csrc/disk_accum.cu
+_DISK_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
 
 
 def count_scatter_into(acc, pos, inc=None):
@@ -52,26 +51,41 @@ def count_scatter(pos, inc, size: int):
     return count_scatter_into(acc, pos, inc)
 
 
-def disk_accum(cx, cy, r, group, n_groups: int, h: int, w: int):
-    """Per-pixel disk coverage counts by color group, [n_groups, h, w] int32."""
-    dev = cx.device
+def disk_accum_into(acc, cx, cy, r, group, n_groups: int):
+    """Add per-pixel disk coverage counts by color group into ``acc``
+    [n_groups, h, w] int32, in place; returns acc.
+
+    ``cx``/``cy``/``r`` [n] float32 pixel-space centres and radii, ``group``
+    [n] int32; nodes with ``r ≤ 0`` (or NaN) and out-of-range groups count
+    nothing. Any ``n_groups``.
+    """
+    dev = acc.device
     if dev.type == "cpu":
-        return disk_accum_ref(cx, cy, r, group, n_groups, h, w)
+        return disk_accum_into_ref(acc, cx, cy, r, group, n_groups)
     if dev.type != "cuda":
-        raise ValueError(f"disk_accum: unsupported device {dev}")
-    if not 0 <= n_groups <= MAX_GROUPS:
-        raise ValueError(f"disk_accum: n_groups={n_groups} outside [0, {MAX_GROUPS}]")
+        raise ValueError(f"disk_accum_into: unsupported device {dev}")
+    if acc.dim() != 3 or acc.shape[0] != n_groups:
+        raise ValueError(f"disk_accum_into: acc shape {tuple(acc.shape)}, "
+                         f"expected ({n_groups}, h, w)")
+    build.require(acc, "acc", torch.int32, dev)
     n = cx.shape[0]
     for name, t, dt in (("cx", cx, torch.float32), ("cy", cy, torch.float32),
                         ("r", r, torch.float32), ("group", group, torch.int32)):
         build.require(t, name, dt, dev, (n,))
-    out = torch.empty((n_groups, h, w), dtype=torch.int32, device=dev)
+    _, h, w = acc.shape
+    start = torch.empty(n + 1, dtype=torch.int64, device=dev)  # box-area prefix
     fn = build.entry("disk_accum", _DISK_ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(
             build.ptr(cx), build.ptr(cy), build.ptr(r), build.ptr(group),
-            n, n_groups, h, w, build.ptr(out), build.stream(dev),
+            n, n_groups, h, w, build.ptr(start), build.ptr(acc), build.stream(dev),
         )
     build.check("disk_accum", code)
     build.LAUNCHES["disk_accum"] += 1
-    return out
+    return acc
+
+
+def disk_accum(cx, cy, r, group, n_groups: int, h: int, w: int):
+    """Per-pixel disk coverage counts by color group, [n_groups, h, w] int32."""
+    acc = torch.zeros((n_groups, h, w), dtype=torch.int32, device=cx.device)
+    return disk_accum_into(acc, cx, cy, r, group, n_groups)

@@ -14,6 +14,9 @@ chunked accumulation is bit-identical to one-shot whatever the chunk order
   mask is the only transient; nodes with ``r ≤ 0`` and out-of-range groups
   contribute nothing. The predicate is the same float32 operations in the
   same order as kernel K4, so the two agree bit for bit.
+* ``disk_accum_into_ref`` — the same counts added into a given
+  accumulator, in place (the renderer's node pass adds them onto the
+  small-disk counts).
 """
 from __future__ import annotations
 
@@ -53,3 +56,11 @@ def disk_accum_ref(cx, cy, r, group, n_groups: int, h: int, w: int,
         inside = ((dy2[:, :, None] + dx2[:, None, :]) <= r2) & alive
         out[:, y0:y1].index_add_(0, grp, inside.to(torch.int32))
     return out[:n_groups]
+
+
+def disk_accum_into_ref(acc, cx, cy, r, group, n_groups: int):
+    """``acc += disk_accum_ref(...)`` in place for ``acc`` [n_groups, h, w]
+    int32; returns acc."""
+    _, h, w = acc.shape
+    acc += disk_accum_ref(cx, cy, r, group, n_groups, h, w)
+    return acc

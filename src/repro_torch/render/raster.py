@@ -202,10 +202,10 @@ def _node_pass(px, py, r_px, groups, n_groups: int, hs: int, ws: int, device):
         )
     acc = acc.reshape(n_groups, hs, ws)
     if large.any():
-        acc += raster_ops.disk_accum(
-            dev(px[large], torch.float32), dev(py[large], torch.float32),
+        raster_ops.disk_accum_into(
+            acc, dev(px[large], torch.float32), dev(py[large], torch.float32),
             dev(r_px[large], torch.float32), dev(groups[large], torch.int32),
-            n_groups, hs, ws,
+            n_groups,
         )
     return acc
 

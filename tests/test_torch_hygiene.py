@@ -114,14 +114,17 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     from repro_torch.kernels.segment import ops as seg_ops
 
     before = dict(build.LAUNCHES)
-    assert set(before) == set(build.KERNELS) and len(before) == 8
+    # One counter per library, and one more for K1's generic entry.
+    assert set(before) == set(build.KERNELS) | {"scatter_combine"} and len(before) == 9
     i = torch.zeros(4, dtype=torch.int32)
     f = torch.zeros(4)
     p = torch.zeros(4, 2)
     merge_ops.scatter_combine(i, i, i, f, 4)
+    merge_ops.merge_place(i, i, i, f, i, i, i, f, 4)
     rep_ops.repulsion(p, f, 80.0)
     raster_ops.count_scatter_into(i.clone(), i)
     raster_ops.disk_accum(f, f, f, i, 11, 3, 3)
+    raster_ops.disk_accum_into(torch.zeros(11, 3, 3, dtype=torch.int32), f, f, f, i, 11)
     grid_ops.far_field(p, f, i, p, f, 80.0)
     grid_ops.near_field_sorted(p, f, i, 80.0, 2)
     seg_ops.segment_sum(p, i, 4)
@@ -133,6 +136,11 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
         rep_ops.repulsion(torch.zeros(4, 2, device="meta"), m, 80.0)
     with pytest.raises(ValueError, match="unsupported device"):
         seg_ops.segment_sum(torch.zeros(4, 3, device="meta"), i.to("meta"), 4)
+    im = i.to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        merge_ops.merge_place(im, im, im, m, im, im, im, m, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        raster_ops.disk_accum(m, m, m, im, 11, 3, 3)
     with pytest.raises(ValueError, match="unsupported device"):
         cms_ops.update_hashed(torch.zeros(2, 8, device="meta"),
                               torch.zeros(2, 4, dtype=torch.int32, device="meta"), m)

@@ -48,12 +48,16 @@ from repro_torch.kernels.cms.ref import cms_update_ref  # noqa: E402
 
 from repro_torch.kernels.merge import ops as merge_ops  # noqa: E402
 from repro_torch.kernels.merge.ref import (  # noqa: E402
+    SENTINEL,
     merge_combine_ref,
+    merge_positions,
+    pack_keys,
     scatter_combine_ref,
 )
 from repro_torch.kernels.raster import ops as raster_ops  # noqa: E402
 from repro_torch.kernels.raster.ref import (  # noqa: E402
     count_scatter_into_ref,
+    disk_accum_into_ref,
     disk_accum_ref,
 )
 from repro_torch.kernels.repulsion import ops as rep_ops  # noqa: E402
@@ -119,6 +123,21 @@ def _merge_case(case):
     elif case == "chunk_above_state":
         state = {(0, j): 1.0 for j in range(1, 8)}
         chunk = {(8, j): 2.0 for j in range(9, 16)}
+    elif case == "neg_zero_weight":  # −0.0 alone, against +0.0, and with a partner
+        s_cap, cap, c = 32, 40, 16
+        state = _rand_pairs(rng, 20, s_cap)
+        chunk = {p: 2.0 for p in list(state)[:6]}
+        chunk.update(_rand_pairs(rng, 8, s_cap))
+        for i, p in enumerate(sorted(state)):
+            if i % 2 == 0:
+                state[p] = -0.0
+        for i, p in enumerate(sorted(chunk)):
+            if i % 3 == 0:
+                chunk[p] = -0.0
+    elif case == "cap_1":  # one slot: the smallest pair of the union
+        s_cap, cap, c = 16, 1, 8
+        state = {(3, 9): 2.0}
+        chunk = {(3, 9): 1.0, (0, 5): 4.0, (7, 8): 1.0}
     else:  # s_cap at the packing limit: keys brush the sentinel
         s_cap, cap, c = 1 << 16, 16, 8
         top = s_cap - 1
@@ -127,12 +146,24 @@ def _merge_case(case):
     return _sorted_run(state, cap, s_cap) + _sorted_run(chunk, c, s_cap) + (s_cap,)
 
 
-@pytest.mark.parametrize("case", [
+MERGE_CASES = [
     "random", "empty_chunk", "all_duplicate", "all_padding_state_too",
     "state_at_capacity", "chunk_below_state", "chunk_above_state",
-    "s_cap_packing_limit",
-])
+    "s_cap_packing_limit", "neg_zero_weight", "cap_1",
+]
+
+
+def _bits(x):
+    """Array whose equality is bitwise (−0.0 differs from +0.0)."""
+    x = np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)
+    return x.view(np.int32) if x.dtype == np.float32 else x
+
+
+@pytest.mark.parametrize("case", MERGE_CASES)
 def test_merge_plain_matches_reference_ref_and_pallas(case):
+    """The plain version and the wrapper on CPU tensors (``merge_place``'s
+    plain path) against the reference's plain version and its Pallas
+    kernel in interpret mode, bitwise."""
     sa, sb, sw, ca, cb, cw, s_cap = _merge_case(case)
     args = [jnp.asarray(x) for x in (sa, sb, sw, ca, cb, cw)]
     want = jax_merge_ref(*args, s_cap)
@@ -140,8 +171,30 @@ def test_merge_plain_matches_reference_ref_and_pallas(case):
     targs = [_t(x) for x in (sa, sb, sw, ca, cb, cw)]
     for got in (merge_combine_ref(*targs, s_cap), merge_ops.merge_combine(*targs, s_cap)):
         for g, w_, p in zip(got, want, pallas):
-            _eq(g, w_, case)
-            _eq(g, p, case)
+            _eq(_bits(g), _bits(w_), case)
+            _eq(_bits(g), _bits(p), case)
+    if case == "neg_zero_weight":
+        ow = merge_ops.merge_combine(*targs, s_cap)[2].numpy()
+        assert (ow == 0).any() and not np.signbit(ow).any()
+
+
+@pytest.mark.parametrize("case", MERGE_CASES)
+def test_merge_positions_meet_the_placement_precondition(case):
+    """What kernel K1's merge_place relies on: in each run ranks are
+    nondecreasing, strictly increasing below cap (so each slot is hit by at
+    most one row of each run), and ranks ≥ cap only in the tail; the ranks
+    below cap fill the slots 0 .. min(union, cap) − 1."""
+    sa, sb, sw, ca, cb, cw, s_cap = _merge_case(case)
+    cap = sa.shape[0]
+    sk, ck = pack_keys(_t(sa), _t(sb), s_cap), pack_keys(_t(ca), _t(cb), s_cap)
+    pos_s, pos_c, new_c = (x.numpy() for x in merge_positions(sk, ck))
+    for pos in (pos_s, pos_c):
+        assert (np.diff(pos.astype(np.int64)) >= 0).all()
+        kept = pos[pos < cap]
+        assert (np.diff(kept) > 0).all() and (pos[: len(kept)] < cap).all()
+    union = int((sk.numpy() != SENTINEL).sum() + new_c.sum())
+    hit = np.union1d(pos_s[pos_s < cap], pos_c[pos_c < cap])
+    np.testing.assert_array_equal(hit, np.arange(min(union, cap)))
 
 
 def test_merge_scatter_plain_drops_out_of_range_rows():
@@ -315,6 +368,41 @@ def test_disk_accum_plain_matches_reference(case):
     for got in (disk_accum_ref(*targs, 11, h, w), raster_ops.disk_accum(*targs, 11, h, w)):
         _eq(got, want, case)
         _eq(got, pallas, case)
+
+
+@pytest.mark.parametrize("case", ["random", "one_pixel", "zero_extent", "all_dead"])
+def test_disk_accum_into_plain_matches_base_plus_reference(case):
+    """The accumulating form (the node pass adds the large disks onto the
+    small-disk counts) on a nonzero base: base + the reference's counts."""
+    cx, cy, r, g, h, w = _disk_case(case)
+    base = np.random.default_rng(17).integers(0, 9, (11, h, w)).astype(np.int32)
+    want = base + np.asarray(jax_disk_ref(*[jnp.asarray(x) for x in (cx, cy, r, g)], 11, h, w))
+    targs = [_t(x) for x in (cx, cy, r, g)]
+    for into in (disk_accum_into_ref, raster_ops.disk_accum_into):
+        acc = _t(base.copy())
+        assert into(acc, *targs, 11) is acc
+        _eq(acc, want, case)
+
+
+def test_disk_accum_takes_any_group_count():
+    """40 color groups (the kernel once kept 16 per-group registers): the
+    plain versions and the wrappers on CPU tensors against the reference's
+    plain version and its Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(40)
+    n, h, w, ng = 200, 30, 50, 40
+    cx = rng.uniform(-5, w + 5, n).astype(np.float32)
+    cy = rng.uniform(-5, h + 5, n).astype(np.float32)
+    r = rng.uniform(-1, 14, n).astype(np.float32)
+    g = rng.integers(-2, ng + 2, n).astype(np.int32)
+    jargs = [jnp.asarray(x) for x in (cx, cy, r, g)]
+    want = np.asarray(jax_disk_ref(*jargs, ng, h, w))
+    _eq(disk_accum_pallas(*jargs, ng, h, w, tp=128, blk=64, interpret=True), want)
+    assert want[32:].any()  # groups past 16 are drawn
+    targs = [_t(x) for x in (cx, cy, r, g)]
+    _eq(disk_accum_ref(*targs, ng, h, w), want)
+    _eq(raster_ops.disk_accum(*targs, ng, h, w), want)
+    for into in (disk_accum_into_ref, raster_ops.disk_accum_into):
+        _eq(into(torch.zeros((ng, h, w), dtype=torch.int32), *targs, ng), want)
 
 
 # ------------------------------------------------------- K7: segment sum

@@ -1,27 +1,43 @@
 #!/usr/bin/env python3
-"""Time an older tree's grid kernels K6 (near_field) and K7 (segment_sum)
-against this tree's, on one GPU, on the inputs the full path gives them.
+"""Time an older tree's kernels K1 (merge placement), K4 (disk_accum), K6
+(near_field) and K7 (segment_sum) against this tree's, on one GPU, on the
+inputs the main and full paths give them.
 
     git archive <commit> | tar -x -C build/parent    # build/ is ignored by git
     python3 tools/kernel_compare.py build/parent
 
-It runs ``full_layout_colored`` as ``chip_smoke.py`` does (685,230 nodes,
-grid 64, window 32, 500 iterations) and records K6's and K7's inputs from
-one more iteration at the final layout (``chip_smoke.record_grid_inputs``).
-The older tree's ``src/repro_torch/csrc/<name>.cu`` is compiled with this
-tree's ``nvcc`` flags and put behind this tree's wrapper (the C interface
-is the same), so both versions are called, checked and timed alike: held
-bitwise against the plain version, then timed by ``chip_smoke.cuda_ms``
-over ``chip_smoke.REPS`` launches queued behind a device sleep, in the
-order older, this, this, older, ``ROUNDS`` times. Prints one JSON line
-and the card's ``nvidia-smi`` name and power limit.
+It runs ``biggraphvis`` + ``render`` as ``chip_smoke.py`` does (685,230
+nodes, 100 iterations), recording K1's first and last merge and K4's node
+pass, then ``full_layout_colored`` (grid 64, window 32, 500 iterations),
+recording K6's and K7's inputs from one more iteration at the final layout
+(``chip_smoke.record_grid_inputs``). Each older
+``src/repro_torch/csrc/<name>.cu`` is compiled with this tree's ``nvcc``
+flags. K6 and K7 keep their C interface, so the older library sits behind
+this tree's wrapper. K1 and K4 changed theirs, so the older tree's own
+wrapper modules (``kernels/merge/ops.py``, ``kernels/raster/ops.py``) are
+loaded from its directory and call the older library:
+
+- K4: a fresh ``disk_accum`` (this tree's includes the zero fill);
+- K1 kernel: the older atomic kernel alone on the concatenated runs, its
+  outputs filled outside the timed span, against this tree's
+  ``merge_place``;
+- K1 placement: the older ``merge_combine``'s placement as a whole (four
+  ``torch.cat``, three fills, the atomic kernel) against ``merge_place``.
+
+Every version is held bitwise against the plain version, then timed by
+``chip_smoke.cuda_ms`` over ``chip_smoke.REPS`` launches queued behind a
+device sleep, in the order older, this, this, older, ``ROUNDS`` times.
+Prints one JSON line and the card's ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import importlib.util
 import json
 import subprocess
 import sys
+import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -33,7 +49,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 import chip_smoke as smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 
-KERNELS = ("near_field", "segment_sum")
+KERNELS = ("merge_scatter", "disk_accum", "near_field", "segment_sum")
 ROUNDS = 2
 
 
@@ -52,10 +68,62 @@ def compile_older(tree: Path, name: str) -> ctypes.CDLL:
     return lib
 
 
+def older_module(tree: Path, rel: str, name: str):
+    """A wrapper module of the older tree, loaded from its file; its imports
+    of ``repro_torch`` resolve to this tree (``build``, the plain versions)."""
+    spec = importlib.util.spec_from_file_location(name, tree / "src" / "repro_torch" / rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def merge_calls(store: dict):
+    """Record the first and the last call of ``merge_place`` (cloned)."""
+    from repro_torch.kernels.merge import ops as merge_ops
+
+    real = merge_ops.merge_place
+
+    def rec(*args):
+        cl = tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in args)
+        store.setdefault("first", cl)
+        store["last"] = cl
+        return real(*args)
+
+    merge_ops.merge_place = rec
+    try:
+        yield
+    finally:
+        merge_ops.merge_place = real
+
+
+def main_inputs(edges, delta):
+    """K1's first and last merge and K4's node-pass input, from one run of
+    the main path."""
+    import repro_torch
+
+    n = smoke.NODES
+    cfg = repro_torch.default_config(n, len(edges), delta, iterations=smoke.ITERATIONS)
+    scfg = repro_torch.StreamConfig(chunk_size=1 << 16)
+    cap = smoke.Capture(torch)
+    merges = {}
+    with tempfile.TemporaryDirectory() as tmp, cap.recording(), merge_calls(merges):
+        repro_torch.biggraphvis(edges, n, cfg, scfg, device="cuda").render(
+            str(Path(tmp) / "main.png"))
+    torch.cuda.synchronize()
+    return merges, cap.calls["disk_accum"][1]
+
+
 def run(older: Path) -> dict:
+    import numpy as np
+
     import repro_torch
     from repro_torch.device import resolve_device
     from repro_torch.kernels.grid.ref import near_field_ref
+    from repro_torch.kernels.merge import ops as merge_ops
+    from repro_torch.kernels.merge.ref import merge_place_ref
+    from repro_torch.kernels.raster import ops as raster_ops
+    from repro_torch.kernels.raster.ref import disk_accum_ref
     from repro_torch.kernels.segment.ref import segment_sum_ref
 
     resolve_device("cuda")
@@ -64,9 +132,12 @@ def run(older: Path) -> dict:
         build.build(KERNELS)
         libs = {"older": {k: f.result() for k, f in futs.items()},
                 "this": {k: build.library(k) for k in KERNELS}}
+    old_merge = older_module(older, "kernels/merge/ops.py", "older_merge_ops")
+    old_raster = older_module(older, "kernels/raster/ops.py", "older_raster_ops")
 
-    cap = smoke.Capture(torch)
     edges, delta = smoke.make_graph()
+    merges, (acc_meta, cx, cy, r, g, ng) = main_inputs(edges, delta)
+    cap = smoke.Capture(torch)
     n = smoke.NODES
     cfg = repro_torch.default_config(n, len(edges), delta, grid_size=smoke.GRID,
                                      grid_window=smoke.WINDOW, grid_rebuild=1)
@@ -76,27 +147,85 @@ def run(older: Path) -> dict:
     _, (pos_s, mass_s, cell_s, kr, w), _ = cap.calls["near_field"]
     _, (data, seg, n_seg), kw = cap.calls["segment_sum"]
     k6, k7 = cap.fn("near_field"), cap.fn("segment_sum")
-    calls = {"near_field": lambda: k6(pos_s, mass_s, cell_s, kr, w),
-             "segment_sum": lambda: k7(data, seg, n_seg, **kw)}
-    want = {"near_field": near_field_ref(pos_s, mass_s, cell_s, kr, w),
-            "segment_sum": segment_sum_ref(data.cpu(), seg.cpu(), n_seg)}
+    _, h, wd = acc_meta.shape
 
-    ms = {k: {"older": [], "this": []} for k in KERNELS}
+    # (name, {version: call, and optionally version_check: the call to
+    # check, where the timed one reuses its outputs}, plain result)
+    cases = [
+        ("near_field", dict.fromkeys(("older", "this"), lambda: k6(pos_s, mass_s, cell_s, kr, w)),
+         near_field_ref(pos_s, mass_s, cell_s, kr, w)),
+        ("segment_sum", dict.fromkeys(("older", "this"), lambda: k7(data, seg, n_seg, **kw)),
+         segment_sum_ref(data.cpu(), seg.cpu(), n_seg)),
+        ("disk_accum", {"older": lambda: old_raster.disk_accum(cx, cy, r, g, ng, h, wd),
+                        "this": lambda: raster_ops.disk_accum(cx, cy, r, g, ng, h, wd)},
+         disk_accum_ref(cx, cy, r, g, ng, h, wd)),
+    ]
+    inputs = {"near_field": {"n": int(pos_s.shape[0]), "window": w},
+              "segment_sum": {"segments": n_seg, "largest_segment": int(torch.bincount(
+                  seg[(seg >= 0) & (seg < n_seg)].long()).max())},
+              "disk_accum": {"disks": int(cx.numel()), "out": [ng, h, wd]}}
+    for which in ("first", "last"):
+        runs = merges[which]
+        ps, sa, sb, sw, pc, ca, cb, cw, capn = runs
+        cat = [torch.cat([x, y]) for x, y in zip((ps, sa, sb, sw), (pc, ca, cb, cw))]
+        outs = [torch.empty(capn, dtype=torch.int32, device="cuda"),
+                torch.empty(capn, dtype=torch.int32, device="cuda"),
+                torch.empty(capn, device="cuda")]
+
+        def fill(outs=outs):
+            outs[0].fill_(-1)
+            outs[1].fill_(-1)
+            outs[2].zero_()
+
+        def old_kernel(cat=cat, outs=outs, capn=capn):
+            fn = build.entry("merge_scatter", old_merge._ARGTYPES)
+            code = fn(*(build.ptr(t) for t in cat), cat[0].numel(), capn,
+                      *(build.ptr(t) for t in outs), build.stream(cat[0].device))
+            build.check("merge_scatter", code)
+            return outs
+
+        def old_kernel_checked(old_kernel=old_kernel, fill=fill):
+            fill()
+            return old_kernel()
+
+        def old_placement(runs=runs):
+            ps, sa, sb, sw, pc, ca, cb, cw, capn = runs
+            return old_merge.scatter_combine(torch.cat([ps, pc]), torch.cat([sa, ca]),
+                                             torch.cat([sb, cb]), torch.cat([sw, cw]), capn)
+
+        def this(runs=runs):
+            return merge_ops.merge_place(*runs)
+
+        want = merge_place_ref(*runs)
+        cases.append((f"merge_kernel_{which}", {"older": old_kernel, "this": this,
+                                                 "older_check": old_kernel_checked},
+                      want))
+        cases.append((f"merge_placement_{which}", {"older": old_placement, "this": this},
+                      want))
+        kept = int(((cat[0] >= 0) & (cat[0] < capn)).sum())
+        inputs[f"merge_{which}"] = {"rows": int(cat[0].numel()), "kept": kept, "cap": capn}
+
+    def bitwise(got, want):
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        return all(smoke.bits_equal(torch, a.cpu(), b.cpu()) for a, b in zip(got, want))
+
+    ms = {name: {"older": [], "this": []} for name, *_ in cases}
     this_library = build.library
     try:
         for _ in range(ROUNDS):
-            for name in KERNELS:
+            for name, calls, want in cases:
                 for version in ("older", "this", "this", "older"):
                     build.library = libs[version].__getitem__
-                    smoke.check(torch.equal(calls[name]().cpu(), want[name].cpu()),
+                    check = calls.get(f"{version}_check", calls[version])
+                    smoke.check(bitwise(check(), want),
                                 f"{version} {name} differs from its plain version")
-                    ms[name][version].append(smoke.cuda_ms(torch, calls[name], smoke.REPS))
+                    ms[name][version].append(smoke.cuda_ms(torch, calls[version], smoke.REPS))
     finally:
         build.library = this_library
-    largest = int(torch.bincount(seg[(seg >= 0) & (seg < n_seg)].long()).max())
-    return {"input": {"n": int(pos_s.shape[0]), "window": w, "segments": n_seg,
-                      "largest_segment": largest},
-            "reps": smoke.REPS, "bitwise": True, "ms": ms}
+    means = {name: {v: float(np.mean(t)) for v, t in d.items()} for name, d in ms.items()}
+    return {"input": inputs, "reps": smoke.REPS, "bitwise": True, "ms": ms,
+            "mean_ms": means}
 
 
 def main() -> int:
