@@ -8,21 +8,29 @@ Run from the repository root, with no arguments:
 Phases, each printing its wall seconds:
 
 1. card      — ``nvidia-smi`` name and power limit.
-2. build     — compiles the eight kernels from ``src/repro_torch/csrc``
+2. build     — compiles the eight kernel libraries from ``src/repro_torch/csrc``
                (one ``nvcc`` per source, all at once), prints each one's
                registers and fails if one spills.
 3. kernels   — each kernel against its plain PyTorch version on the card,
                on adversarial inputs and on synthetic inputs at the paths'
-               shapes: K1, K3, K4, K6, K8 bitwise (K1, K4 and K6 also run
-               to run), K2 and K5 within their tolerances and bitwise run
-               to run (K2 also near contact, where eff = d − ri − rj
-               cancels), K7 bitwise against its plain version on the CPU,
-               within its bound of the one on the card, and bitwise run to
-               run. K1's cases hold merges at capacity, with all-duplicate,
-               all-new and all-sentinel chunks, −0.0 weights and ragged
-               capacities; K4's hold 40 groups, r = +inf, NaN and far
+               shapes: K1, K3, K4, K6, K8 bitwise (K1, K3, K4, K6 and K8
+               also run to run), K2 and K5 within their tolerances and
+               bitwise run to run (K2 also near contact, where
+               eff = d − ri − rj cancels), K7 bitwise against its plain
+               version on the CPU, within its bound of the one on the card,
+               and bitwise run to run. K1's cases hold merges at capacity,
+               with all-duplicate, all-new and all-sentinel chunks, −0.0
+               weights and ragged capacities; K3's raw entry a hot pixel,
+               runs, dropped rows, ragged and misaligned rows; K3's
+               small-disk entry NaN and far centres, r = 0 and 8, integer
+               and half-pixel centres, image edges, bad groups, no disk and
+               a 1023×769 image; K4's 40 groups, r = +inf, NaN and far
                centres, pixels exactly on the circle, 2,000 coincident
-               disks and the accumulating form.
+               disks and the accumulating form; K8's both entries (buckets
+               given, keys hashed in the kernel) one bucket above 2²⁴ (run
+               to run and within 2γ(k)·Σ|x|), 34,000 columns, all keys in
+               one bucket, all padding, n = 0 and 1, and fractional
+               weights (within rounding; float atomics, so not run to run).
 4. main path — ``biggraphvis`` + ``BGVResult.render`` on a planted-partition
                graph at web-BerkStan's size (685,230 nodes, ≈ 6.6 M edges),
                with every launch counter set to 0 just before and read just
@@ -32,18 +40,23 @@ Phases, each printing its wall seconds:
 5. full path — ``full_layout_colored`` (grid repulsion, 500 iterations) +
                ``render_arrays`` over every edge, on the same graph, with the
                counters set to 0 just before and read just after: stage
-               times, wall, peak memory, the image and the layout's quality
-               against its initial positions. One more iteration from the
-               final layout records K5–K7's inputs.
-6. timing    — each kernel on the inputs its path gave it (recorded in
-               phases 4 and 5): held against its plain version again, and
-               timed with CUDA events beside the plain version, one PyTorch
-               library call where there is one, and its bound. K1's generic
-               scatter (on no path) is timed on K1's rows, concatenated.
-7. consistency — a 3,000-node graph through ``biggraphvis`` and an
-               8,000-node graph through ``full_layout_colored`` on the card
-               and on the CPU: labels, groups, supergraph, cell ids and
-               raster accumulators bitwise, positions within tolerance; the
+               times, wall, peak memory (``render_arrays`` below 1 GiB), the
+               image and the layout's quality against its initial
+               positions. One more iteration from the final layout records
+               K5–K7's inputs, and one node pass and one edge chunk from it
+               K3's, under keys of their own.
+6. timing    — each kernel entry on the inputs its path gave it (recorded
+               in phases 4 and 5; K3 on both paths): held against its plain
+               version again, and timed with CUDA events beside the plain
+               version, one PyTorch library call where there is one, and its
+               bound. K1's generic scatter and K8's hashed entry (on no
+               path) are timed on the main path's K1 rows and CMS input.
+7. consistency — the full path's node accumulator (685,230 small disks)
+               from K3's disk entry against the plain version on the card;
+               a 3,000-node graph through ``biggraphvis`` and an 8,000-node
+               graph through ``full_layout_colored`` on the card and on the
+               CPU: labels, groups, supergraph, cell ids and raster
+               accumulators bitwise, positions within tolerance; the
                3,000-node graph from a ``.npy`` file through the pinned
                staging ring, bitwise.
 
@@ -75,6 +88,11 @@ ITERATIONS = 100  # FA2 iterations, the default
 # and the grid of default_config.
 FULL_ITERATIONS, GRID, WINDOW = 500, 64, 32
 REPS = 20  # back-to-back launches per CUDA-event timing
+# Peak device memory: the main path's before K8 and K3's disk entry joined
+# it (PERF.md §5), and a ceiling for the full path's render_arrays, which
+# materialised 5,453,221,888 bytes of small-disk boxes before the disk entry.
+MAIN_PEAK_BYTES = 255_188_992
+FULL_RENDER_PEAK_BYTES = 1 << 30
 QUEUE_CYCLES = 100_000_000  # ≈ 50 ms of device sleep ahead of each timing
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
@@ -119,48 +137,38 @@ K6_BLOCK_NODES, K6_FIXED_WINDOW = 512, 32
 K7_CHUNK_FLOATS = 1024
 K1_TILE = 512  # output slots a merge_place block owns (csrc/merge_scatter.cu)
 
+# The rows of the ``kernels`` line, one per kernel entry and path: name →
+# (source, the TPU kernel it replaces, its launch counter in
+# ``build.LAUNCHES``, the path whose measured run gives its launches, or
+# None for an entry on no path).
+_SPLAT = "src/repro/kernels/raster/splat.py"
+_CMS = "src/repro/kernels/cms/cms_update.py:64"
 KERNELS = {
-    "merge_scatter": {
-        "source": "src/repro_torch/csrc/merge_scatter.cu",
-        "replaces": "src/repro/kernels/merge/sorted_merge.py:96",
-    },
-    "repulsion_nbody": {
-        "source": "src/repro_torch/csrc/repulsion_nbody.cu",
-        "replaces": "src/repro/kernels/repulsion/nbody.py:84",
-    },
-    "count_scatter": {
-        "source": "src/repro_torch/csrc/count_scatter.cu",
-        "replaces": "src/repro/kernels/raster/splat.py:94",
-    },
-    "disk_accum": {
-        "source": "src/repro_torch/csrc/disk_accum.cu",
-        "replaces": "src/repro/kernels/raster/splat.py:167",
-    },
-    "far_field": {
-        "source": "src/repro_torch/csrc/far_field.cu",
-        "replaces": "src/repro/kernels/grid/tiled.py:96",
-    },
-    "near_field": {
-        "source": "src/repro_torch/csrc/near_field.cu",
-        "replaces": "src/repro/kernels/grid/tiled.py:188",
-    },
-    "segment_sum": {
-        "source": "src/repro_torch/csrc/segment_sum.cu",
-        "replaces": "src/repro/kernels/segment/seg_matmul.py:60",
-    },
-    "cms_update": {
-        "source": "src/repro_torch/csrc/cms_update.cu",
-        "replaces": "src/repro/kernels/cms/cms_update.py:64",
-    },
-    # The generic scatter for arbitrary positions: the second entry of K1's
-    # library, on no path.
-    "scatter_combine": {
-        "source": "src/repro_torch/csrc/merge_scatter.cu",
-        "replaces": "src/repro/kernels/merge/sorted_merge.py:96",
-    },
+    "merge_scatter": ("merge_scatter", "src/repro/kernels/merge/sorted_merge.py:96",
+                      "merge_scatter", "main"),
+    # The generic scatter for arbitrary positions, K1's second entry.
+    "scatter_combine": ("merge_scatter", "src/repro/kernels/merge/sorted_merge.py:96",
+                        "scatter_combine", None),
+    "repulsion_nbody": ("repulsion_nbody", "src/repro/kernels/repulsion/nbody.py:84",
+                        "repulsion_nbody", "main"),
+    # K3: the raw entry (edge chunks) and the small-disk entry (node pass).
+    "count_scatter": ("count_scatter", f"{_SPLAT}:94", "count_scatter", "main"),
+    "count_scatter_full": ("count_scatter", f"{_SPLAT}:94", "count_scatter", "full"),
+    "count_disks": ("count_scatter", f"{_SPLAT}:94", "count_disks", "main"),
+    "count_disks_full": ("count_scatter", f"{_SPLAT}:94", "count_disks", "full"),
+    "disk_accum": ("disk_accum", f"{_SPLAT}:167", "disk_accum", "main"),
+    "far_field": ("far_field", "src/repro/kernels/grid/tiled.py:96", "far_field", "full"),
+    "near_field": ("near_field", "src/repro/kernels/grid/tiled.py:188", "near_field", "full"),
+    "segment_sum": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
+                    "segment_sum", "full"),
+    # K8: keys hashed in the kernel (core.cms.update), and buckets given.
+    "cms_update_keys": ("cms_update", _CMS, "cms_update_keys", "main"),
+    "cms_update": ("cms_update", _CMS, "cms_update", None),
 }
-MAIN_KERNELS = ("merge_scatter", "repulsion_nbody", "count_scatter", "disk_accum")
-FULL_KERNELS = ("far_field", "near_field", "segment_sum")  # one launch per iteration
+# Counters the main path must move; on the full path K5–K7 launch once per
+# iteration and K3's raw entry once per edge chunk.
+MAIN_KERNELS = {c for _, _, c, path in KERNELS.values() if path == "main"}
+FULL_KERNELS = ("far_field", "near_field", "segment_sum")
 NO_LIBRARY = "none: no single PyTorch call computes it"
 
 
@@ -427,26 +435,43 @@ def kernel_checks(torch, np):
     worst = max(worst, k2_case("near contact", p, m, rr))
     log(f"K2 repulsion_nbody: worst |Δf_i|/Σ_j|f_ij| {worst} (tolerance {K2_TOL})")
 
-    # K3: negatives, one hot pixel, all padding, main-path-sized splat.
+    # K3's raw entry: negatives, one hot pixel, every row dropped, the edge
+    # pass's shape (runs of 8 samples, most of them one pixel), a row count
+    # that is not a multiple of 4, pos and inc one element past a 16-byte
+    # boundary (a scalar head), and pos alone past it (every row scalar).
     size = 11 * 1024 * 1024
-    for kind in ("negatives", "one_pixel", "all_padding", "main"):
-        n = 524288 if kind == "main" else 4096
+    k3_cases = ("negatives", "one_pixel", "all_padding", "main", "runs", "ragged",
+                "offset", "offset_pos")
+    for kind in k3_cases:
+        n = 524288 if kind in ("main", "runs") else 4099 if kind == "ragged" else 4096
         if kind == "negatives":
             p = rng.integers(-5, 300, n)
         elif kind == "one_pixel":
             p = np.full(n, 77)
         elif kind == "all_padding":
             p = np.full(n, i32max)
+        elif kind == "runs":
+            p = np.repeat(rng.integers(0, size, n // 8), 8)
+            p[3::8] += 1
+            p[::13] = i32max
         else:
             p = rng.integers(0, size + 1000, n)
         p = torch.as_tensor(p.astype(np.int32), device=dev)
         inc = torch.as_tensor(rng.integers(1, 6, n).astype(np.int32), device=dev)
+        if kind.startswith("offset"):
+            p = p[1:]
+            inc = inc[1:] if kind == "offset" else inc[:-1].clone()
+            check(p.data_ptr() % 16 == 4, "K3 offset case: pos is not one element past 16 B")
         base = torch.as_tensor(rng.integers(0, 3, size).astype(np.int32), device=dev)
         for incv in (inc, None):
             got = raster_ops.count_scatter_into(base.clone(), p, incv)
             want = count_scatter_into_ref(base.clone(), p, incv)
             check(torch.equal(got, want), f"K3 {kind}: kernel differs from plain")
-    log("K3 count_scatter: bitwise on 4 cases × 2 increment forms")
+            check(torch.equal(got, raster_ops.count_scatter_into(base.clone(), p, incv)),
+                  f"K3 {kind}: two launches differ")
+    log(f"K3 count_scatter: bitwise and run to run on {len(k3_cases)} cases × 2 increment "
+        "forms")
+    small_disk_checks(torch, np, rng)
 
     # K4: one pixel, zero extent, all dead, random incl. bad groups, 1024²;
     # against the disk-major walk: 40 groups, r = +inf (every pixel, even
@@ -525,12 +550,65 @@ def kernel_checks(torch, np):
     torch.cuda.synchronize()
 
 
+def small_disk_checks(torch, np, rng):
+    """K3's small-disk entry against its plain version (the torch
+    materialisation of every disk's box), bitwise and run to run."""
+    from repro_torch.kernels.raster import ops as raster_ops
+    from repro_torch.kernels.raster.ref import count_disks_into_ref
+
+    dev = torch.device("cuda")
+    cases = ("nan", "far", "radius_0_and_8", "integer", "half_pixel", "edges",
+             "bad_groups", "empty", "odd_image", "main_shape")
+    for kind in cases:
+        m, hs, ws, ng = 200, 96, 128, 11
+        cx, cy = rng.uniform(-10, ws + 10, m), rng.uniform(-10, hs + 10, m)
+        r, g = rng.uniform(0.5, 8, m), rng.integers(0, ng, m)
+        if kind == "nan":
+            cx[::3], cy[1::3], r[2::7] = np.nan, np.nan, np.nan
+        elif kind == "far":  # 1e30, ±2^30 and one pixel inside ±2^30
+            far = np.array([1e30, -1e30, 2.0**30, -(2.0**30), 2.0**30 - 1, 1 - 2.0**30])
+            cx[::2] = rng.choice(far, m // 2)
+            cy[1::4] = rng.choice(far, m // 4)
+        elif kind == "radius_0_and_8":
+            r = np.where(np.arange(m) % 2 == 0, 0.0, 8.0)
+        elif kind == "integer":  # pixels exactly on the circle
+            cx, cy = rng.integers(-5, ws + 5, m), rng.integers(-5, hs + 5, m)
+            r = rng.integers(1, 9, m)
+        elif kind == "half_pixel":
+            cx = rng.integers(-5, ws + 5, m) + 0.5
+            cy = rng.integers(-5, hs + 5, m) + 0.5
+            r = rng.integers(1, 17, m) / 2
+        elif kind == "edges":  # centres within 9 px of an edge, outside too
+            cx = rng.choice(np.array([-8.5, -3.25, 0.0, 0.75, ws - 0.5, ws + 4.0, ws + 8.75]), m)
+            cy = rng.uniform(-9, hs + 9, m)
+        elif kind == "bad_groups":
+            g = rng.integers(-3, ng + 3, m)
+        elif kind == "empty":
+            m, cx, cy, r, g = 0, [], [], [], []
+        elif kind == "odd_image":
+            m, hs, ws = 5000, 769, 1023
+            cx, cy = rng.uniform(-10, ws + 10, m), rng.uniform(-10, hs + 10, m)
+            r, g = rng.uniform(0, 8, m), rng.integers(0, ng, m)
+        else:  # the full path's node pass: 685,230 disks of 1 px in 1024²
+            m, hs, ws = NODES, 1024, 1024
+            cx, cy = rng.uniform(0, ws, m), rng.uniform(0, hs, m)
+            r, g = np.ones(m), rng.integers(0, ng, m)
+        t = [torch.as_tensor(np.asarray(x, np.float32), device=dev) for x in (cx, cy, r)]
+        gt = torch.as_tensor(np.asarray(g, np.int32), device=dev)
+        base = torch.as_tensor(rng.integers(0, 3, (ng, hs, ws)).astype(np.int32), device=dev)
+        got = raster_ops.count_disks_into(base.clone(), *t, gt, ng)
+        check(torch.equal(got, count_disks_into_ref(base.clone(), *t, gt, ng)),
+              f"K3 disks {kind}: kernel differs from plain")
+        check(torch.equal(got, raster_ops.count_disks_into(base.clone(), *t, gt, ng)),
+              f"K3 disks {kind}: two launches differ")
+        if kind == "radius_0_and_8":
+            check(bool((got != base).any()), "K3 disks: the r = 8 disks drew nothing")
+    log(f"K3 count_disks: bitwise and run to run on {len(cases)} cases")
+
+
 def grid_kernel_checks(torch, np, rng):
     """K5–K8 against their plain versions on adversarial and full-shape
     inputs (the cases of the reference's kernel tests, and more)."""
-    from repro_torch.core import cms as cms_lib
-    from repro_torch.kernels.cms import ops as cms_ops
-    from repro_torch.kernels.cms.ref import cms_update_ref
     from repro_torch.kernels.grid import ops as grid_ops
     from repro_torch.kernels.grid.ref import bin_and_sort, far_field_ref, near_field_ref
 
@@ -767,53 +845,125 @@ def grid_kernel_checks(torch, np, rng):
     log(f"K7 segment_sum: bitwise on the CPU and run to run on {len(cases7)} cases; worst "
         f"|Δ| / 2γ(k−1)Σ|x| against the card's plain version {worst7}")
 
-    # K8: integer weights (exact in any order), all padding, one hot
-    # bucket, out-of-range buckets, float weights, the main path's shape.
-    for name, rows, cols, n in (("random", 4, 512, 20000), ("all_padding", 4, 256, 3000),
-                                ("one_bucket", 4, 64, 50000), ("out_of_range", 2, 100, 5000),
-                                ("float_weights", 4, 6594, 100000),
-                                ("main_shape", 4, 6594, NODES)):
+    cms_checks(torch, np, rng)
+
+
+def cms_bound(torch, sketch, h, w):
+    """Per bucket, 2γ(k)·(|s0| + Σ|w|) with γ(k) = k·u / (1 − k·u), u = 2⁻²⁴
+    and k the bucket's terms, the sketch's included: the most two sums of
+    the same terms in two orders can differ."""
+    keep = (h >= 0) & (h < sketch.shape[1])
+    r = torch.arange(h.shape[0], device=h.device)[:, None].expand_as(h)[keep]
+    b = h[keep].long()
+    cnt = torch.ones_like(sketch, dtype=torch.float64).index_put_(
+        (r, b), torch.ones_like(b, dtype=torch.float64), accumulate=True)
+    absum = sketch.double().abs().index_put_(
+        (r, b), w.double().abs()[None, :].expand_as(h)[keep], accumulate=True)
+    m = cnt * 2.0**-24
+    return 2 * m / (1 - m) * absum
+
+
+def cms_checks(torch, np, rng):
+    """K8's two entries against their plain versions: ``update_hashed``
+    (buckets given) and ``update`` (keys hashed in the kernel), bitwise
+    where every bucket sum of integer weights stays below 2²⁴, and run to
+    run on every case."""
+    from repro_torch.core import cms as cms_lib
+    from repro_torch.kernels.cms import ops as cms_ops
+    from repro_torch.kernels.cms.ref import cms_update_ref
+
+    dev = torch.device("cuda")
+    # (name, rows, cols, n). "above_2_24": one bucket sums to ≈ 3.5e7;
+    # "wide_int": integer weights up to 2^30 (the kernel's direct int64
+    # adds, sums far above 2^24); "float_weights": fractional weights.
+    cases = (("random", 4, 512, 20000), ("all_padding", 4, 256, 3000),
+             ("one_bucket", 4, 64, 50000), ("out_of_range", 2, 100, 5000),
+             ("cols_34000", 4, 34000, 200000), ("n_0", 4, 6594, 0), ("n_1", 4, 6594, 1),
+             ("above_2_24", 4, 6594, 5_000_000), ("wide_int", 3, 1000, 30000),
+             ("float_weights", 4, 6594, 100000), ("main_shape", 4, 6594, NODES))
+    for name, rows, cols, n in cases:
         h = rng.integers(0, cols, (rows, n))
         h[:, ::7] = -1  # padding, in every row
         if name == "all_padding":
             h[:] = -1
-        elif name == "one_bucket":
+        elif name in ("one_bucket", "above_2_24"):
             h[:] = 3
         elif name == "out_of_range":
             h = rng.integers(-5, cols + 5, (rows, n))
         h = torch.as_tensor(h.astype(np.int32), device=dev)
         if name == "float_weights":
-            w = torch.as_tensor(rng.uniform(0, 3, n).astype(np.float32), device=dev)
+            w = rng.uniform(0, 3, n)
+        elif name == "wide_int":
+            w = rng.integers(-(2**30), 2**30, n)
         else:
-            w = torch.as_tensor(rng.integers(0, 60, n).astype(np.float32), device=dev)
+            w = rng.integers(0, 60, n)
+        w = torch.as_tensor(w.astype(np.float32), device=dev)
         sketch = torch.as_tensor(rng.integers(0, 9, (rows, cols)).astype(np.float32),
                                  device=dev)
         got = cms_ops.update_hashed(sketch, h, w)
+        again = cms_ops.update_hashed(sketch, h, w)
         want = cms_update_ref(sketch, h, w)
         if name == "float_weights":
-            # Each bucket's sum of k terms in two orders: within
-            # 2γ(k)·(|s0| + Σ|w|) of each other, γ(k) = k·u / (1 − k·u).
+            # Fractional weights add by float atomics, in no fixed order:
+            # each launch is within rounding of the plain version, and the
+            # two launches are not held bitwise (csrc/cms_update.cu).
+            bound = cms_bound(torch, sketch, h, w)
+            for x in (got, again):
+                check(bool(((x.double() - want.double()).abs() <= bound).all()),
+                      "K8 float weights: a bucket differs by more than 2γ(k)·Σ|x|")
+            log(f"K8 float weights: {int((got != again).sum())} of {got.numel()} buckets "
+                "differ between two launches, all within 2γ(k)·Σ|x| of the plain version")
+            continue
+        check(bits_equal(torch, got, again), f"K8 {name}: two launches differ")
+        if name in ("above_2_24", "wide_int"):
+            err = (got.double() - want.double()).abs()
+            check(bool((err <= cms_bound(torch, sketch, h, w)).all()),
+                  f"K8 {name}: a bucket differs by more than 2γ(k)·Σ|x|")
+        else:
+            check(bits_equal(torch, got, want), f"K8 {name}: kernel differs from plain version")
+        if name in ("above_2_24", "wide_int"):
+            # Integer weights: the exact bucket sum, rounded once, plus the sketch.
             keep = h >= 0
             r = torch.arange(rows, device=dev)[:, None].expand_as(h)[keep]
-            b = h[keep].long()
-            cnt = torch.ones_like(sketch, dtype=torch.float64).index_put_(
-                (r, b), torch.ones_like(b, dtype=torch.float64), accumulate=True)
-            absum = sketch.double().abs().index_put_(
-                (r, b), w.double().abs()[None, :].expand_as(h)[keep], accumulate=True)
-            m = cnt * 2.0**-24
+            exact = torch.zeros((rows, cols), dtype=torch.int64, device=dev).index_put_(
+                (r, h[keep].long()), w.long()[None, :].expand_as(h)[keep], accumulate=True)
+            once = torch.where(exact != 0, sketch + exact.to(torch.float32), sketch)
+            check(bits_equal(torch, got, once), f"K8 {name}: not the exact sum rounded once")
+    log(f"K8 cms_update: {len(cases) - 1} integer-weight cases run to run, bitwise where "
+        "bucket sums stay below 2^24, else the exact sum rounded once and within 2γ(k)·Σ|x|")
+
+    # The keys-in entry against its plain version (hash + index_put_) and,
+    # through core.cms.update, the pipeline's call: -1 padding, repeated
+    # keys, 34,000 columns, all padding, n = 0 and 1, one key above 2^24.
+    cases = (("mixed", 6594, 50000), ("repeated", 256, 20000), ("cols_34000", 34000, 200000),
+             ("all_padding", 256, 3000), ("n_0", 6594, 0), ("n_1", 6594, 1),
+             ("above_2_24", 6594, 5_000_000), ("main_shape", 6594, NODES))
+    for name, cols, n in cases:
+        cfg = cms_lib.CMSConfig(rows=4, cols=cols)
+        keys = rng.integers(0, 200, n)
+        if name in ("repeated", "above_2_24"):
+            keys = rng.choice(np.array([3, 3, 3, 17, 2**31 - 1]), n)
+        keys[::5] = -1
+        if name == "all_padding":
+            keys[:] = -1
+        keys = torch.as_tensor(keys.astype(np.int32), device=dev)
+        w = torch.as_tensor(rng.integers(1, 50, n).astype(np.float32), device=dev)
+        s0 = torch.as_tensor(rng.integers(0, 9, (4, cols)).astype(np.float32), device=dev)
+        got = cms_lib.update(s0, keys, w, cfg)
+        check(bits_equal(torch, got, cms_ops.update(s0, keys, w, cfg)),
+              f"K8 keys {name}: two launches differ")
+        h = cms_ops.hashed_buckets(keys, cfg)
+        want = cms_update_ref(s0, h, w)
+        if name == "above_2_24":
             err = (got.double() - want.double()).abs()
-            check(bool((err <= 2 * m / (1 - m) * absum).all()),
-                  "K8 float weights: a bucket differs by more than 2γ(k)·Σ|x|")
+            check(bool((err <= cms_bound(torch, s0, h, w)).all()),
+                  "K8 keys above 2^24: a bucket differs by more than 2γ(k)·Σ|x|")
+            check(bits_equal(torch, got, cms_ops.update_hashed(s0, h, w)),
+                  "K8 keys above 2^24: differs from the hashed entry")
         else:
-            check(torch.equal(got, want), f"K8 {name}: kernel differs from plain version")
-    cfg = cms_lib.CMSConfig(rows=4, cols=6594)
-    keys = torch.as_tensor(rng.integers(-1, 200, NODES).astype(np.int32), device=dev)
-    w = torch.as_tensor(rng.integers(1, 50, NODES).astype(np.float32), device=dev)
-    s0 = cms_lib.init_sketch(cfg, device=dev)
-    check(torch.equal(cms_ops.update(s0, keys, w, cfg), cms_lib.update(s0, keys, w, cfg)),
-          "K8 ops.update differs from core.cms.update")
-    log("K8 cms_update: bitwise on 5 integer-weight cases and ops.update against "
-        "core.cms.update; float weights within 2γ(k)·Σ|w|")
+            check(bits_equal(torch, got, want), f"K8 keys {name}: kernel differs from plain")
+    log(f"K8 cms_update_keys: bitwise on {len(cases) - 1} cases, run to run on {len(cases)}, "
+        "one bucket above 2^24 equal to the hashed entry and within 2γ(k)·Σ|x|")
 
 
 # ------------------------------------------------------------- phase 4
@@ -822,9 +972,11 @@ class Capture:
     looks up (inputs cloned before the call): per site the largest call,
     or the latest one for the sites whose calls all have one size (the
     grid path's, and K1's, whose last merge holds the fullest state).
-    Launch counts stay with the wrappers themselves
-    (``repro_torch.kernels.build.LAUNCHES``). The CMS site is the main
-    path's ``core.cms.update`` (an ``index_put_``): its input is K8's."""
+    ``recording(tag)`` files them under ``site + tag``, so a second path's
+    inputs do not overwrite the main path's. Launch counts stay with the
+    wrappers themselves (``repro_torch.kernels.build.LAUNCHES``). The CMS
+    site is the pipeline's ``core.cms.update``, which launches K8's keys-in
+    entry."""
 
     def __init__(self, torch):
         from repro_torch.core import cms as cms_lib
@@ -843,16 +995,18 @@ class Capture:
             (merge_ops, "merge_place", "merge_scatter", 0, True),
             (rep_ops, "repulsion", "repulsion_nbody", 0, False),
             (raster_ops, "count_scatter_into", "count_scatter", 1, False),
+            (raster_ops, "count_disks_into", "count_disks", 1, False),
             (raster_ops, "disk_accum_into", "disk_accum", 1, False),
             (grid_ops, "far_field", "far_field", 0, True),
             (grid_ops, "near_field_sorted", "near_field", 0, True),
             (seg_ops, "segment_sum", "segment_sum", 0, True),
             (cms_lib, "update", "cms_update", 1, False),
         ]
-        # Arguments recorded by shape only (a "meta" tensor): K4's
-        # accumulator, whose 46 MB copy would stay allocated through the
-        # full path and count in its peak memory.
-        self.shape_only = {"disk_accum": (0,)}
+        # Arguments recorded by shape only (a "meta" tensor): the node
+        # pass's accumulator (K3's disk entry and K4), whose 46 MB copy
+        # would stay allocated through the full path and count in its peak
+        # memory.
+        self.shape_only = {"count_disks": (0,), "disk_accum": (0,)}
         self.calls = {}
 
     def fn(self, name):
@@ -867,20 +1021,20 @@ class Capture:
             self.launches[k] = 0
 
     @contextlib.contextmanager
-    def recording(self):
+    def recording(self, tag: str = ""):
         saved = []
         for mod, attr, key, arg, latest in self.sites:
             real = getattr(mod, attr)
 
             def wrapper(*args, _real=real, _key=key, _arg=arg, _latest=latest, **kw):
                 size = args[_arg].numel()
-                best = self.calls.get(_key)
+                best = self.calls.get(_key + tag)
                 if best is None or size > best[0] or (_latest and size == best[0]):
                     meta = self.shape_only.get(_key, ())
                     cl = tuple(x if not isinstance(x, self.torch.Tensor)
                                else x.to("meta") if i in meta else x.clone()
                                for i, x in enumerate(args))
-                    self.calls[_key] = (size, cl, dict(kw))
+                    self.calls[_key + tag] = (size, cl, dict(kw))
                 return _real(*args, **kw)
 
             saved.append((mod, attr, real))
@@ -971,8 +1125,10 @@ def main_path(torch, np, cap: Capture, edges, delta):
         torch.cuda.synchronize()
         launches["disk_accum"] = cap.counts()["disk_accum"]
         log(f"large-disk scene launches {cap.counts()}")
-    for k in MAIN_KERNELS:
+    for k in sorted(MAIN_KERNELS):
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
+    check(launches["cms_update_keys"] == 1, "K8 did not launch once on the main path")
+    check(peak <= MAIN_PEAK_BYTES, f"main-path peak {peak} bytes above {MAIN_PEAK_BYTES}")
     return launches, wall
 
 
@@ -1033,7 +1189,11 @@ def full_path(torch, np, cap: Capture, edges, delta, main_wall: float):
     check(its == FULL_ITERATIONS, f"full layout ran {its} iterations")
     for k in FULL_KERNELS:
         check(launches[k] == its, f"kernel {k} launched {launches[k]} times in {its} iterations")
-    check(launches["count_scatter"] > 0, "kernel count_scatter was not launched on the full path")
+    check(launches["count_scatter"] == rstats.chunks and launches["count_disks"] == 1,
+          f"K3 on the full path: {launches['count_scatter']} raw launches for "
+          f"{rstats.chunks} edge chunks, {launches['count_disks']} node passes")
+    check(peak < FULL_RENDER_PEAK_BYTES,
+          f"full-path render_arrays peak {peak} bytes, not below {FULL_RENDER_PEAK_BYTES}")
     check(pos.shape == (n, 2) and groups.shape == (n,), "full path output shapes")
     check(np.isfinite(pos).all(), "non-finite full-graph positions")
     frac, counts = raster.image_summary(image)
@@ -1065,7 +1225,21 @@ def full_path(torch, np, cap: Capture, edges, delta, main_wall: float):
           "6,000-node full layout: neighbourhoods or stress no better than its start")
 
     record_grid_inputs(torch, cap, edges, pos)
+    record_render_inputs(cap, edges, pos, groups)
     return launches
+
+
+def record_render_inputs(cap: Capture, edges, pos, groups):
+    """One node pass and one edge chunk of the full path's render, from its
+    final layout ``pos``, recording K3's inputs in ``cap`` under
+    ``"<site>@full"`` (outside any measured run)."""
+    import numpy as np
+
+    import repro_torch
+
+    with cap.recording("@full"):
+        repro_torch.render_arrays(pos, np.full(NODES, 2.0), groups, edges[:1 << 16],
+                                  device="cuda")
 
 
 def record_grid_inputs(torch, cap: Capture, edges, pos):
@@ -1107,21 +1281,29 @@ def layout_quality(np, pos, edges, n):
 
 
 # ------------------------------------------------------------- phase 6
+def bbox_pixels(torch, cx, cy, r, live, h, w) -> int:
+    """Pixels in the live disks' own bounding boxes, clipped to the image:
+    the pixels a disk kernel must test."""
+    def span(c, lim):
+        lo = torch.clamp(torch.ceil(c.double() - r.double()), min=0)
+        hi = torch.clamp(torch.floor(c.double() + r.double()), max=lim - 1)
+        return torch.clamp(hi - lo + 1, min=0)
+
+    return int((span(cx, w) * span(cy, h))[live].sum())
+
+
 def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
-    """One row per kernel. ``launches`` is the count from the run of the
-    path the kernel is on: the main path for K1–K4, the full path for
-    K5–K7; K8 and the generic scatter_combine are on no path (their
-    launches are 0). ``library_ms`` is the time
-    of one PyTorch call computing the same function, or null where there is
-    none; ``library`` names the call, or says there is none."""
+    """One row per kernel entry and path (``KERNELS``). ``launches`` is the
+    entry's count from the measured run of its path: the main path for K1,
+    K2, K3, K4 and K8's keys-in entry, the full path for K3 again and
+    K5–K7; K1's generic scatter_combine and K8's hashed entry are on no
+    path (their launches are 0). ``library_ms`` is the time of one PyTorch
+    call computing the same function, or null where there is none;
+    ``library`` names the call, or says there is none."""
     from repro_torch.kernels.merge import ops as merge_ops
     from repro_torch.kernels.merge.ref import merge_place_ref, scatter_combine_ref
     from repro_torch.kernels.raster import ops as raster_ops
-    from repro_torch.kernels.raster.ref import (
-        count_scatter_into_ref,
-        disk_accum_into_ref,
-        disk_accum_ref,
-    )
+    from repro_torch.kernels.raster.ref import disk_accum_into_ref, disk_accum_ref
     from repro_torch.kernels.repulsion.ref import repulsion_chunked
 
     rows = []
@@ -1129,20 +1311,20 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
     def row(name, ms, plain_ms, lib_ms, err, bytes_, ops, shape, library=NO_LIBRARY):
         bound_b = bytes_ / PEAK_BYTES_PER_S * 1e3
         bound_o = ops / PEAK_F32_PER_S * 1e3
-        path = ("main" if name in MAIN_KERNELS
-                else "full" if name in FULL_KERNELS else "none")
+        source, replaces, counter, path = KERNELS[name]
         launches = {"main": main_launches, "full": full_launches}.get(path, {})
         r = {
-            "name": name, "route": "cuda", **KERNELS[name],
-            "launches": launches.get(name, 0), "max_abs_err": err, "ms": ms,
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}.cu", "replaces": replaces,
+            "launches": launches.get(counter, 0), "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
             "bound_by": "bytes" if bound_b >= bound_o else "operations",
-            "library_ms": lib_ms, "library": library, "path": path,
+            "library_ms": lib_ms, "library": library, "path": path or "none",
         }
         rows.append(r)
         log(f"{name} {shape}: ms {ms} plain_ms {plain_ms} library_ms {lib_ms} "
             f"({library}) bound_ms {r['bound_ms']} ({r['bound_by']}: bytes {bound_b} ms, "
-            f"operations {bound_o} ms) max_abs_err {err} launches {r['launches']} ({path})")
+            f"operations {bound_o} ms) max_abs_err {err} launches {r['launches']} ({r['path']})")
 
     # K1 (merge_place) on the main path's last merge, and the generic
     # scatter_combine on the same rows, concatenated (outside the timed
@@ -1210,25 +1392,11 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
         None, err, n2 * 24, K2_OPS_PER_PAIR[radii is not None] * n2 * n2,
         f"n={n2} radii={radii is not None}")
 
-    # K3. The library yardstick runs on the kept rows only, as for K1.
-    _, (acc0, pos3, inc3), _ = cap.calls["count_scatter"]
-    k3 = cap.fn("count_scatter")
-    got = k3(acc0.clone(), pos3, inc3)
-    want = count_scatter_into_ref(acc0.clone(), pos3, inc3)
-    check(torch.equal(got, want), "K3 differs on main-path input")
-    size = acc0.numel()
-    keep = (pos3 >= 0) & (pos3 < size)
-    hit = int(torch.unique(pos3[keep]).numel())
-    acc_k, acc_p, acc_l = acc0.clone(), acc0.clone(), acc0.clone()
-    idx3 = pos3[keep].long()
-    inc_l = inc3[keep] if inc3 is not None else torch.ones_like(idx3, dtype=torch.int32)
-    row("count_scatter",
-        cuda_ms(torch, lambda: k3(acc_k, pos3, inc3), REPS),
-        cuda_ms(torch, lambda: count_scatter_into_ref(acc_p, pos3, inc3), REPS),
-        cuda_ms(torch, lambda: acc_l.index_put_((idx3,), inc_l, accumulate=True), REPS),
-        0.0, pos3.numel() * (8 if inc3 is not None else 4) + hit * 8, pos3.numel(),
-        f"N={pos3.numel()} kept={idx3.numel()} size={size} distinct_hits={hit} "
-        f"inc={inc3 is not None}", "index_put_ (accumulate) on the kept rows")
+    # K3's raw entry on one edge chunk of each path, its disk entry on each
+    # path's node pass.
+    for tag in ("", "@full"):
+        time_count_scatter(torch, cap, row, tag)
+        time_count_disks(torch, cap, row, tag)
 
     # K4, fresh (zero fill included) as the table times it, on the node
     # pass's recorded input; the accumulating form the node pass calls is
@@ -1248,13 +1416,7 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
           "K4 accumulating form differs on main-path input")
     n4 = cx.numel()
     live = (r > 0) & (g >= 0) & (g < ng)
-
-    def span(c, lim):
-        lo = torch.clamp(torch.ceil(c.double() - r.double()), min=0)
-        hi = torch.clamp(torch.floor(c.double() + r.double()), max=lim - 1)
-        return torch.clamp(hi - lo + 1, min=0)
-
-    pairs = int((span(cx, wd) * span(cy, h))[live].sum())
+    pairs = bbox_pixels(torch, cx, cy, r, live, h, wd)
     into_ms = cuda_ms(torch, lambda: cap.fn("disk_accum")(base, cx, cy, r, g, ng), REPS)
     row("disk_accum",
         cuda_ms(torch, lambda: k4(cx, cy, r, g, ng, h, wd), REPS),
@@ -1266,10 +1428,68 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
     return rows
 
 
+def time_count_scatter(torch, cap: Capture, row, tag: str):
+    """K3's raw entry on the recorded edge chunk of the main path (tag "")
+    or the full path ("@full"). The library yardstick runs on the kept rows
+    only, as for K1."""
+    from repro_torch.kernels.raster.ref import count_scatter_into_ref
+
+    _, (acc0, pos3, inc3), _ = cap.calls["count_scatter" + tag]
+    k3 = cap.fn("count_scatter")
+    got = k3(acc0.clone(), pos3, inc3)
+    check(torch.equal(got, count_scatter_into_ref(acc0.clone(), pos3, inc3)),
+          f"K3 differs on the recorded edge chunk{tag}")
+    check(torch.equal(got, k3(acc0.clone(), pos3, inc3)),
+          f"K3 recorded edge chunk{tag}: two launches differ")
+    size = acc0.numel()
+    keep = (pos3 >= 0) & (pos3 < size)
+    hit = int(torch.unique(pos3[keep]).numel())
+    acc_k, acc_p, acc_l = acc0.clone(), acc0.clone(), acc0.clone()
+    idx3 = pos3[keep].long()
+    inc_l = inc3[keep] if inc3 is not None else torch.ones_like(idx3, dtype=torch.int32)
+    row("count_scatter" + ("_full" if tag else ""),
+        cuda_ms(torch, lambda: k3(acc_k, pos3, inc3), REPS),
+        cuda_ms(torch, lambda: count_scatter_into_ref(acc_p, pos3, inc3), REPS),
+        cuda_ms(torch, lambda: acc_l.index_put_((idx3,), inc_l, accumulate=True), REPS),
+        0.0, pos3.numel() * (8 if inc3 is not None else 4) + hit * 8, pos3.numel(),
+        f"N={pos3.numel()} kept={idx3.numel()} size={size} distinct_hits={hit} "
+        f"inc={inc3 is not None}", "index_put_ (accumulate) on the kept rows")
+
+
+def time_count_disks(torch, cap: Capture, row, tag: str):
+    """K3's small-disk entry on the recorded node pass of the main path
+    (tag "") or the full path ("@full"), into a nonzero base. Bytes: 16 a
+    disk and each covered pixel read and written once; operations: 6 per
+    pixel of each live disk's own bounding box, clipped to the image, as
+    for K4."""
+    from repro_torch.kernels.raster.ref import count_disks_into_ref
+
+    _, (acc_meta, px, py, r, g, ng), _ = cap.calls["count_disks" + tag]
+    base = torch.full(acc_meta.shape, 3, dtype=torch.int32, device=px.device)
+    k3 = cap.fn("count_disks")
+    got = k3(base.clone(), px, py, r, g, ng)
+    check(torch.equal(got, count_disks_into_ref(base.clone(), px, py, r, g, ng)),
+          f"K3 disks differ on the recorded node pass{tag}")
+    check(torch.equal(got, k3(base.clone(), px, py, r, g, ng)),
+          f"K3 recorded node pass{tag}: two launches differ")
+    covered = int((got != base).sum())
+    del got
+    _, hs, ws = acc_meta.shape
+    live = (r > 0) & (g >= 0) & (g < ng)
+    pairs = bbox_pixels(torch, px, py, r, live, hs, ws)
+    m = px.numel()
+    acc_k, acc_p = base.clone(), base.clone()
+    row("count_disks" + ("_full" if tag else ""),
+        cuda_ms(torch, lambda: k3(acc_k, px, py, r, g, ng), REPS),
+        cuda_ms(torch, lambda: count_disks_into_ref(acc_p, px, py, r, g, ng), 3),
+        None, 0.0, m * 16 + covered * 8, K4_OPS_PER_PAIR * pairs,
+        f"disks={m} live={int(live.sum())} bbox_pixels={pairs} covered_pixels={covered} "
+        f"out={ng}x{hs}x{ws}")
+
+
 def time_grid_kernels(torch, np, cap: Capture, row):
     """K5–K7 on the full path's recorded inputs (the converged layout), K8
     on the main path's one CMS update."""
-    from repro_torch.core import cms as cms_lib
     from repro_torch.kernels.cms import ops as cms_ops
     from repro_torch.kernels.cms.ref import cms_update_ref
     from repro_torch.kernels.grid.ref import far_field_ref, near_field_ref
@@ -1333,38 +1553,61 @@ def time_grid_kernels(torch, np, cap: Capture, row):
         f"E={e} D={d} N={n_seg} largest_segment={largest}",
         "index_add_ on the kept rows")
 
-    # K8 on the main path's CMS input: the keys hashed once, outside the
-    # timed span; the library yardstick is index_put_ (accumulate) on the
-    # kept slots. End to end, the pipeline's core.cms.update (hash +
-    # index_put_) against kernels.cms.ops.update (hash + K8) decides
-    # whether K8 is wired into the pipeline.
+    # K8 on the main path's CMS input. The hashed entry (the TPU kernel's
+    # contract) with the keys hashed once, outside the timed span; its
+    # library yardstick is index_put_ (accumulate) on the kept slots. The
+    # keys-in entry, which the pipeline's core.cms.update launches, against
+    # its plain version (the torch hash + index_put_); its bound reads each
+    # key and weight once.
     _, (sketch, keys, weights, cfg), _ = cap.calls["cms_update"]
     h = cms_ops.hashed_buckets(keys, cfg)
     wv = weights.to(torch.float32).contiguous()
     got = cms_ops.update_hashed(sketch, h, wv)
-    check(torch.equal(got, cms_update_ref(sketch, h, wv)), "K8 differs on main-path input")
-    check(torch.equal(cms_ops.update(sketch, keys, weights, cfg),
-                      cms_lib.update(sketch, keys, weights, cfg)),
-          "K8 ops.update differs from core.cms.update on main-path input")
+    check(bits_equal(torch, got, cms_update_ref(sketch, h, wv)), "K8 differs on main-path input")
+    check(bits_equal(torch, got, cms_ops.update_hashed(sketch, h, wv)),
+          "K8 main-path input: two launches differ")
+    check(bits_equal(torch, cap.fn("cms_update")(sketch, keys, weights, cfg), got),
+          "K8 keys-in entry differs from the hashed entry on main-path input")
     rows8, n8 = h.shape
     kept = h >= 0
     r8 = torch.arange(rows8, device=h.device)[:, None].expand_as(h)[kept]
     b8, w8 = h[kept].long(), wv[None, :].expand_as(h)[kept]
     lib8 = sketch.clone()
+    shape = f"rows={rows8} cols={sketch.shape[1]} n={n8} kept={int(kept.sum())}"
     row("cms_update",
         cuda_ms(torch, lambda: cms_ops.update_hashed(sketch, h, wv), REPS),
         cuda_ms(torch, lambda: cms_update_ref(sketch, h, wv), REPS),
         cuda_ms(torch, lambda: lib8.index_put_((r8, b8), w8, accumulate=True), REPS),
-        0.0, rows8 * n8 * 4 + n8 * 4 + 2 * sketch.numel() * 4, int(kept.sum()),
-        f"rows={rows8} cols={sketch.shape[1]} n={n8} kept={int(kept.sum())}",
+        0.0, rows8 * n8 * 4 + n8 * 4 + 2 * sketch.numel() * 4, int(kept.sum()), shape,
         "index_put_ (accumulate) on the kept slots")
-    pipe_ms = cuda_ms(torch, lambda: cms_lib.update(sketch, keys, weights, cfg), REPS)
-    k8_ms = cuda_ms(torch, lambda: cms_ops.update(sketch, keys, weights, cfg), REPS)
-    log(f"CMS update end to end on the main-path input: core.cms.update "
-        f"(hash + index_put_) {pipe_ms} ms, kernels.cms.ops.update (hash + K8) {k8_ms} ms")
+    k8 = cap.fn("cms_update")
+    row("cms_update_keys",
+        cuda_ms(torch, lambda: k8(sketch, keys, weights, cfg), REPS),
+        cuda_ms(torch, lambda: cms_update_ref(sketch, cms_ops.hashed_buckets(keys, cfg), wv),
+                REPS),
+        None, 0.0, n8 * 8 + 2 * sketch.numel() * 4, int(kept.sum()), shape)
 
 
 # ------------------------------------------------------------- phase 7
+def full_node_consistency(torch, np, recorded):
+    """The full path's node pass (its recorded small disks, through the
+    renderer's ``_node_pass``) against the plain version on the card, which
+    materialises every disk's box: 685,230 × 324 rows, ≈ 5 GB."""
+    from repro_torch.kernels.raster.ref import count_disks_into_ref
+    from repro_torch.render import raster
+
+    acc_meta, px, py, r, g, ng = recorded
+    _, hs, ws = acc_meta.shape
+    got = raster._node_pass(*(x.cpu().numpy() for x in (px, py, r, g)), ng, hs, ws,
+                            torch.device("cuda"))
+    want = count_disks_into_ref(torch.zeros_like(got), px, py, r, g, ng)
+    check(torch.equal(got, want), "full-path node accumulator differs from the plain version")
+    log(f"full-path node accumulator: {px.numel()} disks, {int(got.sum())} pixel counts, "
+        "bitwise against the plain version on the card")
+    del got, want
+    torch.cuda.empty_cache()
+
+
 def consistency(torch, np):
     import repro_torch
     from repro_torch.graph.generators import planted_partition
@@ -1512,9 +1755,11 @@ def run() -> int:
     with phase("timing"):
         rows = time_kernels(torch, np, cap, main_launches, full_launches)
     check(len(rows) == len(KERNELS), f"{len(rows)} kernel rows, expected {len(KERNELS)}")
+    full_nodes = cap.calls["count_disks@full"][1]
     cap.calls.clear()
     torch.cuda.empty_cache()
     with phase("consistency"):
+        full_node_consistency(torch, np, full_nodes)
         consistency(torch, np)
     log(json.dumps({"kernels": rows}))
     log(smi)

@@ -7,6 +7,11 @@ the paper uses 4 hash rows and cols ≈ 1e-4 × |E|. torch's uint32 lacks add,
 shift and mod on the CPU, so the hash runs in int64: ``((a·k + b) mod 2^32)
 >> 5``. The low 32 bits of the int64 product are right even when it wraps,
 so the buckets equal the uint32 ones bit for bit.
+
+``update`` on a CUDA sketch runs kernel K8 (``csrc/cms_update.cu``), which
+hashes the keys with this family in uint32 and counts integer-valued
+weights exactly in int64: the same sketch as the plain version below while
+every bucket sum stays under 2^24, and the same from run to run at any size.
 """
 from __future__ import annotations
 
@@ -49,7 +54,15 @@ def init_sketch(cfg: CMSConfig, dtype=torch.float32, device="cpu"):
 
 def update(sketch, keys, weights, cfg: CMSConfig):
     """Add ``weights`` at ``keys``; negative-key slots are masked (padding).
-    Returns a new sketch."""
+    Returns a new sketch.
+
+    A CUDA sketch goes through kernel K8, which hashes the keys itself
+    (``kernels.cms.ops.update``); a CPU sketch through the plain
+    ``index_put_`` below; any other device raises."""
+    if sketch.device.type != "cpu":
+        from repro_torch.kernels.cms import ops  # ops imports this module
+
+        return ops.update(sketch, keys, weights, cfg)
     a, b = hash_params(cfg)
     h = hash_keys(keys, a, b, cfg.cols)
     w = torch.where(keys >= 0, weights, 0).to(sketch.dtype)

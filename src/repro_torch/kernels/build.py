@@ -33,12 +33,15 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("merge_scatter", "repulsion_nbody", "count_scatter", "disk_accum",
            "far_field", "near_field", "segment_sum", "cms_update")
-# Launches per kernel in this process: each wrapper adds one where it
+# Launches per kernel entry in this process: each wrapper adds one where it
 # launches its kernel, and nowhere else (a run reads them to show which
-# kernels its path went through; set them to 0 before the run). The
-# merge_scatter library has two entries: merge_place (K1, counted as
-# "merge_scatter") and the generic scatter_combine, counted apart.
-LAUNCHES = dict.fromkeys(KERNELS + ("scatter_combine",), 0)
+# kernels its path went through; set them to 0 before the run). A library's
+# first entry is counted under the library's name; its other entries apart:
+# K1's generic scatter_combine (merge_scatter), K3's small-disk entry
+# count_disks (count_scatter) and K8's keys-in entry cms_update_keys
+# (cms_update; "cms_update" counts the hashed entry).
+LAUNCHES = dict.fromkeys(
+    KERNELS + ("scatter_combine", "count_disks", "cms_update_keys"), 0)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

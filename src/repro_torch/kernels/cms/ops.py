@@ -1,24 +1,27 @@
-"""Public wrapper for the count–min sketch update: hashes the keys with the
-family of ``core/cms.py`` and adds their weights through kernel K8
+"""Public wrappers for the count–min sketch update, kernel K8
 (``csrc/cms_update.cu``) for CUDA tensors, the plain PyTorch version
 (``ref.py``) for CPU tensors. A tensor anywhere else raises.
 
-``core/cms.update`` does not call this: it stays one ``index_put_``, as the
-reference's stays a scatter, until a measurement on the card shows the
-kernel winning (ROADMAP.md, TPU kernels, item 8).
+- ``update`` takes the keys and hashes them inside the kernel with the
+  family of ``core/cms.py``. ``core.cms.update`` calls it for every CUDA
+  sketch, so K8 runs once per main-path run, in the supergraph pass.
+- ``update_hashed`` takes buckets already hashed, the TPU kernel's contract.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.core import cms as cms_lib
 from repro_torch.kernels import build
 from repro_torch.kernels.cms.ref import cms_update_ref
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+_HASHED_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_int] + [ctypes.c_void_p] * 4
+_KEYS_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
+                                          ctypes.c_int] + [ctypes.c_void_p] * 4
 
 
 def hashed_buckets(keys, cfg: cms_lib.CMSConfig):
@@ -26,6 +29,21 @@ def hashed_buckets(keys, cfg: cms_lib.CMSConfig):
     a, b = cms_lib.hash_params(cfg)
     h = cms_lib.hash_keys(keys, a, b, cfg.cols)
     return torch.where(keys[None, :] >= 0, h, -1).to(torch.int32)
+
+
+def _launch(symbol, argtypes, head, rows, n, cols, w, sketch):
+    """Run one K8 entry into a fresh sketch; ``head`` are its leading
+    pointers (buckets or keys, and the hash constants)."""
+    dev = sketch.device
+    scratch = torch.zeros(3 * rows * cols, dtype=torch.int32, device=dev)
+    out = torch.empty_like(sketch)
+    fn = build.entry("cms_update", argtypes, symbol)
+    with torch.cuda.device(dev):
+        code = fn(*head, build.ptr(w), rows, n, cols, build.ptr(sketch),
+                  build.ptr(scratch), build.ptr(out), build.stream(dev))
+    build.check("cms_update", code)
+    build.LAUNCHES[symbol] += 1
+    return out
 
 
 def update_hashed(sketch, h, w):
@@ -41,18 +59,25 @@ def update_hashed(sketch, h, w):
     build.require(sketch, "sketch", torch.float32, dev, (rows, cols))
     build.require(h, "h", torch.int32, dev, (rows, n))
     build.require(w, "w", torch.float32, dev, (n,))
-    out = sketch.clone()
-    fn = build.entry("cms_update", _ARGTYPES)
-    with torch.cuda.device(dev):
-        code = fn(build.ptr(h), build.ptr(w), rows, n, cols, build.ptr(out),
-                  build.stream(dev))
-    build.check("cms_update", code)
-    build.LAUNCHES["cms_update"] += 1
-    return out
+    return _launch("cms_update", _HASHED_ARGTYPES, (build.ptr(h),), rows, n, cols, w, sketch)
 
 
 def update(sketch, keys, weights, cfg: cms_lib.CMSConfig):
     """Add ``weights`` at ``keys`` (negative keys are padding and add
     nothing). Returns a new sketch."""
-    return update_hashed(sketch, hashed_buckets(keys, cfg),
-                         weights.to(torch.float32).contiguous())
+    dev = sketch.device
+    w = weights.to(torch.float32).contiguous()
+    if dev.type == "cpu":
+        return cms_update_ref(sketch, hashed_buckets(keys, cfg), w)
+    if dev.type != "cuda":
+        raise ValueError(f"cms update: unsupported device {dev}")
+    k = keys.to(torch.int32).contiguous()
+    n = k.shape[0]
+    build.require(sketch, "sketch", torch.float32, dev, (cfg.rows, cfg.cols))
+    build.require(k, "keys", torch.int32, dev, (n,))
+    build.require(w, "weights", torch.float32, dev, (n,))
+    # Every row's a, then every row's b: host memory, which the C entry
+    # reads into the launch's parameters.
+    ab = np.ascontiguousarray(np.concatenate(cms_lib.hash_params(cfg)), dtype=np.uint32)
+    head = (build.ptr(k), ctypes.c_void_p(ab.ctypes.data))
+    return _launch("cms_update_keys", _KEYS_ARGTYPES, head, cfg.rows, n, cfg.cols, w, sketch)

@@ -6,10 +6,10 @@ BigGraphVis scale).
   segment, each sample crediting the color group of its nearer endpoint.
   Chunks stream through the engine's ``EdgeChunkStream``, so host and
   device residency are independent of |E|.
-* **nodes** — radius-∝-√size disks: disks up to ``_SMALL_R`` pixels are
-  rasterized over a ``_BBOX``×``_BBOX`` box around their centre and
-  scattered by kernel K3; the few larger disks take the dense per-pixel
-  kernel K4.
+* **nodes** — radius-∝-√size disks: disks up to ``SMALL_R`` pixels are
+  rasterized over a ``BBOX``×``BBOX`` box around their centre by kernel
+  K3's disk entry, which generates the box's pixels itself; the few larger
+  disks take kernel K4, which walks each disk's own box.
 
 Both passes accumulate **int32 counts** into a per-color buffer
 [n_groups, H·ss, W·ss]. Integer adds are associative, so a chunked render
@@ -34,18 +34,12 @@ from repro_torch.core.stream import EdgeChunkStream, StreamStats, tree_bytes
 from repro_torch.data.edge_store import as_edge_store
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels.raster import ops as raster_ops
+from repro_torch.kernels.raster.ref import SMALL_R, to_pixel
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import get_tracer
 
 _INT32_MAX = np.iinfo(np.int32).max
 _MAX_INC = 1 << 20  # per-sample increment clamp (keeps counts far from 2³¹)
-
-# Node disks split by pixel radius: disks ≤ _SMALL_R rasterize over a
-# _BBOX×_BBOX box (work ∝ n·_BBOX², not n·H·W); only larger disks take the
-# dense per-pixel kernel. _BBOX covers every pixel a radius-_SMALL_R disk
-# can touch and the inside test is identical, so hybrid == all-dense.
-_SMALL_R = 8.0
-_BBOX = 2 * (int(_SMALL_R) + 1)
 
 
 @dataclass(frozen=True)
@@ -144,69 +138,25 @@ def _viewport_transform(viewport, ws: int, hs: int):
     return scale, (x0 + x1) / 2.0, (y0 + y1) / 2.0
 
 
-def _to_pixel(x):
-    """floor(x) as int64 with float→int32 conversion semantics that do not
-    depend on the device: NaN → 0, out-of-range values saturate (far
-    outside any image, so they are dropped by the bounds checks)."""
-    x = torch.nan_to_num(torch.floor(x), nan=0.0)
-    return torch.clamp(x, -(2.0**30), 2.0**30).long()
-
-
-def _small_disk_splat(px, py, r, groups, n_groups: int, hs: int, ws: int, acc):
-    """Bounding-box rasterization of small disks, added into the flat
-    [G·hs·ws] int32 ``acc`` by kernel K3.
-
-    Same per-pixel predicate as ``disk_accum`` ((x−cx)² + (y−cy)² ≤ r²)
-    over the _BBOX×_BBOX pixel grid around each center; pixels outside the
-    disk, the image, or the palette drop out via the INT32_MAX marker.
-    """
-    bx = _to_pixel(px) - _BBOX // 2  # [m]
-    by = _to_pixel(py) - _BBOX // 2
-    d = torch.arange(_BBOX, device=px.device)
-    xs = bx[:, None] + d[None, :]  # [m, B]
-    ys = by[:, None] + d[None, :]
-    dxv = xs.to(torch.float32) - px[:, None]
-    dyv = ys.to(torch.float32) - py[:, None]
-    dx2, dy2 = dxv * dxv, dyv * dyv
-    inside = dy2[:, :, None] + dx2[:, None, :] <= (r * r)[:, None, None]
-    g = groups.long()
-    ok = (
-        inside
-        & (r > 0)[:, None, None]
-        & ((g >= 0) & (g < n_groups))[:, None, None]
-        & ((ys >= 0) & (ys < hs))[:, :, None]
-        & ((xs >= 0) & (xs < ws))[:, None, :]
-    )
-    flat = (g[:, None, None] * hs + ys[:, :, None]) * ws + xs[:, None, :]
-    flat = torch.where(ok, flat, _INT32_MAX).to(torch.int32)
-    return raster_ops.count_scatter_into(acc, flat.reshape(-1), None)
-
-
 def _node_pass(px, py, r_px, groups, n_groups: int, hs: int, ws: int, device):
-    """Hybrid node rasterization: bbox scatter for small disks, the dense
-    per-pixel kernel for the (few) large ones. Integer counts over disjoint
-    node subsets sum to exactly the all-dense result. Host arrays in,
-    [G, hs, ws] int32 device tensor out."""
-    small = (r_px > 0) & (r_px <= _SMALL_R)
-    large = r_px > _SMALL_R
+    """Hybrid node rasterization: K3's disk entry for disks up to SMALL_R
+    pixels (work ∝ n·BBOX², not n·H·W), K4 for the (few) larger ones. The
+    small-disk box covers every pixel such a disk can touch and the inside
+    test is identical, so integer counts over the two node subsets sum to
+    exactly the all-dense result. Host arrays in, [G, hs, ws] int32 device
+    tensor out."""
+    small = (r_px > 0) & (r_px <= SMALL_R)
+    large = r_px > SMALL_R
 
     def dev(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
 
-    acc = torch.zeros(n_groups * hs * ws, dtype=torch.int32, device=device)
-    if small.any():
-        _small_disk_splat(
-            dev(px[small], torch.float32), dev(py[small], torch.float32),
-            dev(r_px[small], torch.float32), dev(groups[small], torch.int32),
-            n_groups, hs, ws, acc,
-        )
-    acc = acc.reshape(n_groups, hs, ws)
-    if large.any():
-        raster_ops.disk_accum_into(
-            acc, dev(px[large], torch.float32), dev(py[large], torch.float32),
-            dev(r_px[large], torch.float32), dev(groups[large], torch.int32),
-            n_groups,
-        )
+    acc = torch.zeros((n_groups, hs, ws), dtype=torch.int32, device=device)
+    for pick, into in ((small, raster_ops.count_disks_into),
+                       (large, raster_ops.disk_accum_into)):
+        if pick.any():
+            into(acc, dev(px[pick], torch.float32), dev(py[pick], torch.float32),
+                 dev(r_px[pick], torch.float32), dev(groups[pick], torch.int32), n_groups)
     return acc
 
 
@@ -223,8 +173,8 @@ def _edge_splat_update(acc, chunk, pxy_ext, groups_ext, winc, hs: int, ws: int,
     pv = pxy_ext[vi]
     t = (torch.arange(samples, dtype=torch.float32, device=acc.device) + 0.5) / samples
     p = pu[:, None, :] + t[None, :, None] * (pv - pu)[:, None, :]  # [C, S, 2]
-    ix = _to_pixel(p[..., 0])
-    iy = _to_pixel(p[..., 1])
+    ix = to_pixel(p[..., 0])
+    iy = to_pixel(p[..., 1])
     # Each sample credits the color group of its nearer endpoint.
     g = torch.where(
         t[None, :] < 0.5, groups_ext[ui][:, None], groups_ext[vi][:, None]

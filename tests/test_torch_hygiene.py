@@ -114,8 +114,10 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     from repro_torch.kernels.segment import ops as seg_ops
 
     before = dict(build.LAUNCHES)
-    # One counter per library, and one more for K1's generic entry.
-    assert set(before) == set(build.KERNELS) | {"scatter_combine"} and len(before) == 9
+    # One counter per library, and one more for each library's other entry:
+    # K1's generic scatter, K3's small-disk entry, K8's keys-in entry.
+    extra = {"scatter_combine", "count_disks", "cms_update_keys"}
+    assert set(before) == set(build.KERNELS) | extra and len(before) == 11
     i = torch.zeros(4, dtype=torch.int32)
     f = torch.zeros(4)
     p = torch.zeros(4, 2)
@@ -123,6 +125,7 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     merge_ops.merge_place(i, i, i, f, i, i, i, f, 4)
     rep_ops.repulsion(p, f, 80.0)
     raster_ops.count_scatter_into(i.clone(), i)
+    raster_ops.count_disks_into(torch.zeros(11, 3, 3, dtype=torch.int32), f, f, f, i, 11)
     raster_ops.disk_accum(f, f, f, i, 11, 3, 3)
     raster_ops.disk_accum_into(torch.zeros(11, 3, 3, dtype=torch.int32), f, f, f, i, 11)
     grid_ops.far_field(p, f, i, p, f, 80.0)
@@ -130,6 +133,8 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     seg_ops.segment_sum(p, i, 4)
     cfg = cms_lib.CMSConfig(rows=2, cols=8)
     cms_ops.update(cms_lib.init_sketch(cfg), i, f, cfg)
+    cms_ops.update_hashed(cms_lib.init_sketch(cfg), torch.zeros(2, 4, dtype=torch.int32), f)
+    cms_lib.update(cms_lib.init_sketch(cfg), i, f, cfg)
     assert build.LAUNCHES == before  # no kernel launch counted on the CPU
     m = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
@@ -144,6 +149,11 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     with pytest.raises(ValueError, match="unsupported device"):
         cms_ops.update_hashed(torch.zeros(2, 8, device="meta"),
                               torch.zeros(2, 4, dtype=torch.int32, device="meta"), m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cms_lib.update(torch.zeros(2, 8, device="meta"), im, m, cfg)
+    with pytest.raises(ValueError, match="unsupported device"):
+        raster_ops.count_disks_into(torch.zeros(11, 3, 3, dtype=torch.int32, device="meta"),
+                                    m, m, m, im, 11)
 
 
 def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):

@@ -16,7 +16,13 @@ Against the Pallas kernel, whose one-hot product sums in another order,
 ``|Δ| ≤ 1e-5·Σ|data|`` per segment (float32 rounding of sums of ≤ 2,048
 rows), and bf16 data within 2e-2 relative (one bf16 rounding of the sum).
 K8 (CMS update) on integer-valued weights is exact in any order, so
-bitwise; on float weights within 1e-5·Σ|w| per bucket.
+bitwise; on float weights within 1e-5·Σ|w| per bucket. ``core.cms.update``
+and the keys-in wrapper ``kernels.cms.ops.update`` (on CPU tensors, the
+plain versions of the kernel that hashes the keys itself) are held bitwise
+against the reference's ``core.cms.update``.
+
+K3's small-disk entry (``count_disks_into``) is held bitwise against the
+reference's ``render.raster._small_disk_splat`` on adversarial disks.
 """
 import numpy as np
 import pytest
@@ -33,6 +39,7 @@ from repro.kernels.raster.splat import (  # noqa: E402
     disk_accum_pallas,
 )
 from repro.core import cms as jax_cms  # noqa: E402
+from repro.render import raster as jax_raster  # noqa: E402
 from repro.kernels.cms import ops as jax_cms_ops  # noqa: E402
 from repro.kernels.cms.cms_update import cms_update_pallas  # noqa: E402
 from repro.kernels.cms.ref import cms_update_ref as jax_cms_ref  # noqa: E402
@@ -56,6 +63,8 @@ from repro_torch.kernels.merge.ref import (  # noqa: E402
 )
 from repro_torch.kernels.raster import ops as raster_ops  # noqa: E402
 from repro_torch.kernels.raster.ref import (  # noqa: E402
+    BBOX,
+    count_disks_into_ref,
     count_scatter_into_ref,
     disk_accum_into_ref,
     disk_accum_ref,
@@ -332,6 +341,76 @@ def test_count_scatter_plain_matches_reference(case):
     _eq(acc, want1, case)
 
 
+# ---------------------------------------------- K3: the small-disk entry
+def _small_disk_case(case):
+    """Disks of radius ≤ 8 px (the node pass's small disks) and worse."""
+    rng = np.random.default_rng(31)
+    hs, ws, g = 40, 56, 11
+    if case == "random":
+        # The reference's compiler contracts dy² + dx² into a fused
+        # multiply-add for some elements (one pixel differed over 400,000
+        # random disks off the grid). On a 1/64 grid every value is exact,
+        # so the pixels are the reference's whichever way it rounds.
+        m = 400
+        px = np.round(rng.uniform(-12, ws + 12, m) * 64) / 64
+        py = np.round(rng.uniform(-12, hs + 12, m) * 64) / 64
+        r = np.round(rng.uniform(-1, 8, m) * 64) / 64
+        grp = rng.integers(-2, g + 2, m)
+    elif case == "specials":
+        # NaN centres, far centres (1e30, ±2^30 and just inside), r = 0,
+        # r = 8 exactly, integer and half-pixel centres, disks across every
+        # image edge, groups out of range.
+        px = [np.nan, 5.0, 1e30, -1e30, 2.0**30, -(2.0**30), 2.0**30 - 64, 20.0,
+              20.0, 20.5, 0.0, ws - 0.5, 30.0, 30.0, 7.25, 7.25, 30.5, 12.0]
+        py = [5.0, np.nan, 10.0, 10.0, 10.0, 10.0, 10.0, 20.0, 20.0, 20.5, 0.0,
+              hs - 0.5, -3.0, hs + 2.0, 9.75, 9.75, 20.0, 20.0]
+        r = [3.0, 3.0, 5.0, 5.0, 5.0, 5.0, 5.0, 0.0, 8.0, 8.0, 8.0, 8.0, 6.0,
+             6.0, 4.5, 4.5, -1.0, np.nan]
+        grp = [0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 8, 9, 10, -1, g, 3, 4]
+        m = len(px)
+    elif case == "odd_image":  # 1023 × 769, integer centres
+        hs, ws, m = 769, 1023, 300
+        px = rng.integers(-8, ws + 8, m).astype(np.float64)
+        py = rng.integers(-8, hs + 8, m).astype(np.float64)
+        r = rng.integers(1, 9, m).astype(np.float64)
+        grp = rng.integers(0, g, m)
+    else:  # no disk
+        m, px, py, r, grp = 0, [], [], [], []
+    f32 = [np.asarray(x, np.float32).reshape(m) for x in (px, py, r)]
+    return (*f32, np.asarray(grp, np.int32).reshape(m), g, hs, ws)
+
+
+@pytest.mark.parametrize("case", ["random", "specials", "odd_image", "empty"])
+def test_count_disks_plain_matches_reference_small_disk_splat(case):
+    px, py, r, grp, g, hs, ws = _small_disk_case(case)
+    if len(px):
+        want = np.asarray(jax_raster._small_disk_splat(
+            *(jnp.asarray(x) for x in (px, py, r, grp)), g, hs, ws, "ref"))
+    else:
+        want = np.zeros(g * hs * ws, np.int32)
+    base = np.random.default_rng(5).integers(0, 4, (g, hs, ws)).astype(np.int32)
+    for into in (count_disks_into_ref, raster_ops.count_disks_into):
+        acc = _t(base.copy())
+        assert into(acc, *(_t(x) for x in (px, py, r, grp)), g) is acc
+        _eq(acc.reshape(-1), base.reshape(-1) + want, case)
+    if case == "specials":
+        # Only the live disks (groups 8–10: r = 8, across the edges) draw.
+        counts = want.reshape(g, hs, ws).sum(axis=(1, 2))
+        assert not counts[:8].any() and counts[8:].all()
+    if case == "random":
+        # Hybrid == all-dense: a small disk's box holds every pixel it covers.
+        dense = disk_accum_ref(*(_t(x) for x in (px, py, r, grp)), g, hs, ws)
+        _eq(dense.reshape(-1), want, case)
+
+
+def test_small_disk_box_is_the_kernels():
+    """csrc/count_scatter.cu compiles the same box as the plain version."""
+    from pathlib import Path
+
+    src = (Path(raster_ops.__file__).parents[2] / "csrc" / "count_scatter.cu").read_text()
+    assert f"constexpr int BBOX = {BBOX};" in src and BBOX == 18
+
+
 # ------------------------------------------------------ K4: disk coverage
 def _disk_case(case):
     rng = np.random.default_rng(11)
@@ -518,3 +597,25 @@ def test_cms_ops_update_matches_reference_ops(case):
     _eq(got, cms_lib.update(cms_lib.init_sketch(tcfg), _t(keys), _t(w), tcfg), case)
     if case == "all_padding":
         assert not got.any()
+
+
+@pytest.mark.parametrize("case", ["mixed", "repeated", "wide", "empty"])
+def test_cms_update_keys_plain_matches_reference_update(case):
+    """``core.cms.update`` and the keys-in wrapper, on CPU tensors, against
+    the reference's ``core.cms.update``: keys with −1, repeated keys, 256
+    and 34,000 columns (the paper's 34 M-edge graph), no key at all."""
+    rng = np.random.default_rng(23)
+    cols, n = (34_000, 5000) if case == "wide" else (256, 3000)
+    if case == "empty":
+        n = 0
+    cfg = jax_cms.CMSConfig(rows=4, cols=cols, seed=0x5EED)
+    keys = rng.integers(0, 700, n).astype(np.int32)
+    if case == "repeated":
+        keys = rng.choice(np.array([3, 3, 3, 17, 2**31 - 1], np.int32), n)
+    keys[::6] = -1
+    w = rng.integers(0, 300, n).astype(np.float32)
+    s0 = rng.integers(0, 20, (4, cols)).astype(np.float32)
+    want = jax_cms.update(jnp.asarray(s0), jnp.asarray(keys), jnp.asarray(w), cfg)
+    tcfg = config_from_reference(cfg)
+    for fn in (cms_lib.update, cms_ops.update):
+        _eq(fn(_t(s0), _t(keys), _t(w), tcfg), want, f"{case} {fn.__module__}")

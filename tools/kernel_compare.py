@@ -1,28 +1,36 @@
 #!/usr/bin/env python3
-"""Time an older tree's kernels K1 (merge placement), K4 (disk_accum), K6
-(near_field) and K7 (segment_sum) against this tree's, on one GPU, on the
-inputs the main and full paths give them.
+"""Time an older tree's kernels against this tree's, on one GPU, on the
+inputs the main and full paths give them: K1 (merge placement), K3 (the
+edge chunks' raw scatter, and the small-disk node pass), K4 (disk_accum),
+K6 (near_field), K7 (segment_sum) and K8 (the CMS update).
 
     git archive <commit> | tar -x -C build/parent    # build/ is ignored by git
     python3 tools/kernel_compare.py build/parent
 
 It runs ``biggraphvis`` + ``render`` as ``chip_smoke.py`` does (685,230
-nodes, 100 iterations), recording K1's first and last merge and K4's node
-pass, then ``full_layout_colored`` (grid 64, window 32, 500 iterations),
-recording K6's and K7's inputs from one more iteration at the final layout
-(``chip_smoke.record_grid_inputs``). Each older
+nodes, 100 iterations), recording K1's first and last merge, K3's largest
+edge chunk and node pass, K4's node pass and the CMS update, then
+``full_layout_colored`` (grid 64, window 32, 500 iterations), recording
+K6's and K7's inputs from one more iteration at the final layout
+(``chip_smoke.record_grid_inputs``) and K3's from one node pass and one
+edge chunk of its render (``chip_smoke.record_render_inputs``). Each older
 ``src/repro_torch/csrc/<name>.cu`` is compiled with this tree's ``nvcc``
-flags. K6 and K7 keep their C interface, so the older library sits behind
-this tree's wrapper. K1 and K4 changed theirs, so the older tree's own
-wrapper modules (``kernels/merge/ops.py``, ``kernels/raster/ops.py``) are
-loaded from its directory and call the older library:
+flags. Where the C interface is kept (K3's raw entry, K6, K7), the older
+library sits behind this tree's wrapper. Elsewhere the older tree's own
+modules are loaded from its directory and call the older library:
 
-- K4: a fresh ``disk_accum`` (this tree's includes the zero fill);
-- K1 kernel: the older atomic kernel alone on the concatenated runs, its
-  outputs filled outside the timed span, against this tree's
+- K1 kernel: the older generic atomic kernel alone on the concatenated
+  runs, its outputs filled outside the timed span, against this tree's
+  ``merge_place``; K1 placement: the older ``scatter_combine`` as a whole
+  (four ``torch.cat``, three fills, the atomic kernel) against
   ``merge_place``;
-- K1 placement: the older ``merge_combine``'s placement as a whole (four
-  ``torch.cat``, three fills, the atomic kernel) against ``merge_place``.
+- K3 node pass: the older renderer's ``_small_disk_splat`` (the torch
+  materialisation of every disk's box and the older raw K3) against this
+  tree's ``count_disks_into``, on each path's small disks;
+- K4: a fresh ``disk_accum`` (this tree's includes the zero fill);
+- K8 kernel: the older ``kernels.cms.ops.update_hashed`` against this
+  tree's, on hashed buckets; K8 end to end: the older
+  ``core.cms.update`` against this tree's, on the keys.
 
 Every version is held bitwise against the plain version, then timed by
 ``chip_smoke.cuda_ms`` over ``chip_smoke.REPS`` launches queued behind a
@@ -49,7 +57,8 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 import chip_smoke as smoke  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 
-KERNELS = ("merge_scatter", "disk_accum", "near_field", "segment_sum")
+KERNELS = ("merge_scatter", "count_scatter", "disk_accum", "near_field", "segment_sum",
+           "cms_update")
 ROUNDS = 2
 
 
@@ -73,6 +82,7 @@ def older_module(tree: Path, rel: str, name: str):
     of ``repro_torch`` resolve to this tree (``build``, the plain versions)."""
     spec = importlib.util.spec_from_file_location(name, tree / "src" / "repro_torch" / rel)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # dataclasses look their module up there
     spec.loader.exec_module(mod)
     return mod
 
@@ -98,8 +108,8 @@ def merge_calls(store: dict):
 
 
 def main_inputs(edges, delta):
-    """K1's first and last merge and K4's node-pass input, from one run of
-    the main path."""
+    """K1's first and last merge, and the ``chip_smoke.Capture`` of one run
+    of the main path."""
     import repro_torch
 
     n = smoke.NODES
@@ -111,7 +121,7 @@ def main_inputs(edges, delta):
         repro_torch.biggraphvis(edges, n, cfg, scfg, device="cuda").render(
             str(Path(tmp) / "main.png"))
     torch.cuda.synchronize()
-    return merges, cap.calls["disk_accum"][1]
+    return merges, cap
 
 
 def run(older: Path) -> dict:
@@ -121,9 +131,16 @@ def run(older: Path) -> dict:
     from repro_torch.device import resolve_device
     from repro_torch.kernels.grid.ref import near_field_ref
     from repro_torch.kernels.merge import ops as merge_ops
+    from repro_torch.core import cms as cms_lib
+    from repro_torch.kernels.cms import ops as cms_ops
+    from repro_torch.kernels.cms.ref import cms_update_ref
     from repro_torch.kernels.merge.ref import merge_place_ref
     from repro_torch.kernels.raster import ops as raster_ops
-    from repro_torch.kernels.raster.ref import disk_accum_ref
+    from repro_torch.kernels.raster.ref import (
+        count_disks_into_ref,
+        count_scatter_into_ref,
+        disk_accum_ref,
+    )
     from repro_torch.kernels.segment.ref import segment_sum_ref
 
     resolve_device("cuda")
@@ -134,16 +151,22 @@ def run(older: Path) -> dict:
                 "this": {k: build.library(k) for k in KERNELS}}
     old_merge = older_module(older, "kernels/merge/ops.py", "older_merge_ops")
     old_raster = older_module(older, "kernels/raster/ops.py", "older_raster_ops")
+    old_render = older_module(older, "render/raster.py", "older_render_raster")
+    old_cms_ops = older_module(older, "kernels/cms/ops.py", "older_cms_ops")
+    old_cms = older_module(older, "core/cms.py", "older_core_cms")
 
     edges, delta = smoke.make_graph()
-    merges, (acc_meta, cx, cy, r, g, ng) = main_inputs(edges, delta)
+    merges, main_cap = main_inputs(edges, delta)
+    acc_meta, cx, cy, r, g, ng = main_cap.calls["disk_accum"][1]
     cap = smoke.Capture(torch)
     n = smoke.NODES
     cfg = repro_torch.default_config(n, len(edges), delta, grid_size=smoke.GRID,
                                      grid_window=smoke.WINDOW, grid_rebuild=1)
-    pos, _ = repro_torch.full_layout_colored(edges, n, cfg, iterations=smoke.FULL_ITERATIONS,
-                                             device="cuda")
+    pos, groups = repro_torch.full_layout_colored(edges, n, cfg,
+                                                  iterations=smoke.FULL_ITERATIONS,
+                                                  device="cuda")
     smoke.record_grid_inputs(torch, cap, edges, pos)
+    smoke.record_render_inputs(cap, edges, pos, groups)
     _, (pos_s, mass_s, cell_s, kr, w), _ = cap.calls["near_field"]
     _, (data, seg, n_seg), kw = cap.calls["segment_sum"]
     k6, k7 = cap.fn("near_field"), cap.fn("segment_sum")
@@ -164,6 +187,61 @@ def run(older: Path) -> dict:
               "segment_sum": {"segments": n_seg, "largest_segment": int(torch.bincount(
                   seg[(seg >= 0) & (seg < n_seg)].long()).max())},
               "disk_accum": {"disks": int(cx.numel()), "out": [ng, h, wd]}}
+    def in_place(older_fn, this_fn, fresh):
+        """Versions of an in-place call: the timed ones add into one
+        accumulator each, the checked ones into a fresh one."""
+        acc = {"older": fresh(), "this": fresh()}
+        return {"older": lambda: older_fn(acc["older"]), "this": lambda: this_fn(acc["this"]),
+                "older_check": lambda: older_fn(fresh()), "this_check": lambda: this_fn(fresh())}
+
+    for path, tag_cap, tag in (("main", main_cap, ""), ("full", cap, "@full")):
+        # K3's raw entry on the recorded edge chunk: this tree's wrapper on
+        # the older library or this one.
+        _, (acc0, pos3, inc3), _ = tag_cap.calls["count_scatter" + tag]
+
+        def raw(acc, p=pos3, i=inc3):
+            return raster_ops.count_scatter_into(acc, p, i)
+
+        cases.append((f"count_scatter_{path}", in_place(raw, raw, acc0.clone),
+                      count_scatter_into_ref(acc0.clone(), pos3, inc3)))
+        size = acc0.numel()
+        inputs[f"count_scatter_{path}"] = {
+            "rows": int(pos3.numel()), "kept": int(((pos3 >= 0) & (pos3 < size)).sum()),
+            "inc": inc3 is not None}
+        # K3's node pass: the older torch materialisation + the older raw
+        # K3, against the disk entry.
+        meta, px, py, rr, gg, ngg = tag_cap.calls["count_disks" + tag][1]
+        shape = tuple(meta.shape)
+
+        def zeros(shape=shape):
+            return torch.zeros(shape, dtype=torch.int32, device="cuda")
+
+        def older_disks(acc, px=px, py=py, rr=rr, gg=gg, ngg=ngg):
+            old_render._small_disk_splat(px, py, rr, gg, ngg, acc.shape[1], acc.shape[2],
+                                         acc.view(-1))
+            return acc
+
+        def this_disks(acc, px=px, py=py, rr=rr, gg=gg, ngg=ngg):
+            return raster_ops.count_disks_into(acc, px, py, rr, gg, ngg)
+
+        cases.append((f"node_pass_{path}", in_place(older_disks, this_disks, zeros),
+                      count_disks_into_ref(zeros(), px, py, rr, gg, ngg).cpu()))
+        inputs[f"node_pass_{path}"] = {"disks": int(px.numel()), "out": list(shape)}
+    # K8 on the main path's CMS input: the hashed kernel, then the
+    # pipeline's core.cms.update end to end (the older one hashes in torch
+    # and adds by index_put_; this one launches the keys-in kernel).
+    _, (sketch, keys, weights, ccfg), _ = main_cap.calls["cms_update"]
+    h8 = cms_ops.hashed_buckets(keys, ccfg)
+    wv = weights.to(torch.float32).contiguous()
+    want8 = cms_update_ref(sketch, h8, wv)
+    cases.append(("cms_update_hashed", {
+        "older": lambda: old_cms_ops.update_hashed(sketch, h8, wv),
+        "this": lambda: cms_ops.update_hashed(sketch, h8, wv)}, want8))
+    cases.append(("cms_update_end_to_end", {
+        "older": lambda: old_cms.update(sketch, keys, weights, ccfg),
+        "this": lambda: cms_lib.update(sketch, keys, weights, ccfg)}, want8))
+    inputs["cms_update"] = {"rows": int(h8.shape[0]), "cols": int(sketch.shape[1]),
+                            "n": int(h8.shape[1])}
     for which in ("first", "last"):
         runs = merges[which]
         ps, sa, sb, sw, pc, ca, cb, cw, capn = runs
