@@ -45,13 +45,36 @@ Phases, each printing its wall seconds:
                positions. One more iteration from the final layout records
                K5–K7's inputs, and one node pass and one edge chunk from it
                K3's, under keys of their own.
-6. timing    — each kernel entry on the inputs its path gave it (recorded
+6. serve     — the tile service over phase 4's result (685,230 nodes,
+               ≈ 12.8 k supernodes): ``TilePyramid`` (256-px tiles, 3
+               levels, 21 tiles) and ``TileEngine`` (64 MiB, 8 slots) warm
+               every tile and the 8 largest drillable communities, then
+               serve ``synthetic_trace(pyramid, 400, seed=0)`` on the warmed
+               engine (all hits) and on a cold one (misses rendered on the
+               card), counters set to 0 just before each and read just
+               after: warm-up seconds, tiles/s, hit rate, p50/p99 miss
+               latency, launches, peak memory. Checks: pyramid tiles bitwise
+               against direct ``render_arrays`` on the card, one within ±1
+               of the CPU's; one drill's groups bitwise, its positions
+               within 1e-4·max|pos| of the CPU's after 4 iterations and its
+               layout quality within 1 % after its 60 (not its image: the
+               attraction's float atomics make it vary on the card, and
+               FA2 amplifies that over 60 iterations); no kernel build
+               during a trace; no failed tile; the cold trace launches K3's
+               two entries and, through the drills, K1, K8 and K2.
+7. launchers — ``repro_torch.launch.serve``, ``render_runner`` and ``layout``
+               at a small size, at once, each a subprocess on the card by
+               default with ``--trace-out`` and ``--metrics-out`` (serve
+               also ``--profile``): each must exit 0 and write its image,
+               trace and metrics with the card's memory gauges; the
+               profile's device busy share is printed.
+8. timing    — each kernel entry on the inputs its path gave it (recorded
                in phases 4 and 5; K3 on both paths): held against its plain
                version again, and timed with CUDA events beside the plain
                version, one PyTorch library call where there is one, and its
                bound. K1's generic scatter and K8's hashed entry (on no
                path) are timed on the main path's K1 rows and CMS input.
-7. consistency — the full path's node accumulator (685,230 small disks)
+9. consistency — the full path's node accumulator (685,230 small disks)
                from K3's disk entry against the plain version on the card;
                a 3,000-node graph through ``biggraphvis`` and an 8,000-node
                graph through ``full_layout_colored`` on the card and on the
@@ -94,6 +117,12 @@ REPS = 20  # back-to-back launches per CUDA-event timing
 MAIN_PEAK_BYTES = 255_188_992
 FULL_RENDER_PEAK_BYTES = 1 << 30
 QUEUE_CYCLES = 100_000_000  # ≈ 50 ms of device sleep ahead of each timing
+# The tile service over the main path's result: the reference launcher's
+# defaults (256-px tiles, 3 levels, 64 MiB of cache, 8 render slots, a drill
+# pool of 8, 400 requests).
+SERVE_TILE, SERVE_DEPTH, SERVE_CACHE, SERVE_SLOTS = 256, 3, 64 << 20, 8
+SERVE_DRILLS, SERVE_REQUESTS = 8, 400
+LAUNCHER_TIMEOUT = 300  # seconds, for the three small launcher runs together
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
 # outside the tensor cores (a fused multiply-add counts as two operations).
@@ -1129,7 +1158,12 @@ def main_path(torch, np, cap: Capture, edges, delta):
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
     check(launches["cms_update_keys"] == 1, "K8 did not launch once on the main path")
     check(peak <= MAIN_PEAK_BYTES, f"main-path peak {peak} bytes above {MAIN_PEAK_BYTES}")
-    return launches, wall
+    # The serve phase takes this result; its supergraph waits on the host so
+    # that the full path's peak memory counts nothing of it.
+    res.supergraph = dataclasses.replace(
+        res.supergraph, **{f.name: getattr(res.supergraph, f.name).cpu()
+                           for f in dataclasses.fields(res.supergraph)})
+    return launches, wall, res, cfg
 
 
 # ------------------------------------------------------------- phase 5
@@ -1281,6 +1315,260 @@ def layout_quality(np, pos, edges, n):
 
 
 # ------------------------------------------------------------- phase 6
+def serve_phase(torch, np, cap: Capture, edges, res, cfg):
+    """The tile service over the main path's result (``TilePyramid`` at
+    256-px tiles, 3 levels; ``TileEngine`` with 64 MiB and 8 slots): warm
+    every pyramid tile and the 8 largest drillable communities, then serve
+    ``synthetic_trace(pyramid, 400, seed=0)`` twice — on the warmed engine
+    (the service's steady state: every request a hit) and on a cold engine
+    (every distinct tile a miss, rendered on the card) — with the counters
+    set to 0 just before each and read just after. Holds the warm-up's
+    pyramid tiles bitwise against direct ``render_arrays`` on the card and
+    the cold trace's, one tile within ±1 of the port on the CPU, one drill's
+    groups bitwise and its layout against the CPU's (positions within
+    1e-4·max|pos| after 4 iterations, quality within 1 % after its 60), no
+    kernel build during either trace, no failed tile, and the trace's
+    launches of K3 (both entries) and, through the drills, K1, K8 and K2
+    (K5–K7 too for a drilled community above 4,096 members)."""
+    from repro_torch.obs.meters import jit_compile_count
+    from repro_torch.obs.metrics import REGISTRY, ensure_error_counters
+    from repro_torch.obs.trace import Tracer, get_tracer, set_tracer
+    from repro_torch.render import render_arrays
+    from repro_torch.serve import (
+        DrillSpec,
+        TileConfig,
+        TileEngine,
+        TilePyramid,
+        TileRequest,
+        TileSpec,
+        synthetic_trace,
+    )
+
+    ensure_error_counters()
+    failed0 = REGISTRY.value("errors.failed_tiles")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tcfg = TileConfig(tile_size=SERVE_TILE, depth=SERVE_DEPTH)
+    pyramid = TilePyramid(res, tcfg, source=edges, bgv_cfg=cfg)
+    check(pyramid.device.type == "cuda", f"pyramid on {pyramid.device}, not the result's card")
+    drills = [int(c) for c in pyramid.drillable_communities()[:SERVE_DRILLS]]
+    members = {c: int((res.labels == c).sum()) for c in drills}
+    log(f"serve: {sum(4 ** z for z in range(SERVE_DEPTH))} pyramid tiles of {SERVE_TILE} px, "
+        f"drill pool {json.dumps(members)} (community: members)")
+    check(len(drills) == SERVE_DRILLS, f"{len(drills)} drillable communities")
+
+    engine = TileEngine(pyramid, cache_bytes=SERVE_CACHE, slots=SERVE_SLOTS)
+    cap.reset()
+    t0 = time.perf_counter()
+    warmed = engine.warmup(drills=drills)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_launches = cap.counts()
+    n_pyr = len(list(pyramid.specs()))
+    check(warmed == n_pyr + SERVE_DRILLS, f"warm-up rendered {warmed} tiles")
+    log(f"serve warm-up: {warmed} tiles in {warm_s} s, launches {json.dumps(warm_launches)}")
+
+    trace = synthetic_trace(pyramid, SERVE_REQUESTS, seed=0)
+    drilled = sorted({s.community for s in trace if isinstance(s, DrillSpec)})
+
+    def serve(eng, name):
+        c0 = jit_compile_count()
+        hits0, miss_lat = eng.cache.hits, []
+        saved = get_tracer()
+        tr = set_tracer(Tracer(enabled=True))
+        cap.reset()
+        t0 = time.perf_counter()
+        try:
+            for spec in trace:
+                req = TileRequest(spec)
+                eng.submit(req)
+                while not req.done:
+                    eng.tick()
+                check(not req.failed, f"{name} trace: {spec} failed")
+                if not req.hit:
+                    miss_lat.append(req.latency_s)
+            torch.cuda.synchronize()
+        finally:
+            set_tracer(saved)
+        dt = time.perf_counter() - t0
+        spans = {}
+        for sp in tr.spans():
+            n, total = spans.get(sp.name, (0, 0.0))
+            spans[sp.name] = (n + 1, total + sp.duration)
+        out = {
+            "requests": len(trace), "drills": sum(isinstance(s, DrillSpec) for s in trace),
+            "seconds": dt, "tiles_per_s": len(trace) / dt,
+            "hit_rate": (eng.cache.hits - hits0) / len(trace), "misses": len(miss_lat),
+            "miss_p50_ms": float(np.percentile(miss_lat, 50)) * 1e3 if miss_lat else None,
+            "miss_p99_ms": float(np.percentile(miss_lat, 99)) * 1e3 if miss_lat else None,
+            "kernel_builds": jit_compile_count() - c0, "ticks": eng.ticks,
+        }
+        launches = cap.counts()
+        log(f"serve {name} trace {json.dumps(out)}")
+        if spans:
+            log(f"serve {name} trace spans (count, seconds) {json.dumps(spans)}")
+        log(f"serve {name} trace launches {json.dumps(launches)}")
+        check(out["kernel_builds"] == 0, f"{name} trace built {out['kernel_builds']} kernels")
+        return out, launches
+
+    warm, _ = serve(engine, "warm")
+    check(warm["misses"] == 0, "the warmed engine missed")
+    cold_engine = TileEngine(pyramid, cache_bytes=SERVE_CACHE, slots=SERVE_SLOTS)
+    cold, trace_launches = serve(cold_engine, "cold")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"serve max_memory_allocated bytes {peak} ({peak - base} above the {base} "
+        "bytes held before the phase)")
+    check(engine.failed == cold_engine.failed == 0
+          and REGISTRY.value("errors.failed_tiles") == failed0,
+          f"failed tiles: {engine.failed} warm, {cold_engine.failed} cold")
+    for k in ("count_scatter", "count_disks", "merge_scatter", "cms_update_keys",
+              "repulsion_nbody"):
+        check(trace_launches[k] > 0, f"the cold trace did not launch {k}")
+    if any(members[c] > 4096 for c in drilled):
+        for k in FULL_KERNELS:
+            check(trace_launches[k] > 0, f"a drill above 4,096 members did not launch {k}")
+
+    # (a) pyramid tiles bitwise against direct renders on the card, and the
+    # cold trace's tiles against the warm-up's.
+    radii = np.sqrt(np.maximum(res.sizes, 0.0))
+    sg_edges = res.supergraph.edges.cpu().numpy()
+    sg_w = res.supergraph.weights.cpu().numpy()
+
+    def direct(spec, device):
+        return render_arrays(res.positions, radii, res.groups, sg_edges, edge_weights=sg_w,
+                             cfg=pyramid.render_config(spec), device=device)[0]
+
+    for spec in pyramid.specs():
+        served = engine.cache.get(spec)
+        check(np.array_equal(served, direct(spec, "cuda")),
+              f"served tile {spec} differs from a direct render on the card")
+        again = cold_engine.cache.get(spec)
+        check(again is None or np.array_equal(again, served),
+              f"tile {spec} differs between the warm-up and the trace")
+    # (b) one tile within ±1 of the port on the CPU.
+    top = TileSpec(0, 0, 0)
+    cpu_tile = direct(top, "cpu")
+    diff = int(np.abs(cpu_tile.astype(np.int32) - engine.cache.get(top).astype(np.int32)).max())
+    nonbg = float((cpu_tile != 255).any(axis=-1).mean())
+    log(f"serve tile {top}: card against CPU max |Δ| {diff}, non-background {nonbg}")
+    check(diff <= 1, f"tile {top}: card and CPU differ by {diff}")
+    check(nonbg > 0.01, f"tile {top} is {nonbg:.4f} non-background")
+    # A drill, card against CPU. Its groups are bitwise. Its positions are
+    # held as the consistency phase holds them, within 1e-4·max|pos| after 4
+    # iterations of the drill's own config: over the drill's 60 iterations
+    # FA2's speed controller amplifies the attraction's float-atomic
+    # rounding differences far beyond that, so there the layout is held by
+    # its quality (neighbourhood preservation and stress within 1 %).
+    from repro_torch.quality import neighborhood_preservation, sampled_stress
+
+    c = drills[0]
+    t0 = time.perf_counter()
+    drill = {}
+    for its in (4, tcfg.drill_iterations):
+        short = dataclasses.replace(tcfg, drill_iterations=its)
+        drill[its] = {d: TilePyramid(res, short, source=edges, bgv_cfg=cfg,
+                                     device=d).drill_layout(c) for d in ("cuda", "cpu")}
+    for its, on in drill.items():
+        (sub_g, mem_g, pos_g, grp_g), (sub_c, mem_c, pos_c, grp_c) = on["cuda"], on["cpu"]
+        check(np.array_equal(sub_g, sub_c) and np.array_equal(mem_g, mem_c), "drill subgraph")
+        check(np.array_equal(grp_g, grp_c), f"drill {c}, {its} iterations: groups differ cuda/cpu")
+        scale = float(np.abs(pos_c).max())
+        rel = np.abs(pos_g - pos_c).max(axis=1) / scale
+        m = len(mem_c)
+        q = {d: {"neighborhood": neighborhood_preservation(np.asarray(p, np.float64), sub_c, m),
+                 "stress": sampled_stress(np.asarray(p, np.float64), sub_c, m)}
+             for d, p in (("cuda", pos_g), ("cpu", pos_c))}
+        log(f"serve drill {c}, {its} iterations: {m} members, {len(sub_c)} internal edges, "
+            f"groups bitwise; positions max|Δ| {float(rel.max()) * scale} of {scale}, "
+            f"nodes beyond 1e-4·max|pos| {int((rel > 1e-4).sum())}; quality {json.dumps(q)}")
+        if its == 4:
+            check(float(rel.max()) <= 1e-4,
+                  f"drill {c}: positions differ cuda/cpu by {float(rel.max())}·max|pos| (> 1e-4)")
+        for k in ("neighborhood", "stress"):
+            a, b = q["cuda"][k], q["cpu"][k]
+            check(abs(a - b) <= 1e-2 * abs(b), f"drill {c}, {its} iterations: {k} {a} vs {b}")
+    log(f"serve drill checks: host seconds {time.perf_counter() - t0:.3f}")
+    return {"warm_s": warm_s, "warm": warm, "cold": cold, "peak": peak,
+            "warm_launches": warm_launches, "trace_launches": trace_launches}
+
+
+# ------------------------------------------------------------- phase 7
+def launcher_phase(np):
+    """Each launcher once, on the card by default, as a subprocess at a
+    small size with ``--trace-out`` and ``--metrics-out`` (the serve
+    launcher also with ``--profile``): each must exit 0 and write its image,
+    its span trace and its metrics dump, with the card's memory gauges in
+    it. The three run at once; all are waited for."""
+    import os
+
+    runs = {
+        "serve": ["--nodes", "3000", "--depth", "2", "--requests", "100",
+                  "--out", "serve.png", "--profile", "prof"],
+        "render_runner": ["--nodes", "20000", "--communities", "200", "--iterations", "20",
+                          "--out", "render.png"],
+        "layout": ["--edges", "synthetic:3000:30", "--iterations", "50", "--out", "layout.svg"],
+    }
+    images = {"serve": "serve.png", "render_runner": "render.png", "layout": "layout.svg"}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, argv in runs.items():
+            d = Path(tmp) / name
+            d.mkdir()
+            cmd = [sys.executable, "-m", f"repro_torch.launch.{name}", *argv,
+                   "--trace-out", "trace.json", "--metrics-out", "metrics.txt"]
+            procs[name] = (d, subprocess.Popen(cmd, cwd=d, env=env, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True))
+        outs = {}
+        try:
+            for name, (d, p) in procs.items():
+                t0 = time.perf_counter()
+                outs[name] = p.communicate(timeout=LAUNCHER_TIMEOUT)[0]
+                log(f"launcher {name}: exit {p.returncode}, waited {time.perf_counter() - t0:.3f} s")
+        finally:
+            for _, p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for name, (d, p) in procs.items():
+            tail = "\n".join(outs[name].splitlines()[-12:])
+            log(f"launcher {name} output (last lines):\n{tail}")
+            check(p.returncode == 0, f"launcher {name} exited {p.returncode}")
+            for f in (images[name], "trace.json", "metrics.txt"):
+                check((d / f).is_file() and (d / f).stat().st_size > 0,
+                      f"launcher {name} wrote no {f}")
+            spans = json.loads((d / "trace.json").read_text())["traceEvents"]
+            dump = (d / "metrics.txt").read_text()
+            check("cuda.dev0.peak_bytes" in dump, f"launcher {name}: no card memory gauge")
+            log(f"launcher {name}: {len(spans)} spans, "
+                + ", ".join(ln for ln in dump.splitlines()
+                            if ln.startswith(("cuda.", "render.seconds", "serve.cache_hit"))))
+        prof = Path(tmp) / "serve" / "prof" / "trace.json"
+        check(prof.is_file(), "the serve launcher's --profile wrote no trace")
+        log("serve launcher profile: " + json.dumps(profile_busy(np, prof)))
+
+
+def profile_busy(np, path):
+    """Device busy share of a ``torch.profiler`` Chrome trace: the union of
+    its kernel and memcpy/memset intervals over the span from the first to
+    the last event of any kind."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, end = 0.0, -np.inf
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"device_events": len(dev), "span_ms": (t1 - t0) / 1e3, "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / (t1 - t0) if t1 > t0 else None}
+
+
+# ------------------------------------------------------------- phase 8
 def bbox_pixels(torch, cx, cy, r, live, h, w) -> int:
     """Pixels in the live disks' own bounding boxes, clipped to the image:
     the pixels a disk kernel must test."""
@@ -1588,7 +1876,7 @@ def time_grid_kernels(torch, np, cap: Capture, row):
         None, 0.0, n8 * 8 + 2 * sketch.numel() * 4, int(kept.sum()), shape)
 
 
-# ------------------------------------------------------------- phase 7
+# ------------------------------------------------------------- phase 9
 def full_node_consistency(torch, np, recorded):
     """The full path's node pass (its recorded small disks, through the
     renderer's ``_node_pass``) against the plain version on the card, which
@@ -1748,10 +2036,14 @@ def run() -> int:
     cap = Capture(torch)
     edges, delta = make_graph()
     with phase("main path"):
-        main_launches, main_wall = main_path(torch, np, cap, edges, delta)
+        main_launches, main_wall, main_result, main_cfg = main_path(torch, np, cap, edges, delta)
     with phase("full path"):
         full_launches = full_path(torch, np, cap, edges, delta, main_wall)
-    del edges
+    with phase("serve"):
+        serve_phase(torch, np, cap, edges, main_result, main_cfg)
+    del edges, main_result
+    with phase("launchers"):
+        launcher_phase(np)
     with phase("timing"):
         rows = time_kernels(torch, np, cap, main_launches, full_launches)
     check(len(rows) == len(KERNELS), f"{len(rows)} kernel rows, expected {len(KERNELS)}")

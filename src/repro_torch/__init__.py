@@ -13,8 +13,10 @@ modules:
 * streaming engine — ``stream_pipeline`` / ``StreamConfig`` /
   ``StreamStats`` / ``EdgeStore`` sources (``as_edge_store``)
 * rendering — ``render`` / ``render_arrays`` / ``RenderConfig``
+* serving — ``TileEngine`` / ``TilePyramid`` / ``TileConfig`` /
+  ``TileSpec`` / ``DrillSpec`` (``serve/tiles.py``)
 * observability — ``Tracer`` / ``MetricsRegistry`` / ``enable_tracing`` /
-  ``get_tracer``
+  ``get_tracer`` / ``jit_compile_count`` (kernel builds and loads)
 
 Every entry point takes ``device=None``, which means CUDA and raises where
 there is none; pass ``device="cpu"`` to run the plain PyTorch versions.
@@ -25,11 +27,16 @@ import importlib
 _EXPORTS = {
     "BGVConfig": "repro_torch.core.pipeline",
     "BGVResult": "repro_torch.core.pipeline",
+    "DrillSpec": "repro_torch.serve.tiles",
     "EdgeStore": "repro_torch.data.edge_store",
     "MetricsRegistry": "repro_torch.obs",
     "RenderConfig": "repro_torch.render",
     "StreamConfig": "repro_torch.core.stream",
     "StreamStats": "repro_torch.core.stream",
+    "TileConfig": "repro_torch.serve.tiles",
+    "TileEngine": "repro_torch.serve.tiles",
+    "TilePyramid": "repro_torch.serve.tiles",
+    "TileSpec": "repro_torch.serve.tiles",
     "Tracer": "repro_torch.obs",
     "as_edge_store": "repro_torch.data.edge_store",
     "biggraphvis": "repro_torch.core.pipeline",
@@ -37,6 +44,7 @@ _EXPORTS = {
     "enable_tracing": "repro_torch.obs",
     "full_layout_colored": "repro_torch.core.pipeline",
     "get_tracer": "repro_torch.obs",
+    "jit_compile_count": "repro_torch.obs",
     "layout": "repro_torch.core.forceatlas2",
     "render": "repro_torch.render",
     "render_arrays": "repro_torch.render",

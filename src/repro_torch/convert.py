@@ -2,9 +2,11 @@
 
 The system has no weights; what a run carries is configuration and state.
 ``config_from_reference`` turns any of the reference's ``ScodaConfig``,
-``CMSConfig``, ``FA2Config``, ``BGVConfig``, ``StreamConfig`` or
-``RenderConfig`` into the port's, by duck typing on attributes — it never
-imports the reference package. ``state_from_numpy`` builds port tensors
+``CMSConfig``, ``FA2Config``, ``BGVConfig``, ``StreamConfig``,
+``RenderConfig`` or ``TileConfig`` into the port's, by duck typing on
+attributes — it never imports the reference package. Fields the port has
+no counterpart for (the reference's kernel ``backend`` knobs, its
+benchmark-only timing flags) are dropped. ``state_from_numpy`` builds port tensors
 from host arrays (the reference's state converted with ``np.asarray``).
 """
 from __future__ import annotations
@@ -21,12 +23,14 @@ from repro_torch.core.scoda import ScodaConfig
 from repro_torch.core.stream import StreamConfig
 from repro_torch.core.supergraph import Supergraph
 from repro_torch.render.raster import RenderConfig
+from repro_torch.serve.tiles import TileConfig
 
 # Attribute that identifies each config class, checked in this order.
 _KINDS = (
     ("scoda", BGVConfig),
     ("degree_threshold", ScodaConfig),
     ("repulsion_k", FA2Config),
+    ("drill_iterations", TileConfig),
     ("supersample", RenderConfig),
     ("agg_backend", StreamConfig),
     ("rows", CMSConfig),

@@ -104,10 +104,19 @@ def init_positions_degree(n: int, mass, scale: float = 1000.0,
     rank = torch.empty(n, dtype=torch.int32, device=mass.device)
     rank[order] = torch.arange(n, dtype=torch.int32, device=mass.device)
     rf = rank.to(torch.float32)
-    r = scale * torch.sqrt((rf + 0.5) / n)
+    # r and θ are the reference's float32 values: the square root is taken
+    # in float64 and rounded once, which is the correctly rounded float32
+    # root (torch's vectorised float32 root on the CPU is not, for some
+    # elements). The products are formed in float64 and rounded to float32
+    # once: a float32 sine or cosine rounds differently in the vectorised
+    # loop and in its scalar tail, so the result would depend on where an
+    # element falls, that is, on the CPU's vector width.
+    root = torch.sqrt(((rf + 0.5) / n).to(torch.float64)).to(torch.float32)
+    r = scale * root
     theta = rf * _GOLDEN_ANGLE
-    pos = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=1)
-    return pos.to(dtype)
+    r64, t64 = r.to(torch.float64), theta.to(torch.float64)
+    pos = torch.stack([r64 * torch.cos(t64), r64 * torch.sin(t64)], dim=1)
+    return pos.to(torch.float32).to(dtype)
 
 
 def init_positions_bfs(edges, mass, n: int, generator: torch.Generator,

@@ -21,13 +21,15 @@ Concrete stores: ``InMemoryEdgeStore`` (NumPy array), ``NpyEdgeStore``
 ``ShardedEdgeStore`` (concatenation of sub-stores, e.g. one file per
 crawl shard). ``write_npy`` / ``write_bin`` / ``write_shards`` are the
 streaming writers (chunked, so store→store conversion is itself
-out-of-core).
+out-of-core). ``python -m repro_torch.data.edge_store info|convert`` is the
+command-line inspector and converter.
 
 This is the port's own copy of the reference package's edge-store module
 (numpy only); files written by either package are read by both.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 from pathlib import Path
@@ -372,3 +374,69 @@ class _StoreSlice(EdgeStore):
     def read_into(self, start: int, out: np.ndarray) -> int:
         k = max(0, min(len(out), self.n_edges - start))
         return self.store.read_into(self.start + start, out[:k])
+
+
+# ---------------------------------------------------------------- converter
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.data.edge_store",
+        description="Inspect and convert on-disk edge stores.",
+    )
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    info = sub.add_parser("info", help="print a store's shape and layout")
+    info.add_argument("path")
+
+    conv = sub.add_parser(
+        "convert", help="convert between npy / bin / sharded edge stores"
+    )
+    conv.add_argument("src", help="input: .npy, raw .bin, or shard directory")
+    conv.add_argument("dst", help="output file (or directory for shards)")
+    conv.add_argument(
+        "--format",
+        choices=("npy", "bin", "shards"),
+        default=None,
+        help="output format (default: from dst extension)",
+    )
+    conv.add_argument(
+        "--shard-edges",
+        type=int,
+        default=1 << 20,
+        help="rows per shard when --format shards",
+    )
+    conv.add_argument(
+        "--chunk-rows",
+        type=int,
+        default=DEFAULT_WRITE_CHUNK,
+        help="copy-buffer rows (host footprint of the conversion)",
+    )
+    args = ap.parse_args(argv)
+
+    if args.cmd == "info":
+        store = open_edge_store(args.path)
+        kind = type(store).__name__
+        print(f"{args.path}: {store.n_edges} edges ({kind})")
+        print(f"bytes on disk ≈ {store.n_edges * ROW_BYTES:,}")
+        print(f"host resident bytes = {store.resident_bytes:,}")
+        if isinstance(store, ShardedEdgeStore):
+            for s, e in zip(store.stores, np.diff(store.offsets)):
+                print(f"  shard {getattr(s, 'path', '?')}: {int(e)} edges")
+        return
+
+    fmt = args.format or ("npy" if args.dst.endswith(".npy") else "bin")
+    store = open_edge_store(args.src)
+    if fmt == "shards":
+        paths = write_shards(
+            args.dst, store, args.shard_edges, chunk_rows=args.chunk_rows
+        )
+        print(f"wrote {len(paths)} shards under {args.dst}")
+    elif fmt == "npy":
+        print("wrote", write_npy(args.dst, store, chunk_rows=args.chunk_rows))
+    else:
+        print("wrote", write_bin(args.dst, store, chunk_rows=args.chunk_rows))
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,9 @@ The build happens at first use, from the sources in the checkout only, into
 ``build/repro_torch_kernels/`` at the repository root. A library's file name
 carries a hash of its source and flags, so an edited source rebuilds and an
 unchanged one is reused. ``build()`` starts one ``nvcc`` per missing source,
-all at once, and waits for all of them.
+all at once, and waits for all of them. Each ``nvcc`` build and each library
+load adds one to ``cuda.kernel_builds`` (``obs.meters.jit_compile_count``);
+a reuse adds nothing.
 
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; ``check`` raises on a non-zero code, so
@@ -28,6 +30,8 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+
+from repro_torch.obs.meters import count_build
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -101,6 +105,7 @@ def build(names=KERNELS) -> dict:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        count_build()
         results[name] = BuildResult(name, out, time.perf_counter() - t0, log)
     if failed:
         raise RuntimeError("repro_torch kernel build failed:\n" + "\n".join(failed))
@@ -111,6 +116,7 @@ def build(names=KERNELS) -> dict:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel (built on first call)."""
     lib = ctypes.CDLL(str(build((name,))[name].path))
+    count_build()
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p

@@ -58,6 +58,21 @@ def test_init_degree_within_two_ulp():
     np.testing.assert_array_max_ulp(got.numpy(), np.asarray(want), maxulp=2)
 
 
+@pytest.mark.parametrize("n", [701, 1031])
+def test_init_degree_within_two_ulp_at_ragged_lengths(n):
+    """Lengths that are no multiple of any vector width put elements in the
+    scalar tail of a vectorised loop; the init must not depend on that."""
+    rng = np.random.default_rng(n)
+    mass = rng.integers(0, 30, n).astype(np.float32)
+    want = jfa2.init_positions_degree(n, jnp.asarray(mass))
+    got = fa2.init_positions_degree(n, torch.as_tensor(mass))
+    np.testing.assert_array_max_ulp(got.numpy(), np.asarray(want), maxulp=2)
+    tail = fa2.init_positions_degree(n - 1, torch.as_tensor(mass[:-1]))
+    np.testing.assert_array_max_ulp(
+        tail.numpy(), np.asarray(jfa2.init_positions_degree(n - 1, jnp.asarray(mass[:-1]))),
+        maxulp=2)
+
+
 @pytest.mark.parametrize("use_radii", [True, False])
 @pytest.mark.parametrize("strong_gravity", [False, True])
 def test_layout_from_shared_pos0(use_radii, strong_gravity):

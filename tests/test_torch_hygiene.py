@@ -34,6 +34,7 @@ bad = sorted(
     if mod is not None and (m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 )
 assert not bad, bad
+print(" ".join(names))
 print(len(names))
 """
 
@@ -51,6 +52,18 @@ def test_every_module_imports_without_jax_or_reference():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20  # modules walked
+    walked = set(out.stdout.split()[:-1])
+    for name in ("repro_torch.serve.tiles", "repro_torch.obs.meters", "repro_torch.obs.cli",
+                 "repro_torch.launch.serve", "repro_torch.launch.render_runner",
+                 "repro_torch.launch.layout"):
+        assert name in walked, name
+
+
+def test_public_surface_covers_the_reference():
+    import repro
+    import repro_torch
+
+    assert set(repro.__all__) <= set(repro_torch.__all__)
 
 
 @pytest.mark.parametrize("pattern", [r"\bjax\b", r"(?<![\w/])repro\."])
@@ -83,6 +96,22 @@ def test_device_none_raises_without_cuda(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+@pytest.mark.parametrize("launcher, argv", [
+    ("serve", ["--nodes", "60", "--communities", "3", "--requests", "2"]),
+    ("render_runner", ["--nodes", "60", "--communities", "3"]),
+    ("layout", ["--edges", "synthetic:60:3"]),
+])
+def test_launchers_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, launcher, argv):
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.launch.{launcher}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
+    assert not any(tmp_path.iterdir())  # nothing written
 
 
 def test_unported_knobs_raise_naming_the_roadmap():

@@ -1,0 +1,112 @@
+"""The port's launchers (``repro_torch.launch``) and the edge-store CLI on
+the CPU at a tiny size: each ``main([... "--device", "cpu"])`` writes its
+image, span trace and metrics dump; ``load_edges`` equals the reference's;
+the converter round-trips npy → bin → shards, readable by both packages."""
+import json
+import re
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
+
+from repro.data import edge_store as jstore  # noqa: E402
+from repro.launch.layout import load_edges as jload_edges  # noqa: E402
+
+from repro_torch.data import edge_store  # noqa: E402
+from repro_torch.launch import layout, render_runner, serve  # noqa: E402
+from repro_torch.obs.trace import get_tracer, set_tracer  # noqa: E402
+from repro_torch.render.png import read_png  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _restore_tracer():
+    saved = get_tracer()
+    yield
+    set_tracer(saved)
+
+
+def _obs(tmp_path):
+    return ["--trace-out", str(tmp_path / "trace.json"),
+            "--metrics-out", str(tmp_path / "metrics.txt"), "--device", "cpu"]
+
+
+def _check_obs(tmp_path, *spans):
+    names = {e["name"] for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]}
+    assert set(spans) <= names, names
+    dump = (tmp_path / "metrics.txt").read_text()
+    assert re.search(r"^cuda\.kernel_builds \d+$", dump, re.M), dump
+
+
+def test_serve_launcher_writes_its_outputs(tmp_path, capsys):
+    png = tmp_path / "tile.png"
+    serve.main(["--nodes", "300", "--communities", "6", "--depth", "2", "--tile-size", "64",
+                "--iterations", "5", "--requests", "60", "--drill-frac", "0.2",
+                "--out", str(png), *_obs(tmp_path)])
+    out = capsys.readouterr().out
+    assert read_png(str(png)).shape == (64, 64, 3)
+    assert "served 60 requests" in out and "steady-state kernel builds: 0" in out
+    assert "0 failed tiles" in out
+    _check_obs(tmp_path, "serve.warmup", "serve.render_tile", "serve.render_drill")
+    dump = (tmp_path / "metrics.txt").read_text()
+    assert "serve.cache_tiles 13" in dump and "errors.failed_tiles " in dump
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_render_runner_writes_its_outputs(tmp_path, capsys, full):
+    png = tmp_path / "graph.png"
+    render_runner.main(["--nodes", "400", "--communities", "8", "--width", "96",
+                        "--height", "64", "--iterations", "4", "--chunk", "256",
+                        "--out", str(png), *_obs(tmp_path)] + (["--full"] if full else []))
+    out = capsys.readouterr().out
+    assert read_png(str(png)).shape == (64, 96, 3)
+    assert "throughput:" in out and "peak device bytes (render)" in out
+    _check_obs(tmp_path, "render.nodes", "render.edges")
+    assert "render.seconds" in (tmp_path / "metrics.txt").read_text()
+
+
+def test_layout_launcher_writes_its_outputs(tmp_path):
+    svg = tmp_path / "g.svg"
+    layout.main(["--edges", "synthetic:300:6", "--iterations", "5", "--init", "degree",
+                 "--out", str(svg), *_obs(tmp_path)])
+    assert svg.read_text().startswith("<svg")
+    rows = (tmp_path / "g.csv").read_text().splitlines()
+    assert rows[0] == "community,size,x,y,color_group" and len(rows) > 2
+    _check_obs(tmp_path, "biggraphvis", "layout")
+
+
+def test_load_edges_matches_reference(tmp_path):
+    for spec in ("synthetic:200:4",):
+        got, n = layout.load_edges(spec)
+        want, jn = jload_edges(spec)
+        assert n == jn == 200
+        np.testing.assert_array_equal(got, want)
+    p = tmp_path / "g.txt"
+    p.write_text("# comment\n% other\n10 20\n20 30 7\n10 30\n40 10\n30 30\n\n")
+    got, n = layout.load_edges(str(p))
+    want, jn = jload_edges(str(p))
+    assert n == jn == 4 and got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_edge_store_cli_round_trips(tmp_path, capsys):
+    rng = np.random.default_rng(0)
+    edges = rng.integers(0, 1000, (2501, 2)).astype(np.int32)
+    npy = tmp_path / "e.npy"
+    np.save(npy, edges)
+    binp, shards, back = tmp_path / "e.bin", tmp_path / "shards", tmp_path / "back.npy"
+    edge_store.main(["convert", str(npy), str(binp), "--chunk-rows", "700"])
+    edge_store.main(["convert", str(binp), str(shards), "--format", "shards",
+                     "--shard-edges", "1000"])
+    edge_store.main(["convert", str(shards), str(back)])
+    edge_store.main(["info", str(shards)])
+    out = capsys.readouterr().out
+    assert "wrote 3 shards" in out and "2501 edges (ShardedEdgeStore)" in out
+    for path in (binp, shards, back):
+        store = edge_store.open_edge_store(path)
+        np.testing.assert_array_equal(store.read(0, store.n_edges), edges)
+        jstore_ = jstore.open_edge_store(path)  # the reference reads them too
+        np.testing.assert_array_equal(jstore_.read(0, jstore_.n_edges), edges)
+    with pytest.raises(SystemExit):
+        edge_store.main(["convert"])
