@@ -67,7 +67,12 @@ Phases, each printing its wall seconds:
                default with ``--trace-out`` and ``--metrics-out`` (serve
                also ``--profile``): each must exit 0 and write its image,
                trace and metrics with the card's memory gauges; the
-               profile's device busy share is printed.
+               profile's device busy share is printed. Beside them
+               ``stream_runner`` streams an ``.npy`` store with a checkpoint
+               every 4 chunks and gets SIGTERM once its first checkpoint
+               is on disk: it must exit 0 preempted; run again with
+               ``--resume``, it must report the cursor it resumed at and
+               stream equal to one shot.
 8. timing    — each kernel entry on the inputs its path gave it (recorded
                in phases 4 and 5; K3 on both paths): held against its plain
                version again, and timed with CUDA events beside the plain
@@ -82,6 +87,24 @@ Phases, each printing its wall seconds:
                accumulators bitwise, positions within tolerance; the
                3,000-node graph from a ``.npy`` file through the pinned
                staging ring, bitwise.
+10. resilience — on phase 4's graph and config, streamed from an ``.npy``
+               store through the pinned staging ring: a run checkpointed
+               at round boundaries is killed in detect (round 2, chunk 50
+               of 101) and resumed through ``biggraphvis(..., resume=True)``
+               + ``render`` with the counters set to 0 just before and read
+               just after (labels, graph degrees, sizes and supergraph
+               bitwise against phase 4, Q within 1e-6, positions within
+               ``RESUME_POS_TOL``, the image written, K1, K2, K3, K4 and K8
+               launched); a ``stream_pipeline`` run is killed after a save
+               inside the supergraph pass and resumed (bitwise against an
+               uninterrupted one, Q too); a validated run through
+               ``ChaosEdgeStore`` faults (transient I/O errors and a
+               truncated read, a permanently failing chunk, a bit-flip)
+               must account for every injected fault and equal, bitwise, a
+               trusting run on the equivalent in-memory array. It prints
+               saves, bytes per checkpoint, seconds per save (to the host,
+               and the npz write) and the resumed run's wall time beside
+               phase 4's, each with the card's name and power limit.
 
 It then prints the ``kernels`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
@@ -107,6 +130,7 @@ ROOT = Path(__file__).resolve().parent
 # (685,230 nodes, ≈ 6.6 M edges; src/repro/configs/biggraphvis.py:56-59).
 NODES, COMMUNITIES, P_IN, P_OUT, SEED = 685_230, 200, 0.0051, 2.6e-6, 0
 ITERATIONS = 100  # FA2 iterations, the default
+MAIN_CHUNK = 1 << 16  # edges a chunk on the main path (101 chunks a pass)
 # The full path: the reference's and the paper's full-graph iteration count,
 # and the grid of default_config.
 FULL_ITERATIONS, GRID, WINDOW = 500, 64, 32
@@ -123,6 +147,17 @@ QUEUE_CYCLES = 100_000_000  # ≈ 50 ms of device sleep ahead of each timing
 SERVE_TILE, SERVE_DEPTH, SERVE_CACHE, SERVE_SLOTS = 256, 3, 64 << 20, 8
 SERVE_DRILLS, SERVE_REQUESTS = 8, 400
 LAUNCHER_TIMEOUT = 300  # seconds, for the three small launcher runs together
+# stream_runner: ≈ 159 k edges in 156 chunks a pass, so a checkpoint every
+# chunk leaves hundreds of boundaries between the first save and the end.
+STREAM_RUNNER_ARGS = ["--nodes", "20000", "--communities", "200", "--chunk", "1024",
+                      "--block-size", "1024", "--iterations", "20"]
+# Positions of a resumed main path against phase 4's, per max|pos|. FA2's
+# attraction adds with float atomics on the card, so two runs need not agree
+# bitwise: the drills of the serve phase drift by up to 3.6e-3·max|pos| over
+# 60 iterations (PERF.md §6). On an H100 80GB HBM3 at 700 W the main path's
+# own run-to-run drift and the resumed run's were both 0.0; the phase prints
+# both beside this tolerance.
+RESUME_POS_TOL = 1e-2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
 # outside the tensor cores (a fused multiply-add counts as two operations).
@@ -1100,7 +1135,7 @@ def main_path(torch, np, cap: Capture, edges, delta):
 
     n, e = NODES, len(edges)
     cfg = repro_torch.default_config(n, e, delta, iterations=ITERATIONS)
-    scfg = repro_torch.StreamConfig(chunk_size=1 << 16)
+    scfg = repro_torch.StreamConfig(chunk_size=MAIN_CHUNK)
 
     def drive(png):
         res = repro_torch.biggraphvis(edges, n, cfg, scfg, device="cuda")
@@ -1127,6 +1162,8 @@ def main_path(torch, np, cap: Capture, edges, delta):
     check(np.array_equal(rec.labels, res.labels)
           and rec.n_superedges == res.n_superedges and rec_image.shape == image.shape,
           "recording run differs from the measured run")
+    drift = float(np.abs(rec.positions - res.positions).max())
+    log(f"positions run to run: max|Δ| {drift} of {float(np.abs(res.positions).max())}")
     n_sn = res.n_supernodes
     s_layout = min(max(1 << (max(n_sn, 2) - 1).bit_length(), 64), cfg.s_cap)
     log(f"n_supernodes {n_sn} n_superedges {res.n_superedges} s_layout {s_layout} "
@@ -1163,7 +1200,7 @@ def main_path(torch, np, cap: Capture, edges, delta):
     res.supergraph = dataclasses.replace(
         res.supergraph, **{f.name: getattr(res.supergraph, f.name).cpu()
                            for f in dataclasses.fields(res.supergraph)})
-    return launches, wall, res, cfg
+    return launches, wall, res, cfg, drift
 
 
 # ------------------------------------------------------------- phase 5
@@ -1499,7 +1536,8 @@ def launcher_phase(np):
     small size with ``--trace-out`` and ``--metrics-out`` (the serve
     launcher also with ``--profile``): each must exit 0 and write its image,
     its span trace and its metrics dump, with the card's memory gauges in
-    it. The three run at once; all are waited for."""
+    it. The three run at once, beside ``stream_runner`` (``stream_runner_round_trip``);
+    all are waited for."""
     import os
 
     runs = {
@@ -1513,18 +1551,19 @@ def launcher_phase(np):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     with tempfile.TemporaryDirectory() as tmp:
         procs = {}
-        for name, argv in runs.items():
-            d = Path(tmp) / name
-            d.mkdir()
-            cmd = [sys.executable, "-m", f"repro_torch.launch.{name}", *argv,
-                   "--trace-out", "trace.json", "--metrics-out", "metrics.txt"]
-            procs[name] = (d, subprocess.Popen(cmd, cwd=d, env=env, stdout=subprocess.PIPE,
-                                               stderr=subprocess.STDOUT, text=True))
-        outs = {}
         try:
+            for name, argv in runs.items():
+                d = Path(tmp) / name
+                d.mkdir()
+                cmd = [sys.executable, "-m", f"repro_torch.launch.{name}", *argv,
+                       "--trace-out", "trace.json", "--metrics-out", "metrics.txt"]
+                with open(d / "out.txt", "w") as f:
+                    procs[name] = (d, subprocess.Popen(cmd, cwd=d, env=env, stdout=f,
+                                                       stderr=subprocess.STDOUT))
+            stream_runner_round_trip(Path(tmp) / "stream_runner", env)
             for name, (d, p) in procs.items():
                 t0 = time.perf_counter()
-                outs[name] = p.communicate(timeout=LAUNCHER_TIMEOUT)[0]
+                p.wait(timeout=LAUNCHER_TIMEOUT)
                 log(f"launcher {name}: exit {p.returncode}, waited {time.perf_counter() - t0:.3f} s")
         finally:
             for _, p in procs.values():
@@ -1532,7 +1571,7 @@ def launcher_phase(np):
                     p.kill()
                     p.wait()
         for name, (d, p) in procs.items():
-            tail = "\n".join(outs[name].splitlines()[-12:])
+            tail = "\n".join((d / "out.txt").read_text().splitlines()[-12:])
             log(f"launcher {name} output (last lines):\n{tail}")
             check(p.returncode == 0, f"launcher {name} exited {p.returncode}")
             for f in (images[name], "trace.json", "metrics.txt"):
@@ -1547,6 +1586,55 @@ def launcher_phase(np):
         prof = Path(tmp) / "serve" / "prof" / "trace.json"
         check(prof.is_file(), "the serve launcher's --profile wrote no trace")
         log("serve launcher profile: " + json.dumps(profile_busy(np, prof)))
+
+
+def stream_runner_round_trip(d: Path, env):
+    """``repro_torch.launch.stream_runner`` from an ``.npy`` store with a
+    checkpoint every chunk, on the card: SIGTERM once the first
+    ``step_*.npz`` appears, which must exit 0 with the preempted message;
+    then ``--resume``, which must report its cursor, stream equal to one
+    shot, and write its trace and metrics."""
+    import signal
+
+    d.mkdir()
+    ckdir = d / "ckpt"
+    cmd = [sys.executable, "-m", "repro_torch.launch.stream_runner", *STREAM_RUNNER_ARGS,
+           "--source", "npy", "--checkpoint-dir", str(ckdir), "--checkpoint-every", "4",
+           "--trace-out", "trace.json", "--metrics-out", "metrics.txt"]
+    t0 = time.perf_counter()
+    with open(d / "first.txt", "w") as f:
+        p = subprocess.Popen(cmd, cwd=d, env=env, stdout=f, stderr=subprocess.STDOUT)
+    try:
+        while p.poll() is None and not list(ckdir.glob("step_*.npz")):
+            check(time.perf_counter() - t0 < LAUNCHER_TIMEOUT, "stream_runner wrote no checkpoint")
+            time.sleep(0.01)
+        signalled = p.poll() is None
+        if signalled:
+            p.send_signal(signal.SIGTERM)
+        p.wait(timeout=LAUNCHER_TIMEOUT)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    first = (d / "first.txt").read_text()
+    log(f"launcher stream_runner (SIGTERM after the first checkpoint): exit {p.returncode} "
+        f"in {time.perf_counter() - t0:.3f} s; last lines:\n"
+        + "\n".join(first.splitlines()[-4:]))
+    check(signalled, "stream_runner ended before its first checkpoint could be signalled")
+    check(p.returncode == 0 and "preempted:" in first,
+          f"stream_runner did not exit 0 preempted (exit {p.returncode})")
+    t0 = time.perf_counter()
+    second = subprocess.run(cmd + ["--resume"], cwd=d, env=env, capture_output=True, text=True,
+                            timeout=LAUNCHER_TIMEOUT)
+    text = second.stdout + second.stderr
+    log(f"launcher stream_runner --resume: exit {second.returncode} in "
+        f"{time.perf_counter() - t0:.3f} s; last lines:\n" + "\n".join(text.splitlines()[-12:]))
+    check(second.returncode == 0, f"stream_runner --resume exited {second.returncode}")
+    check("resumed from checkpoint at" in text, "stream_runner --resume did not resume")
+    check("streamed == one-shot: True" in text, "stream_runner --resume: streamed != one-shot")
+    dump = (d / "metrics.txt").read_text()
+    check((d / "trace.json").stat().st_size > 0 and "cuda.dev0.peak_bytes" in dump,
+          "stream_runner --resume wrote no trace or no card memory gauge")
 
 
 def profile_busy(np, path):
@@ -2000,6 +2088,214 @@ def grid_consistency(torch, np):
           f"(> 1e-4·{scale}; {moved} nodes end in another cell)")
 
 
+# ------------------------------------------------------------- phase 10
+def save_numbers(ck, smi: str) -> dict:
+    """A checkpointer's saves, bytes and seconds, beside the card."""
+    n = max(ck.saves, 1)
+    return {"saves": ck.saves, "bytes_per_checkpoint": ck.last_bytes,
+            "host_s_per_save": ck.host_s / n, "write_s_per_save": ck.write_s / n,
+            "card": smi}
+
+
+def resilience_phase(torch, np, cap: Capture, edges, res, cfg, main_wall: float,
+                     pos_drift: float, smi: str):
+    """Checkpoint/resume and validated reads on phase 4's graph and config,
+    streamed from an ``.npy`` store through the pinned staging ring.
+
+    1. A run checkpointed at round boundaries is killed in detect (round 2,
+       chunk ``n_chunks // 2``) and resumed with ``biggraphvis(...,
+       resume=True)`` + ``render``, the counters set to 0 just before the
+       resume and read just after: labels, graph degrees (the final
+       checkpoint's, against a count on the host), sizes and the supergraph
+       bitwise against phase 4, Q within 1e-6 and positions within
+       ``RESUME_POS_TOL``·max|pos| of phase 4 (FA2's attraction adds with
+       float atomics, ``pos_drift`` is phase 4's own run-to-run drift), the
+       image written, K1, K2, K3, K4 and K8 launched.
+    2. A ``stream_pipeline`` run with one save inside the supergraph pass is
+       killed after it and resumed: labels, degrees, supergraph and Q
+       bitwise against an uninterrupted ``stream_pipeline`` on the card.
+    3. The store behind two layers of ``ChaosEdgeStore``: transient I/O
+       errors at two chunks and a transient truncated read (one failed
+       attempt each), a permanently failing chunk and a bit-flip that
+       recurs every pass, streamed with a ``ValidationPolicy``: retries,
+       quarantined chunks, dropped rows and the ``errors.*`` counters as
+       ``injected`` implies, and the result bitwise against a trusting card
+       run on the equivalent in-memory array.
+    """
+    import repro_torch
+    from repro_torch.data.edge_store import open_edge_store, write_npy
+    from repro_torch.obs.metrics import REGISTRY
+    from repro_torch.render import raster
+    from repro_torch.render.png import read_png
+    from repro_torch.resilience import (
+        ChaosConfig,
+        ChaosEdgeStore,
+        KillSwitch,
+        SimulatedPreemption,
+        StreamCheckpointer,
+        ValidationPolicy,
+        load_arrays,
+        latest_step,
+    )
+
+    from repro_torch.core.stream import EdgeChunkStream
+
+    n = NODES
+    scfg = repro_torch.StreamConfig(chunk_size=MAIN_CHUNK)
+    layout = EdgeChunkStream(edges, n, MAIN_CHUNK, cfg.scoda.block_size)
+    c, n_chunks = layout.chunk_size, layout.n_chunks
+    passes = cfg.scoda.rounds + 1
+    out = {"card": smi}
+
+    def sg_equal(a, b, what):
+        for f in ("edges", "weights", "sizes", "n_supernodes", "n_superedges", "labels"):
+            check(bits_equal(torch, getattr(a, f).cpu(), getattr(b, f).cpu()),
+                  f"{what}: supergraph.{f} differs")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        npy = write_npy(tmp / "edges.npy", edges)
+        log(f"resilience: wrote {npy} in {time.perf_counter() - t0:.3f} s")
+
+        # 1. Killed in detect, resumed through biggraphvis.
+        kill_at = 2 * n_chunks + n_chunks // 2
+        ck = StreamCheckpointer(str(tmp / "ck1"), every_chunks=0, on_boundary=KillSwitch(kill_at))
+        t0 = time.perf_counter()
+        try:
+            repro_torch.biggraphvis(npy, n, cfg, scfg, checkpoint=ck, device="cuda")
+            check(False, f"the run was not killed at boundary {kill_at}")
+        except SimulatedPreemption as e:
+            log(f"resilience: {e} after {time.perf_counter() - t0:.3f} s")
+        check(ck.saves == 2, f"{ck.saves} round-boundary saves before the kill, expected 2")
+        out["detect_saves"] = save_numbers(ck, smi)
+        ck2 = StreamCheckpointer(str(tmp / "ck1"), every_chunks=0)
+        png = str(tmp / "resumed.png")
+        torch.cuda.synchronize()
+        cap.reset()
+        t0 = time.perf_counter()
+        got = repro_torch.biggraphvis(npy, n, cfg, scfg, checkpoint=ck2, resume=True,
+                                      device="cuda")
+        image, _ = got.render(png)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cap.counts()
+        out["resumed"] = {"resumed_at": got.stream.resumed_at, "wall_s": wall,
+                          "main_path_wall_s": main_wall, "passes": got.stream.passes,
+                          "saves": ck2.saves, "timings": got.timings, "launches": launches}
+        log("resilience resumed run " + json.dumps(out["resumed"]))
+        check(got.stream.resumed_at == "detect:r2:c0", f"resumed at {got.stream.resumed_at}")
+        check(got.stream.passes == passes - 2, f"resumed run streamed {got.stream.passes} passes")
+        check(np.array_equal(got.labels, res.labels), "resumed labels differ from phase 4")
+        check(np.array_equal(got.sizes, res.sizes), "resumed sizes differ from phase 4")
+        sg_equal(got.supergraph, res.supergraph, "resumed run")
+        arrays, meta = load_arrays(str(tmp / "ck1"), latest_step(str(tmp / "ck1")))
+        check(meta["phase"] == "supergraph" and meta["chunk"] == n_chunks,
+              f"final checkpoint {meta}")
+        deg = np.bincount(edges.reshape(-1), minlength=n).astype(np.int32)
+        check(np.array_equal(arrays["deg"], deg), "resumed graph degrees differ from a host count")
+        dq = abs(got.modularity - res.modularity)
+        scale = float(np.abs(res.positions).max())
+        perr = float(np.abs(got.positions - res.positions).max())
+        log(f"resilience: Q {got.modularity} vs {res.modularity} (|ΔQ| {dq}); positions "
+            f"max|Δ| {perr} of {scale} ({perr / scale} relative; phase 4's run to run "
+            f"{pos_drift / scale}); tolerance {RESUME_POS_TOL}")
+        check(dq <= 1e-6, f"resumed Q differs by {dq}")
+        check(perr <= RESUME_POS_TOL * scale,
+              f"resumed positions differ by {perr} (> {RESUME_POS_TOL}·{scale})")
+        check(np.isfinite(got.positions).all(), "non-finite resumed positions")
+        check(np.array_equal(read_png(png), image), "resumed PNG round trip differs")
+        frac, counts = raster.image_summary(image)
+        check(frac >= 0.01 and (counts > 0).sum() >= 3,
+              f"resumed image: {frac} non-background, {(counts > 0).sum()} colors")
+        for k in sorted(MAIN_KERNELS):
+            check(launches[k] > 0, f"kernel {k} was not launched in the resumed run")
+
+        # 2. Killed in the supergraph pass, resumed through stream_pipeline.
+        def pipeline(source, **kw):
+            return repro_torch.stream_pipeline(
+                source, n, cfg.scoda, cfg.cms, cfg.s_cap, cfg.max_super_edges,
+                kw.pop("stream_cfg", scfg), device="cuda", **kw)
+
+        want = pipeline(npy)
+        # One save, after supergraph chunk n_chunks // 6 - 1; the kill a
+        # quarter of the pass later.
+        every = cfg.scoda.rounds * n_chunks + n_chunks // 6
+        ck = StreamCheckpointer(str(tmp / "ck2"), every_chunks=every,
+                                on_boundary=KillSwitch(every + n_chunks // 4))
+        try:
+            pipeline(npy, checkpoint=ck)
+            check(False, "the supergraph-pass run was not killed")
+        except SimulatedPreemption as e:
+            log(f"resilience: {e}")
+        check(ck.saves == 1, f"{ck.saves} saves before the supergraph-pass kill, expected 1")
+        out["supergraph_saves"] = save_numbers(ck, smi)
+        t0 = time.perf_counter()
+        got2 = pipeline(npy, checkpoint=StreamCheckpointer(str(tmp / "ck2"), every_chunks=every),
+                        resume=True)
+        torch.cuda.synchronize()
+        out["resumed_supergraph"] = {"resumed_at": got2[4].resumed_at,
+                                     "seconds": time.perf_counter() - t0,
+                                     "chunks": got2[4].chunks}
+        check(got2[4].resumed_at == f"supergraph:r0:c{n_chunks // 6}",
+              f"resumed at {got2[4].resumed_at}")
+        check(got2[4].stage_seconds["detect_s"] == 0.0, "detect ran after a supergraph resume")
+        for a, b, what in ((got2[0], want[0], "labels"), (got2[1], want[1], "graph degrees"),
+                           (got2[3], want[3], "Q")):
+            check(bits_equal(torch, a.cpu(), b.cpu()), f"supergraph-pass resume: {what} differ")
+        sg_equal(got2[2], want[2], "supergraph-pass resume")
+
+        # 3. Validated reads under injected faults, at chunks 7, 60, 33, 21
+        # and 80 of 101.
+        t1, t2, tr, bad, flip = (n_chunks * k // 101 for k in (7, 60, 33, 21, 80))
+        transient = ChaosConfig(io_error_offsets=(t1 * c, t2 * c), truncate_offsets=(tr * c,),
+                                truncate_rows=1000, transient_attempts=1)
+        permanent = ChaosConfig(io_error_offsets=(bad * c,), bitflip_offsets=(flip * c,), seed=5)
+        inner = ChaosEdgeStore(open_edge_store(npy), permanent)
+        store = ChaosEdgeStore(inner, transient)
+        policy = ValidationPolicy(max_retries=2, retry_backoff_s=0.001)
+        before = {k: REGISTRY.counter(k).value for k in
+                  ("errors.io_retries", "errors.quarantined_chunks", "errors.invalid_edges")}
+        t0 = time.perf_counter()
+        got3 = pipeline(store, stream_cfg=dataclasses.replace(scfg, validation=policy))
+        torch.cuda.synchronize()
+        chaos_s = time.perf_counter() - t0
+        st = got3[4]
+        moved = {k: REGISTRY.counter(k).value - v for k, v in before.items()}
+        injected = {**{f"transient {k}": v for k, v in store.injected.items()},
+                    **{f"permanent {k}": v for k, v in inner.injected.items()}}
+        out["chaos"] = {"retries": st.retries, "quarantined_chunk_ids": st.quarantined_chunk_ids,
+                        "dropped_edges": st.dropped_edges, "injected": injected,
+                        "errors": moved, "seconds": chaos_s}
+        log("resilience chaos run " + json.dumps(out["chaos"], default=str))
+        failed = (sum(store.injected.values())
+                  + sum(v for (kind, _), v in inner.injected.items() if kind == "io"))
+        quarantines = passes * len(permanent.io_error_offsets)
+        check(store.injected == {("io", t1 * c): 1, ("io", t2 * c): 1, ("trunc", tr * c): 1},
+              f"transient faults fired {store.injected}")
+        check(inner.injected == {("io", bad * c): passes * (policy.max_retries + 1),
+                                 ("flip", flip * c): passes},
+              f"permanent faults fired {inner.injected}")
+        check(st.retries == failed - quarantines,
+              f"{st.retries} retries; {failed} failed reads, {quarantines} quarantines")
+        check(st.quarantined_chunk_ids == [bad], f"quarantined {st.quarantined_chunk_ids}")
+        check(st.dropped_edges == inner.injected[("flip", flip * c)],
+              f"{st.dropped_edges} dropped rows")
+        check(moved == {"errors.io_retries": st.retries, "errors.quarantined_chunks": quarantines,
+                        "errors.invalid_edges": st.dropped_edges}, f"errors.* moved {moved}")
+        equiv = edges.copy()
+        equiv[bad * c:(bad + 1) * c] = n
+        row, _ = inner.flip_position(flip * c, c)
+        equiv[flip * c + row] = n
+        trusting = pipeline(equiv)
+        for i, what in ((0, "labels"), (1, "graph degrees"), (3, "Q")):
+            check(bits_equal(torch, got3[i].cpu(), trusting[i].cpu()),
+                  f"validated run: {what} differ from the trusting run on the equivalent array")
+        sg_equal(got3[2], trusting[2], "validated run")
+    log("resilience numbers " + json.dumps(out, default=str))
+    return out
+
+
 def run() -> int:
     import torch
 
@@ -2036,12 +2332,12 @@ def run() -> int:
     cap = Capture(torch)
     edges, delta = make_graph()
     with phase("main path"):
-        main_launches, main_wall, main_result, main_cfg = main_path(torch, np, cap, edges, delta)
+        main_launches, main_wall, main_result, main_cfg, pos_drift = main_path(
+            torch, np, cap, edges, delta)
     with phase("full path"):
         full_launches = full_path(torch, np, cap, edges, delta, main_wall)
     with phase("serve"):
         serve_phase(torch, np, cap, edges, main_result, main_cfg)
-    del edges, main_result
     with phase("launchers"):
         launcher_phase(np)
     with phase("timing"):
@@ -2053,6 +2349,9 @@ def run() -> int:
     with phase("consistency"):
         full_node_consistency(torch, np, full_nodes)
         consistency(torch, np)
+    with phase("resilience"):
+        resilience_phase(torch, np, cap, edges, main_result, main_cfg, main_wall, pos_drift, smi)
+    del edges, main_result
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ The system has no weights; what a run carries is configuration and state.
 ``config_from_reference`` turns any of the reference's ``ScodaConfig``,
 ``CMSConfig``, ``FA2Config``, ``BGVConfig``, ``StreamConfig``,
 ``RenderConfig`` or ``TileConfig`` into the port's, by duck typing on
-attributes — it never imports the reference package. Fields the port has
+attributes — it never imports the reference package (a ``StreamConfig``'s
+``validation`` policy becomes the port's ``ValidationPolicy``). Fields the port has
 no counterpart for (the reference's kernel ``backend`` knobs, its
 benchmark-only timing flags) are dropped. ``state_from_numpy`` builds port tensors
 from host arrays (the reference's state converted with ``np.asarray``).
@@ -23,6 +24,7 @@ from repro_torch.core.scoda import ScodaConfig
 from repro_torch.core.stream import StreamConfig
 from repro_torch.core.supergraph import Supergraph
 from repro_torch.render.raster import RenderConfig
+from repro_torch.resilience.validate import ValidationPolicy
 from repro_torch.serve.tiles import TileConfig
 
 # Attribute that identifies each config class, checked in this order.
@@ -51,6 +53,9 @@ def config_from_reference(cfg):
         value = getattr(cfg, f.name)
         if cls is BGVConfig and f.name in ("scoda", "cms", "layout"):
             value = config_from_reference(value)
+        if cls is StreamConfig and f.name == "validation" and value is not None:
+            value = ValidationPolicy(**{g.name: getattr(value, g.name)
+                                        for g in dataclasses.fields(ValidationPolicy)})
         kwargs[f.name] = value
     return cls(**kwargs)
 

@@ -11,9 +11,9 @@ detected communities (§4.3).
 Every edge-consuming stage runs through the streaming chunked-edge engine
 (core/stream.py): ``biggraphvis()`` processes the edge list as one chunk by
 default and as fixed-size chunks (device residency independent of |E|)
-when given a ``StreamConfig``. Both produce identical results.
-
-Not in this slice: checkpoint/resume.
+when given a ``StreamConfig``. Both produce identical results, and a run
+checkpointed at chunk boundaries resumes bit-identically after a kill
+(``checkpoint=``/``resume=``).
 """
 from __future__ import annotations
 
@@ -176,8 +176,13 @@ def biggraphvis(source, n_nodes: int, cfg: BGVConfig,
     array, an ``EdgeStore``, or a path to a ``.npy`` / ``.bin`` edge file or
     shard directory. ``stream=None`` feeds the whole edge list as a single
     chunk; a ``StreamConfig`` streams it in fixed-size chunks. Both produce
-    identical results. ``checkpoint``/``resume`` are not in this slice and
-    raise.
+    identical results.
+
+    ``checkpoint`` (a ``resilience.StreamCheckpointer``) and ``resume``
+    forward to the streaming engine (``core/stream.stream_pipeline``): the
+    edge-consuming stages persist their state at chunk boundaries and a
+    killed run restarts bit-identically from the newest checkpoint. The
+    layout and coloring run again after a resume.
     """
     device = resolve_device(device)
     tr = cfg.obs

@@ -1,19 +1,21 @@
-"""Synthetic graph generator (host-side, numpy): the planted-partition
-graph the tests and the chip smoke run on.
+"""Synthetic graph generators (host-side, numpy).
 
-A copy of the reference package's generator, so the port draws the same
+Copies of the reference package's generators, so the port draws the same
 edges from the same seed without importing it. The paper's SNAP graphs are
-not available offline; a planted-partition graph has the strong community
-structure that SCoDA is meant for.
+not available offline, so synthetic stand-ins cover the same structural
+regimes: planted-partition graphs (strong community structure, the regime
+SCoDA is meant for), preferential-attachment graphs (heavy-tailed degrees,
+the regime that stresses the degree threshold), G(n, p) and grid meshes.
 
-``planted_partition`` returns ``edges`` as an int32 ``[E, 2]`` array of
-undirected edges (each edge listed once, u != v) plus the planted labels.
+Every generator returns ``edges`` as an int32 ``[E, 2]`` array of
+undirected edges (each edge listed once, u != v); ``planted_partition``
+also returns the planted labels.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["planted_partition"]
+__all__ = ["planted_partition", "powerlaw_graph", "erdos_renyi", "grid_mesh"]
 
 
 def _sample_pairs_gnp(rng: np.random.Generator, n_pairs: int, p: float) -> np.ndarray:
@@ -67,6 +69,15 @@ def _pair_from_index(idx: np.ndarray, n: int) -> tuple[np.ndarray, np.ndarray]:
     return i, j
 
 
+def erdos_renyi(n: int, p: float, seed: int = 0) -> np.ndarray:
+    """G(n, p) with edges sampled by geometric skipping."""
+    rng = np.random.default_rng(seed)
+    n_pairs = n * (n - 1) // 2
+    idx = _sample_pairs_gnp(rng, n_pairs, p)
+    i, j = _pair_from_index(idx, n)
+    return np.stack([i, j], axis=1).astype(np.int32)
+
+
 def planted_partition(
     n: int,
     n_communities: int,
@@ -105,3 +116,34 @@ def planted_partition(
         edges = np.empty((0, 2), dtype=np.int32)
     rng.shuffle(edges)  # streaming order matters for SCoDA; randomize like the paper
     return edges, labels
+
+
+def powerlaw_graph(n: int, m: int = 4, seed: int = 0) -> np.ndarray:
+    """Barabási–Albert preferential attachment; heavy-tailed degrees.
+
+    New node t attaches to m targets sampled from the repeated-endpoints
+    list (the classic O(E) construction).
+    """
+    rng = np.random.default_rng(seed)
+    m = max(1, min(m, n - 1))
+    # Seed clique on m+1 nodes.
+    src0, dst0 = np.triu_indices(m + 1, k=1)
+    edges = [np.stack([src0, dst0], axis=1)]
+    rep = np.concatenate([src0, dst0]).astype(np.int64)
+    for t in range(m + 1, n):
+        targets = rng.choice(rep, size=2 * m)
+        targets = np.unique(targets)[:m]
+        e = np.stack([np.full(len(targets), t, dtype=np.int64), targets], axis=1)
+        edges.append(e)
+        rep = np.concatenate([rep, targets, np.full(len(targets), t, dtype=np.int64)])
+    out = np.concatenate(edges).astype(np.int32)
+    rng.shuffle(out)
+    return out
+
+
+def grid_mesh(nx: int, ny: int) -> np.ndarray:
+    """4-connected nx × ny grid mesh. Returns edges [E,2]."""
+    idx = np.arange(nx * ny).reshape(nx, ny)
+    right = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1)
+    down = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], axis=1)
+    return np.concatenate([right, down]).astype(np.int32)

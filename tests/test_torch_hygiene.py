@@ -55,15 +55,21 @@ def test_every_module_imports_without_jax_or_reference():
     walked = set(out.stdout.split()[:-1])
     for name in ("repro_torch.serve.tiles", "repro_torch.obs.meters", "repro_torch.obs.cli",
                  "repro_torch.launch.serve", "repro_torch.launch.render_runner",
-                 "repro_torch.launch.layout"):
+                 "repro_torch.launch.layout", "repro_torch.launch.stream_runner",
+                 "repro_torch.resilience", "repro_torch.resilience.checkpoint",
+                 "repro_torch.resilience.validate", "repro_torch.resilience.chaos",
+                 "repro_torch.resilience.fault_tolerance"):
         assert name in walked, name
 
 
 def test_public_surface_covers_the_reference():
     import repro
+    import repro.resilience
     import repro_torch
+    import repro_torch.resilience
 
     assert set(repro.__all__) <= set(repro_torch.__all__)
+    assert set(repro.resilience.__all__) <= set(repro_torch.resilience.__all__)
 
 
 @pytest.mark.parametrize("pattern", [r"\bjax\b", r"(?<![\w/])repro\."])
@@ -102,6 +108,8 @@ def test_device_none_raises_without_cuda(monkeypatch):
     ("serve", ["--nodes", "60", "--communities", "3", "--requests", "2"]),
     ("render_runner", ["--nodes", "60", "--communities", "3"]),
     ("layout", ["--edges", "synthetic:60:3"]),
+    ("stream_runner", ["--nodes", "60", "--communities", "3",
+                       "--checkpoint-dir", "ck"]),
 ])
 def test_launchers_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, launcher, argv):
     import importlib
@@ -114,20 +122,31 @@ def test_launchers_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, l
     assert not any(tmp_path.iterdir())  # nothing written
 
 
-def test_unported_knobs_raise_naming_the_roadmap():
+def test_unported_knobs_raise_naming_the_roadmap(tmp_path):
+    """Only the multi-device knobs are left unported: each raises naming
+    item 14. Checkpoint/resume and validated reads run."""
     import repro_torch
     from repro_torch.graph.generators import planted_partition
+    from repro_torch.resilience import StreamCheckpointer, ValidationPolicy
 
     edges, _ = planted_partition(60, 3, 0.3, 0.02, seed=0)
     cfg = repro_torch.default_config(60, len(edges), 3, iterations=2)
-    for kwargs in ({"checkpoint": object()}, {"resume": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            repro_torch.biggraphvis(edges, 60, cfg, device="cpu", **kwargs)
     for scfg in (repro_torch.StreamConfig(mesh=object()),
                  repro_torch.StreamConfig(shard_detect=True),
-                 repro_torch.StreamConfig(validation=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                 repro_torch.StreamConfig(shard_layout=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
             repro_torch.biggraphvis(edges, 60, cfg, scfg, device="cpu")
+    want = repro_torch.biggraphvis(edges, 60, cfg, device="cpu")
+    ck = StreamCheckpointer(str(tmp_path))
+    for kwargs in ({"checkpoint": ck}, {"checkpoint": ck, "resume": True},
+                   {"resume": str(tmp_path)}):
+        got = repro_torch.biggraphvis(edges, 60, cfg, device="cpu", **kwargs)
+        np.testing.assert_array_equal(got.labels, want.labels)
+    assert ck.saves > 0
+    got = repro_torch.biggraphvis(edges, 60, cfg, repro_torch.StreamConfig(
+        chunk_size=64, validation=ValidationPolicy()), device="cpu")
+    np.testing.assert_array_equal(got.labels, want.labels)
+    assert got.stream.dropped_edges == 0 and got.stream.quarantined_chunk_ids == []
 
 
 def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():

@@ -1,7 +1,9 @@
 """The port's launchers (``repro_torch.launch``) and the edge-store CLI on
 the CPU at a tiny size: each ``main([... "--device", "cpu"])`` writes its
 image, span trace and metrics dump; ``load_edges`` equals the reference's;
-the converter round-trips npy → bin → shards, readable by both packages."""
+the converter round-trips npy → bin → shards, readable by both packages;
+``stream_runner`` streams equal to one shot, and a run killed at a chunk
+boundary resumes to the same result."""
 import json
 import re
 
@@ -15,7 +17,8 @@ from repro.data import edge_store as jstore  # noqa: E402
 from repro.launch.layout import load_edges as jload_edges  # noqa: E402
 
 from repro_torch.data import edge_store  # noqa: E402
-from repro_torch.launch import layout, render_runner, serve  # noqa: E402
+from repro_torch.launch import layout, render_runner, serve, stream_runner  # noqa: E402
+from repro_torch.resilience import KillSwitch, SimulatedPreemption, StreamCheckpointer  # noqa: E402
 from repro_torch.obs.trace import get_tracer, set_tracer  # noqa: E402
 from repro_torch.render.png import read_png  # noqa: E402
 
@@ -110,3 +113,62 @@ def test_edge_store_cli_round_trips(tmp_path, capsys):
         np.testing.assert_array_equal(jstore_.read(0, jstore_.n_edges), edges)
     with pytest.raises(SystemExit):
         edge_store.main(["convert"])
+
+
+_SMALL = ["--nodes", "600", "--communities", "6", "--chunk", "512", "--block-size", "128",
+          "--iterations", "4", "--rounds", "2"]
+
+
+@pytest.mark.parametrize("source", ["memory", "npy"])
+def test_stream_runner_streams_equal_to_one_shot(tmp_path, capsys, source):
+    stream_runner.main([*_SMALL, "--source", source, *_obs(tmp_path)])
+    out = capsys.readouterr().out
+    assert "streamed == one-shot: True" in out
+    assert "passes=3" in out and "peak device bytes" in out
+    _check_obs(tmp_path, "stream_pipeline", "detect", "supergraph")
+    assert "errors.quarantined_chunks 0" in (tmp_path / "metrics.txt").read_text()
+
+
+def test_stream_runner_resumes_after_a_kill(tmp_path, capsys):
+    """A run killed through ``StreamRunner.run`` at a detect boundary, then
+    ``--resume`` from the launcher, equals the one-shot run."""
+    from dataclasses import replace
+
+    from repro_torch.core.pipeline import biggraphvis, default_config
+    from repro_torch.core.stream import StreamConfig
+    from repro_torch.graph import mode_degree, planted_partition
+
+    n = 600
+    edges, _ = planted_partition(n, 6, 0.12, 2e-4, seed=5)
+    cfg = default_config(n, len(edges), mode_degree(edges, n), rounds=2, iterations=4)
+    cfg = replace(cfg, scoda=replace(cfg.scoda, block_size=128))
+    runner = stream_runner.StreamRunner(
+        cfg, stream_runner.StreamRunnerConfig(stream=StreamConfig(chunk_size=512)),
+        device="cpu")
+    ckdir = str(tmp_path / "ck")
+    ck = StreamCheckpointer(ckdir, every_chunks=2, on_boundary=KillSwitch(5))
+    with pytest.raises(SimulatedPreemption):
+        runner.run(edges, n, checkpoint=ck)
+    assert ck.saves == 3
+    resumed = runner.run(edges, n, checkpoint=StreamCheckpointer(ckdir, every_chunks=2),
+                         resume=True)
+    want = biggraphvis(edges, n, cfg, device="cpu")
+    assert resumed.stream.resumed_at == "detect:r0:c6"
+    np.testing.assert_array_equal(resumed.labels, want.labels)
+    np.testing.assert_array_equal(resumed.sizes, want.sizes)
+    stream_runner.main([*_SMALL, "--checkpoint-dir", ckdir, "--checkpoint-every", "2",
+                        "--resume", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "resumed from checkpoint at" in out
+    assert "streamed == one-shot: True" in out
+
+
+@pytest.mark.parametrize("shard", ["chunks", "detect", "layout", "all"])
+def test_stream_runner_shard_names_the_roadmap(shard):
+    with pytest.raises(NotImplementedError, match="item 14"):
+        stream_runner.main([*_SMALL, "--shard", shard, "--device", "cpu"])
+
+
+def test_stream_runner_resume_needs_a_checkpoint_dir():
+    with pytest.raises(SystemExit, match="--checkpoint-dir"):
+        stream_runner.main([*_SMALL, "--resume", "--device", "cpu"])
