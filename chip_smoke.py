@@ -16,7 +16,9 @@ Phases, each printing its wall seconds:
                shapes: K1, K3, K4, K6, K8 bitwise (K1, K3, K4, K6 and K8
                also run to run), K2 and K5 within their tolerances and
                bitwise run to run (K2 also near contact, where
-               eff = d − ri − rj cancels), K7 bitwise against its plain
+               eff = d − ri − rj cancels), K2's and K6's row entries
+               bitwise the same rows of their full launches (halves,
+               quarters, ragged ranges, one row), K7 bitwise against its plain
                version on the CPU, within its bound of the one on the card,
                and bitwise run to run. K1's cases hold merges at capacity,
                with all-duplicate, all-new and all-sentinel chunks, −0.0
@@ -73,13 +75,23 @@ Phases, each printing its wall seconds:
                is on disk: it must exit 0 preempted; run again with
                ``--resume``, it must report the cursor it resumed at and
                stream equal to one shot.
-8. timing    — each kernel entry on the inputs its path gave it (recorded
+8. multi-device — the multi-device paths, ranks of one process each
+               sharing the card under gloo (``multi_device_phase``): the
+               main path on 2 ranks with ``shard_detect`` and
+               ``shard_layout`` (every integer output bitwise phase 4's,
+               positions within 1e-4·max|pos|, K1, K2's row entry and K8
+               launched on both ranks, K3 and K4 on rank 0 for the render);
+               the full graph's grid force pass on 2 ranks (20 iterations;
+               K5, K6's row entry and K7 on both ranks); ``stream_runner
+               --shard all`` on 4 ranks under ``torch.distributed.run``; a
+               4-rank checkpoint resumed on one rank, bitwise.
+9. timing    — each kernel entry on the inputs its path gave it (recorded
                in phases 4 and 5; K3 on both paths): held against its plain
                version again, and timed with CUDA events beside the plain
                version, one PyTorch library call where there is one, and its
                bound. K1's generic scatter and K8's hashed entry (on no
                path) are timed on the main path's K1 rows and CMS input.
-9. consistency — the full path's node accumulator (685,230 small disks)
+10. consistency — the full path's node accumulator (685,230 small disks)
                from K3's disk entry against the plain version on the card;
                a 3,000-node graph through ``biggraphvis`` and an 8,000-node
                graph through ``full_layout_colored`` on the card and on the
@@ -87,7 +99,7 @@ Phases, each printing its wall seconds:
                accumulators bitwise, positions within tolerance; the
                3,000-node graph from a ``.npy`` file through the pinned
                staging ring, bitwise.
-10. resilience — on phase 4's graph and config, streamed from an ``.npy``
+11. resilience — on phase 4's graph and config, streamed from an ``.npy``
                store through the pinned staging ring: a run checkpointed
                at round boundaries is killed in detect (round 2, chunk 50
                of 101) and resumed through ``biggraphvis(..., resume=True)``
@@ -158,6 +170,24 @@ STREAM_RUNNER_ARGS = ["--nodes", "20000", "--communities", "200", "--chunk", "10
 # own run-to-run drift and the resumed run's were both 0.0; the phase prints
 # both beside this tolerance.
 RESUME_POS_TOL = 1e-2
+# The multi-device phase: ranks of one process each, sharing the card under
+# gloo (NCCL refuses two ranks on one card). The grid force pass runs the
+# full graph for 20 iterations, cut from the full path's 500 for time; the
+# D = 4 runs take the stream launcher's size. A spawned group that is not
+# done after MD_TIMEOUT seconds is killed and fails the phase.
+MD_RANKS, MD_GRID_ITERATIONS, MD_RUNNER_RANKS, MD_TIMEOUT = 2, 20, 4, 600
+MD_SAVE_EVERY = 8  # chunks between the 4-rank run's checkpoints
+# The grid force pass's positions, sharded against single-rank, per
+# max|pos|. At 685,230 nodes the single-rank layout is not bitwise from run
+# to run on the card (the attraction's index_add_ adds with float atomics):
+# two single-rank runs of 20 iterations differed by 4.3e-4·max|pos| on an
+# H100 80GB HBM3 at 700 W, above 1e-4. So the sharded run is held to the
+# tolerance of runs that differ by those atomics (RESUME_POS_TOL), the
+# single-rank pair's difference is printed beside it, and the sharding
+# itself is held by the first iteration's forces: gravity and repulsion
+# bitwise, the total within 1e-6 of each row.
+MD_GRID_POS_TOL = RESUME_POS_TOL
+MD_RUNNER_ARGS = ["--shard", "all", "--backend", "gloo"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
 # outside the tensor cores (a fused multiply-add counts as two operations).
@@ -215,6 +245,9 @@ KERNELS = {
                         "scatter_combine", None),
     "repulsion_nbody": ("repulsion_nbody", "src/repro/kernels/repulsion/nbody.py:84",
                         "repulsion_nbody", "main"),
+    # K2's row range: the owned targets of the multi-device layout.
+    "repulsion_rows": ("repulsion_nbody", "src/repro/kernels/repulsion/nbody.py:84",
+                       "repulsion_rows", "multi"),
     # K3: the raw entry (edge chunks) and the small-disk entry (node pass).
     "count_scatter": ("count_scatter", f"{_SPLAT}:94", "count_scatter", "main"),
     "count_scatter_full": ("count_scatter", f"{_SPLAT}:94", "count_scatter", "full"),
@@ -223,6 +256,9 @@ KERNELS = {
     "disk_accum": ("disk_accum", f"{_SPLAT}:167", "disk_accum", "main"),
     "far_field": ("far_field", "src/repro/kernels/grid/tiled.py:96", "far_field", "full"),
     "near_field": ("near_field", "src/repro/kernels/grid/tiled.py:188", "near_field", "full"),
+    # K6's row range: the owned rows of the multi-device grid force pass.
+    "near_field_rows": ("near_field", "src/repro/kernels/grid/tiled.py:188",
+                        "near_field_rows", "multi"),
     "segment_sum": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
                     "segment_sum", "full"),
     # K8: keys hashed in the kernel (core.cms.update), and buckets given.
@@ -307,6 +343,17 @@ def k2_row_scale(torch, pos, mass, kr: float, radii, chunk: int = 1024):
         out[:, 0] += (mag * dx).abs().sum(1)  # the self pair has dx = dy = 0
         out[:, 1] += (mag * dy).abs().sum(1)
     return out
+
+
+def k_row_ranges(n: int) -> list[tuple[int, int]]:
+    """Row ranges ``(i0, nl)`` of n for the row entries' checks: the halves
+    and quarters that 2 and 4 ranks own, a ragged range that starts and
+    ends inside a block, and the last row."""
+    out = [(0, n // 2), (n // 2, n - n // 2), (n // 4, n // 4), (3 * n // 4, n - 3 * n // 4)]
+    if n > 700:
+        out.append((257, n - 700))
+    out.append((n - 1, 1))
+    return [(i0, nl) for i0, nl in out if nl > 0]
 
 
 def k2_compare(torch, got, want, scale):
@@ -456,6 +503,7 @@ def kernel_checks(torch, np):
         got = rep_ops.repulsion(p, m, 80.0, radii=r)
         check(torch.equal(got, rep_ops.repulsion(p, m, 80.0, radii=r)),
               f"K2 {name}: two launches differ")
+        k2_rows_case(name, p, m, r, got)
         want = repulsion_chunked(p, m, 80.0, radii=r)
         ratio, err, fmax, fmed = k2_compare(torch, got, want,
                                             k2_row_scale(torch, p, m, 80.0, r))
@@ -463,6 +511,18 @@ def kernel_checks(torch, np):
             f"median|f| {fmed}")
         check(ratio <= K2_TOL, f"K2 {name}: {ratio} > {K2_TOL}")
         return ratio
+
+    def k2_rows_case(name, p, m, r, full):
+        """K2's row entry: the halves and quarters a 2- and 4-rank layout
+        owns, ragged and unaligned ranges and one row, bitwise the same
+        rows of the full launch and run to run."""
+        n = p.shape[0]
+        for i0, nl in k_row_ranges(n):
+            got = rep_ops.repulsion_rows(p, m, i0, nl, 80.0, radii=r)
+            check(bits_equal(torch, got, full[i0:i0 + nl]),
+                  f"K2 rows {name} [{i0}, {i0 + nl}): differ from the full launch's rows")
+            check(bits_equal(torch, got, rep_ops.repulsion_rows(p, m, i0, nl, 80.0, radii=r)),
+                  f"K2 rows {name} [{i0}, {i0 + nl}): two launches differ")
 
     worst = 0.0
     for n, use_radii, half in ((1, True, 500), (255, True, 500), (257, False, 500),
@@ -497,7 +557,8 @@ def kernel_checks(torch, np):
     log(f"K2 near contact: d − ri − rj in [{float(eff.min())}, {float(eff.max())}], "
         f"{int((eff < 1e-4).sum())} of {k} pairs clamped to EPS")
     worst = max(worst, k2_case("near contact", p, m, rr))
-    log(f"K2 repulsion_nbody: worst |Δf_i|/Σ_j|f_ij| {worst} (tolerance {K2_TOL})")
+    log(f"K2 repulsion_nbody: worst |Δf_i|/Σ_j|f_ij| {worst} (tolerance {K2_TOL}); "
+        "its row entry bitwise the full launch's rows and run to run on every case")
 
     # K3's raw entry: negatives, one hot pixel, every row dropped, the edge
     # pass's shape (runs of 8 samples, most of them one pixel), a row count
@@ -675,6 +736,7 @@ def grid_kernel_checks(torch, np, rng):
     inputs (the cases of the reference's kernel tests, and more)."""
     from repro_torch.kernels.grid import ops as grid_ops
     from repro_torch.kernels.grid.ref import bin_and_sort, far_field_ref, near_field_ref
+    from repro_torch.kernels.grid.ref import near_field_rows as near_field_rows_ref
 
     dev = torch.device("cuda")
 
@@ -865,7 +927,20 @@ def grid_kernel_checks(torch, np, rng):
         check(torch.equal(got, want), f"K6 {name}: kernel differs from plain version")
         if w == 0:
             check(not got.any(), "K6 window 0: forces not zero")
-    log(f"K6 near_field: bitwise on {len(cases6)} cases, and run to run")
+        # K6's row entry: bitwise the full launch's rows, the plain row form
+        # and itself run to run.
+        for i0, nl in k_row_ranges(n):
+            rows = grid_ops.near_field_rows(pos_s, mass_s, cell_s, kr, w, i0, nl)
+            check(bits_equal(torch, rows, got[i0:i0 + nl]),
+                  f"K6 rows {name} [{i0}, {i0 + nl}): differ from the full launch's rows")
+            check(bits_equal(torch, rows, grid_ops.near_field_rows(
+                pos_s, mass_s, cell_s, kr, w, i0, nl)),
+                f"K6 rows {name} [{i0}, {i0 + nl}): two launches differ")
+            check(bits_equal(torch, rows, near_field_rows_ref(
+                pos_s, mass_s, cell_s, kr, w, i0, nl)),
+                f"K6 rows {name} [{i0}, {i0 + nl}): differ from the plain row form")
+    log(f"K6 near_field: bitwise on {len(cases6)} cases, and run to run; its row entry "
+        "bitwise the full launch's rows, the plain row form and run to run")
 
     # K7: negative and out-of-range ids (unsorted: the wrapper sorts), the
     # trash tail, one segment holding every row, all rows dropped, wide
@@ -1656,7 +1731,7 @@ def profile_busy(np, path):
             "device_busy_share": busy / (t1 - t0) if t1 > t0 else None}
 
 
-# ------------------------------------------------------------- phase 8
+# ------------------------------------------------------------- phase 9
 def bbox_pixels(torch, cx, cy, r, live, h, w) -> int:
     """Pixels in the live disks' own bounding boxes, clipped to the image:
     the pixels a disk kernel must test."""
@@ -1668,19 +1743,23 @@ def bbox_pixels(torch, cx, cy, r, live, h, w) -> int:
     return int((span(cx, w) * span(cy, h))[live].sum())
 
 
-def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
+def time_kernels(torch, np, cap: Capture, main_launches, full_launches, multi_launches):
     """One row per kernel entry and path (``KERNELS``). ``launches`` is the
     entry's count from the measured run of its path: the main path for K1,
     K2, K3, K4 and K8's keys-in entry, the full path for K3 again and
-    K5–K7; K1's generic scatter_combine and K8's hashed entry are on no
-    path (their launches are 0). ``library_ms`` is the time of one PyTorch
+    K5–K7, the multi-device phase (rank 0) for K2's and K6's row entries;
+    K1's generic scatter_combine and K8's hashed entry are on no path
+    (their launches are 0). The row entries are timed on the range rank 1
+    of 2 owns, of the single-rank paths' recorded inputs (the same arrays
+    the 2-rank run hands them). ``library_ms`` is the time of one PyTorch
     call computing the same function, or null where there is none;
     ``library`` names the call, or says there is none."""
     from repro_torch.kernels.merge import ops as merge_ops
     from repro_torch.kernels.merge.ref import merge_place_ref, scatter_combine_ref
     from repro_torch.kernels.raster import ops as raster_ops
     from repro_torch.kernels.raster.ref import disk_accum_into_ref, disk_accum_ref
-    from repro_torch.kernels.repulsion.ref import repulsion_chunked
+    from repro_torch.kernels.repulsion import ops as rep_ops
+    from repro_torch.kernels.repulsion.ref import repulsion_chunked, repulsion_chunked_rows
 
     rows = []
 
@@ -1688,7 +1767,8 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
         bound_b = bytes_ / PEAK_BYTES_PER_S * 1e3
         bound_o = ops / PEAK_F32_PER_S * 1e3
         source, replaces, counter, path = KERNELS[name]
-        launches = {"main": main_launches, "full": full_launches}.get(path, {})
+        launches = {"main": main_launches, "full": full_launches,
+                    "multi": multi_launches}.get(path, {})
         r = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}.cu", "replaces": replaces,
@@ -1767,6 +1847,18 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches):
         cuda_ms(torch, lambda: repulsion_chunked(p, m, kr, radii=radii), 2),
         None, err, n2 * 24, K2_OPS_PER_PAIR[radii is not None] * n2 * n2,
         f"n={n2} radii={radii is not None}")
+    # K2's row entry on rank 1's half of the same input: bitwise the full
+    # launch's rows. It reads every source once and writes its rows.
+    i0, nl = n2 // MD_RANKS, n2 - n2 // MD_RANKS
+    fr2 = rep_ops.repulsion_rows(p, m, i0, nl, kr, radii=radii)
+    check(bits_equal(torch, fr2, fk[i0:i0 + nl]),
+          "K2 rows on the main-path input differ from the full launch's rows")
+    row("repulsion_rows",
+        cuda_ms(torch, lambda: rep_ops.repulsion_rows(p, m, i0, nl, kr, radii=radii), REPS),
+        cuda_ms(torch, lambda: repulsion_chunked_rows(p, m, i0, nl, kr, radii=radii), 2),
+        None, float((fr2 - fr[i0:i0 + nl]).abs().max()), n2 * 16 + nl * 8,
+        K2_OPS_PER_PAIR[radii is not None] * nl * n2,
+        f"n={n2} rows [{i0}, {i0 + nl}) radii={radii is not None}")
 
     # K3's raw entry on one edge chunk of each path, its disk entry on each
     # path's node pass.
@@ -1868,7 +1960,9 @@ def time_grid_kernels(torch, np, cap: Capture, row):
     on the main path's one CMS update."""
     from repro_torch.kernels.cms import ops as cms_ops
     from repro_torch.kernels.cms.ref import cms_update_ref
+    from repro_torch.kernels.grid import ops as grid_ops
     from repro_torch.kernels.grid.ref import far_field_ref, near_field_ref
+    from repro_torch.kernels.grid.ref import near_field_rows as near_field_rows_ref
     from repro_torch.kernels.segment.ref import segment_sum_ref
 
     # K5, held per row against Σ_j |f_ij|.
@@ -1908,6 +2002,32 @@ def time_grid_kernels(torch, np, cap: Capture, row):
         cuda_ms(torch, lambda: near_field_ref(pos_s, mass_s, cell_s, kr, w), 3),
         None, 0.0, n * 24, slots + K6_OPS_PER_PAIR * pairs,
         f"n={n} W={w} band_slots={slots} same_cell_pairs={pairs}")
+    # K6's row entry on rank 1's half of the same input. It needs its rows
+    # and their ±W band (16 bytes each), and writes its rows; slots and
+    # same-cell pairs are those of its rows.
+    i0, nl = n // MD_RANKS, n - n // MD_RANKS
+    full6 = k6(pos_s, mass_s, cell_s, kr, w)
+    got6 = grid_ops.near_field_rows(pos_s, mass_s, cell_s, kr, w, i0, nl)
+    check(bits_equal(torch, got6, full6[i0:i0 + nl]),
+          "K6 rows on the full-path input differ from the full launch's rows")
+    check(bits_equal(torch, got6, near_field_rows_ref(pos_s, mass_s, cell_s, kr, w, i0, nl)),
+          "K6 rows differ from the plain row form on the full-path input")
+    idx = torch.arange(i0, i0 + nl, device=pos_s.device)
+    rslots = rpairs = 0
+    for k in range(-w_eff, w_eff + 1):
+        if k == 0:
+            continue
+        j = idx + k
+        ok = (j >= 0) & (j < n)
+        rslots += int(ok.sum())
+        rpairs += int((ok & (cell_s[j.clamp(0, n - 1)] == cell_s[idx])).sum())
+    band = min(n, i0 + nl + w_eff) - max(0, i0 - w_eff)
+    row("near_field_rows",
+        cuda_ms(torch, lambda: grid_ops.near_field_rows(pos_s, mass_s, cell_s, kr, w, i0, nl),
+                REPS),
+        cuda_ms(torch, lambda: near_field_rows_ref(pos_s, mass_s, cell_s, kr, w, i0, nl), 3),
+        None, 0.0, band * 16 + nl * 8, rslots + K6_OPS_PER_PAIR * rpairs,
+        f"n={n} rows [{i0}, {i0 + nl}) W={w} band_slots={rslots} same_cell_pairs={rpairs}")
 
     # K7: bitwise against its plain version on the CPU and run to run,
     # within its bound of the card's plain version. The library yardstick
@@ -1964,7 +2084,7 @@ def time_grid_kernels(torch, np, cap: Capture, row):
         None, 0.0, n8 * 8 + 2 * sketch.numel() * 4, int(kept.sum()), shape)
 
 
-# ------------------------------------------------------------- phase 9
+# ------------------------------------------------------------- phase 10
 def full_node_consistency(torch, np, recorded):
     """The full path's node pass (its recorded small disks, through the
     renderer's ``_node_pass``) against the plain version on the card, which
@@ -2088,7 +2208,341 @@ def grid_consistency(torch, np):
           f"(> 1e-4·{scale}; {moved} nodes end in another cell)")
 
 
-# ------------------------------------------------------------- phase 10
+# ------------------------------------------------------------- phase 8
+def md_rank(mesh, npy: str, out_dir: str, delta: int) -> None:
+    """One rank of the multi-device phase, a process of its own (spawned by
+    ``multi_device_phase``): the main path with the edge passes and the
+    supergraph layout spread over the ranks, then the full graph's grid
+    force pass. Writes ``out_dir/rank{r}.npz`` and ``.json``."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.core import cms as cms_lib
+    from repro_torch.core import forceatlas2 as fa2
+    from repro_torch.kernels import build
+    from repro_torch.render import raster
+    from repro_torch.resilience import StreamCheckpointer, latest_step, load_arrays
+
+    dev, n = mesh.device, NODES
+    edges_np = np.load(npy)
+    cfg = repro_torch.default_config(n, len(edges_np), delta, iterations=ITERATIONS)
+    scfg = repro_torch.StreamConfig(chunk_size=MAIN_CHUNK, mesh=mesh, shard_detect=True,
+                                    shard_layout=True)
+    ckdir = os.path.join(out_dir, "ckpt")
+    ck = StreamCheckpointer(ckdir, every_chunks=0)
+    info = {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend}
+    arrays = {}
+
+    def zero():
+        for k in build.LAUNCHES:
+            build.LAUNCHES[k] = 0
+
+    # 1. The main path, counters set to 0 just before and read just after.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    t0 = time.perf_counter()
+    res = repro_torch.biggraphvis(npy, n, cfg, scfg, checkpoint=ck)
+    if mesh.rank == 0:
+        image, rstats = res.render(os.path.join(out_dir, "md.png"))
+        frac, counts = raster.image_summary(image)
+        info["image"] = {"non_background": frac, "colors": int((counts > 0).sum()),
+                         "render_s": res.timings["render_s"]}
+    torch.cuda.synchronize()
+    info["wall_s"] = time.perf_counter() - t0
+    info["launches"] = dict(build.LAUNCHES)
+    info["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    info["timings"] = res.timings
+    st = res.stream
+    info["stream"] = {"devices": st.devices, "peak_local_bytes": st.peak_local_bytes,
+                      "peak_device_bytes": st.peak_device_bytes, "chunks": st.chunks,
+                      "saves": ck.saves}
+    sg = res.supergraph
+    arrays.update(labels=res.labels, positions=res.positions, sizes=res.sizes,
+                  sg_edges=sg.edges.cpu().numpy(), sg_weights=sg.weights.cpu().numpy(),
+                  counts=np.array([res.n_supernodes, res.n_superedges]),
+                  q=np.float64(res.modularity))
+    # The CMS sketch, through the sharded update the main path's sizing
+    # calls, on the graph degrees the run checkpointed (every rank reads
+    # rank 0's file once the save's barrier has passed).
+    final, _ = load_arrays(ckdir, latest_step(ckdir))
+    gdeg = torch.as_tensor(final["deg"], device=dev)
+    sketch = cms_lib.sharded_update(cms_lib.init(cfg.cms, device=dev),
+                                    sg.labels.to(dev), gdeg.to(torch.float32), cfg.cms, mesh)
+    arrays["sketch"] = sketch.cpu().numpy()
+
+    # 2. The grid force pass on the full graph: the first iteration's
+    # gathered forces (with and without the attraction's float atomics),
+    # then MD_GRID_ITERATIONS iterations.
+    lcfg = fa2.FA2Config(iterations=MD_GRID_ITERATIONS, repulsion="grid", grid_size=GRID,
+                         grid_window=WINDOW, use_radii=False)
+    pos0 = fa2.init_positions(n, torch.Generator().manual_seed(lcfg.seed), device=dev)
+    edges = torch.as_tensor(edges_np, device=dev)
+    w = torch.ones(edges.shape[0], device=dev)
+    mass = gdeg.to(torch.float32) + 1.0
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m, p, radii, (src, dst, w2) = fa2._layout_inputs(edges, w, mass, n, lcfg, pos0, dev)
+    arrays["forces"] = fa2.force_pass(m, radii, src, dst, w2, n, lcfg, mesh)(p, 0).cpu().numpy()
+    arrays["forces_no_attraction"] = fa2.force_pass(
+        m, radii, src, dst, torch.zeros_like(w2), n, lcfg, mesh)(p, 0).cpu().numpy()
+    pos, _, iters = fa2.layout_sharded(edges, w, mass, n, lcfg, mesh, pos0=pos0)
+    torch.cuda.synchronize()
+    info["grid_s"] = time.perf_counter() - t0
+    info["grid_launches"] = dict(build.LAUNCHES)
+    info["grid_iterations"] = iters
+    arrays["grid_positions"] = pos.cpu().numpy()
+    np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
+def md_resume_rank(mesh, ckdir: str, kill_at: int) -> None:
+    """One of MD_RUNNER_RANKS ranks streaming the stream launcher's graph
+    with a checkpoint every MD_SAVE_EVERY chunks, killed at boundary
+    ``kill_at``."""
+    from repro_torch.resilience import KillSwitch, SimulatedPreemption, StreamCheckpointer
+
+    ck = StreamCheckpointer(ckdir, every_chunks=MD_SAVE_EVERY,
+                            on_boundary=KillSwitch(kill_at))
+    try:
+        md_runner_pipeline(mesh, checkpoint=ck)
+    except SimulatedPreemption:
+        return
+    raise RuntimeError(f"rank {mesh.rank} was not killed at boundary {kill_at}")
+
+
+def md_runner_pipeline(mesh=None, **kw):
+    """``stream_pipeline`` on the stream launcher's graph and chunking
+    (``STREAM_RUNNER_ARGS``), sharded over ``mesh`` when one is given."""
+    import repro_torch
+    from repro_torch.graph.generators import planted_partition
+    from repro_torch.graph.utils import mode_degree
+
+    n = 20000
+    edges, _ = planted_partition(n, 200, 0.12, 2e-4, seed=5)
+    cfg = repro_torch.default_config(n, len(edges), mode_degree(edges, n))
+    scoda = dataclasses.replace(cfg.scoda, block_size=1024)
+    scfg = repro_torch.StreamConfig(chunk_size=1024, mesh=mesh, shard_detect=mesh is not None)
+    return repro_torch.stream_pipeline(edges, n, scoda, cfg.cms, cfg.s_cap,
+                                       cfg.max_super_edges, scfg,
+                                       device=None if mesh is not None else "cuda", **kw)
+
+
+def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
+    """The multi-device paths on one card, D ranks under gloo.
+
+    1. ``biggraphvis`` + ``render`` (rank 0) on phase 4's graph and config
+       with ``StreamConfig(mesh, shard_detect=True, shard_layout=True)`` on
+       MD_RANKS ranks, streamed from an ``.npy`` store (each rank reads its
+       own rows of every chunk) with a round-boundary checkpointer, whose
+       files give back the SCoDA and graph degrees: every rank bitwise
+       phase 4 on labels, degrees, graph degrees, supergraph, sizes, the
+       CMS sketch and Q, positions within 1e-4·max|pos|, ``devices`` = D,
+       K1, K2's row entry and K8 launched on every rank, K3 (and K4 where
+       phase 4 launched it) on rank 0.
+    2. The grid force pass on the full graph (grid 64, window 32, 20
+       iterations from a seeded start): the first iteration's gathered
+       forces without the attraction bitwise the single-rank pass's, with
+       it within 1e-6 of each row's |f| (the attraction's ``index_add_``
+       adds with float atomics on the card), positions within
+       MD_GRID_POS_TOL·max|pos| of the single-rank layout, beside two
+       single-rank runs' own difference; K5, K6's row entry and K7
+       launched on every rank.
+    3. ``stream_runner --shard all --backend gloo`` under
+       ``torch.distributed.run`` on MD_RUNNER_RANKS ranks: exit 0,
+       ``streamed == one-shot: True``.
+    4. MD_RUNNER_RANKS ranks stream the stream launcher's graph with a
+       checkpoint every chunk and are killed mid-round; one rank resumes
+       from their checkpoint, bitwise an uninterrupted one-rank run.
+
+    Returns rank 0's launches (the ``kernels`` line's counts for the row
+    entries)."""
+    import os
+
+    from repro_torch.core import cms as cms_lib
+    from repro_torch.core import forceatlas2 as fa2
+    from repro_torch.core.scoda import detect_communities
+    from repro_torch.data.edge_store import write_npy
+    from repro_torch.launch.mesh import spawn_local
+    from repro_torch.resilience import StreamCheckpointer, load_arrays
+
+    n, d = NODES, MD_RANKS
+    out = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        npy = str(write_npy(tmp / "edges.npy", edges))
+        t0 = time.perf_counter()
+        spawn_local(md_rank, d, backend="gloo", init_file=str(tmp / "store"),
+                    args=(npy, str(tmp), cfg.scoda.degree_threshold), timeout=MD_TIMEOUT)
+        out["spawn_s"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(d):
+            with np.load(tmp / f"rank{r}.npz") as z:
+                arrays = {k: z[k] for k in z.files}
+            info = json.loads((tmp / f"rank{r}.json").read_text())
+            ranks.append((arrays, info))
+        ckdir = tmp / "ckpt"
+        steps = sorted(int(f.name[5:13]) for f in ckdir.glob("step_*.npz"))
+        final, meta = load_arrays(str(ckdir), steps[-1])
+        detect, dmeta = load_arrays(str(ckdir), steps[-2])
+    check(meta["phase"] == "supergraph" and dmeta["phase"] == "detect"
+          and dmeta["round"] == cfg.scoda.rounds,
+          f"checkpoints {meta} / {dmeta}: not the end of detect and of the pass")
+
+    # Single-rank references on the card: phase 4's result, the SCoDA
+    # degrees of a one-shot detect, graph degrees counted on the host, the
+    # CMS sketch of phase 4's labels.
+    dev = torch.device("cuda")
+    gdeg = np.bincount(edges.reshape(-1), minlength=n).astype(np.int32)
+    e_dev = torch.as_tensor(edges, device=dev)
+    labels1, sdeg1 = detect_communities(e_dev, n, cfg.scoda)
+    sketch1 = cms_lib.update(cms_lib.init(cfg.cms, device=dev),
+                             torch.as_tensor(res.labels, device=dev),
+                             torch.as_tensor(gdeg, device=dev).to(torch.float32), cfg.cms)
+    check(np.array_equal(detect["gdeg"][:n], gdeg) and np.array_equal(final["deg"], gdeg),
+          "multi-device: graph degrees differ from a host count")
+    check(np.array_equal(detect["deg"][:n], sdeg1.cpu().numpy()),
+          "multi-device: SCoDA degrees differ from the single-rank detect")
+    check(np.array_equal(final["labels"], labels1.cpu().numpy()),
+          "multi-device: SCoDA labels differ from the single-rank detect")
+    scale = float(np.abs(res.positions).max())
+    sg = res.supergraph
+    for r, (a, info) in enumerate(ranks):
+        for k, want in (("labels", res.labels), ("sizes", res.sizes),
+                        ("sg_edges", sg.edges.numpy()), ("sg_weights", sg.weights.numpy()),
+                        ("counts", np.array([res.n_supernodes, res.n_superedges])),
+                        ("q", np.float64(res.modularity)),
+                        ("sketch", sketch1.cpu().numpy())):
+            check(np.array_equal(np.atleast_1d(a[k]).view(np.uint8),
+                                 np.atleast_1d(np.asarray(want, a[k].dtype)).view(np.uint8)),
+                  f"multi-device rank {r}: {k} differs from the single-rank run")
+        perr = float(np.abs(a["positions"] - res.positions).max())
+        info["positions_max_abs_diff"] = perr
+        check(perr <= 1e-4 * scale, f"multi-device rank {r}: positions differ by {perr} "
+              f"(> 1e-4·{scale})")
+        check(info["stream"]["devices"] == d, f"rank {r}: StreamStats.devices "
+              f"{info['stream']['devices']}, expected {d}")
+        la = info["launches"]
+        for k in ("merge_scatter", "repulsion_rows"):
+            check(la[k] > 0, f"multi-device rank {r}: {k} was not launched")
+        check(la["cms_update_keys"] == 1, f"multi-device rank {r}: K8 launched "
+              f"{la['cms_update_keys']} times")
+        check(la["repulsion_nbody"] == 0, f"multi-device rank {r}: the full K2 launched")
+        log(f"multi-device rank {r}: launches K1 {la['merge_scatter']}, K2 rows "
+            f"{la['repulsion_rows']}, K8 {la['cms_update_keys']}; K3 {la['count_scatter']} "
+            f"+ {la['count_disks']}, K4 {la['disk_accum']}")
+        ga = info["grid_launches"]
+        for k in ("far_field", "near_field_rows", "segment_sum"):
+            check(ga[k] > 0, f"multi-device rank {r}: {k} was not launched in the grid pass")
+        check(ga["near_field"] == 0, f"multi-device rank {r}: the full K6 launched")
+    lead = ranks[0][1]
+    check(lead["launches"]["count_scatter"] > 0 and lead["launches"]["count_disks"] > 0,
+          "multi-device: rank 0's render launched no K3")
+    check(lead["image"]["non_background"] >= 0.01 and lead["image"]["colors"] >= 3,
+          f"multi-device: rank 0's image {lead['image']}")
+    for r, (a, _) in enumerate(ranks[1:], 1):
+        for k in a:
+            check(np.array_equal(np.atleast_1d(a[k]).view(np.uint8),
+                                 np.atleast_1d(ranks[0][0][k]).view(np.uint8)),
+                  f"multi-device: rank {r}'s {k} differs from rank 0's")
+    out["ranks"] = [info for _, info in ranks]
+    log("multi-device main path " + json.dumps(out["ranks"], default=str))
+
+    # The grid force pass, single-rank, on the same inputs.
+    lcfg = fa2.FA2Config(iterations=MD_GRID_ITERATIONS, repulsion="grid", grid_size=GRID,
+                         grid_window=WINDOW, use_radii=False)
+    pos0 = fa2.init_positions(n, torch.Generator().manual_seed(lcfg.seed), device=dev)
+    w = torch.ones(e_dev.shape[0], device=dev)
+    mass = torch.as_tensor(gdeg, device=dev).to(torch.float32) + 1.0
+    m, p, radii, (src, dst, w2) = fa2._layout_inputs(e_dev, w, mass, n, lcfg, pos0, dev)
+    f1 = fa2.force_pass(m, radii, src, dst, w2, n, lcfg)(p, 0).cpu().numpy()
+    f0 = fa2.force_pass(m, radii, src, dst, torch.zeros_like(w2), n, lcfg)(p, 0).cpu().numpy()
+    pos1, _, _ = fa2.layout(e_dev, w, mass, n, lcfg, pos0=pos0, device=dev)
+    pos1 = pos1.cpu().numpy()
+    # The single-rank layout's own run-to-run difference (float atomics in
+    # the attraction), printed beside the sharded one's.
+    again, _, _ = fa2.layout(e_dev, w, mass, n, lcfg, pos0=pos0, device=dev)
+    drift1 = float(np.abs(again.cpu().numpy() - pos1).max())
+    a = ranks[0][0]
+    check(np.array_equal(a["forces_no_attraction"].view(np.uint8), f0.view(np.uint8)),
+          "multi-device grid pass: gravity + repulsion differ from the single-rank pass")
+    ferr = np.abs(a["forces"] - f1).max(1) / np.maximum(np.abs(f1).max(1), 1e-30)
+    gscale = float(np.abs(pos1).max())
+    gerr = float(np.abs(a["grid_positions"] - pos1).max())
+    out["grid"] = {"forces_bitwise": bool(np.array_equal(a["forces"].view(np.uint8),
+                                                         f1.view(np.uint8))),
+                   "forces_worst_rel": float(ferr.max()), "positions_max_abs_diff": gerr,
+                   "single_rank_run_to_run": drift1,
+                   "max_abs_pos": gscale, "iterations": lead["grid_iterations"],
+                   "seconds": [info["grid_s"] for _, info in ranks]}
+    log("multi-device grid pass " + json.dumps(out["grid"]))
+    check(float(ferr.max()) <= 1e-6, f"multi-device grid pass: forces differ by {ferr.max()}")
+    check(gerr <= MD_GRID_POS_TOL * gscale,
+          f"multi-device grid pass: positions differ by {gerr} (> {MD_GRID_POS_TOL}·{gscale})")
+    del e_dev, src, dst, w2, m, p
+    torch.cuda.empty_cache()
+    log(f"multi-device: {d} ranks under gloo on one card; wall {lead['wall_s']} s "
+        f"(phase 4: {res.timings}); scoda_s {lead['timings']['scoda_s']}, supergraph_s "
+        f"{lead['timings']['supergraph_s']}, layout_s {lead['timings']['layout_s']}; "
+        f"peak_local_bytes {lead['stream']['peak_local_bytes']} of peak_device_bytes "
+        f"{lead['stream']['peak_device_bytes']}; spawn to results {out['spawn_s']} s")
+
+    # 3. stream_runner on MD_RUNNER_RANKS ranks under torch.distributed.run.
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(MD_RUNNER_RANKS), "-m",
+               "repro_torch.launch.stream_runner", *MD_RUNNER_ARGS]
+        run = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                             timeout=MD_TIMEOUT)
+        out["runner_s"] = time.perf_counter() - t0
+    text = run.stdout + run.stderr
+    log(f"multi-device stream_runner ({' '.join(cmd[2:])}): exit {run.returncode} in "
+        f"{out['runner_s']:.3f} s; last lines:\n" + "\n".join(run.stdout.splitlines()[-10:]))
+    check(run.returncode == 0, f"stream_runner on {MD_RUNNER_RANKS} ranks exited "
+          f"{run.returncode}:\n" + "\n".join(text.splitlines()[-30:]))
+    check("streamed == one-shot: True" in run.stdout,
+          f"stream_runner on {MD_RUNNER_RANKS} ranks: streamed != one-shot")
+
+    # 4. A checkpoint written by MD_RUNNER_RANKS ranks, resumed on one: the
+    # kill lands mid-round 1, on a boundary that saves first.
+    want = md_runner_pipeline()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckdir = str(Path(tmp) / "ckpt")
+        n_chunks = -(-int(want[4].edges_streamed // want[4].passes) // 1024)
+        kill_at = (n_chunks + n_chunks // 2) // MD_SAVE_EVERY * MD_SAVE_EVERY - 1
+        t0 = time.perf_counter()
+        spawn_local(md_resume_rank, MD_RUNNER_RANKS, backend="gloo",
+                    init_file=str(Path(tmp) / "store"), args=(ckdir, kill_at),
+                    timeout=MD_TIMEOUT)
+        killed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = md_runner_pipeline(checkpoint=StreamCheckpointer(ckdir), resume=True)
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+    out["resume"] = {"killed_at_boundary": kill_at, "resumed_at": got[4].resumed_at,
+                     "ranks_s": killed_s, "resumed_s": resumed_s}
+    log("multi-device resume across rank counts " + json.dumps(out["resume"]))
+    check(got[4].resumed_at == f"detect:r1:c{kill_at - n_chunks + 1}",
+          f"resumed at {got[4].resumed_at}")
+    for i, what in ((0, "labels"), (1, "graph degrees"), (3, "Q")):
+        check(bits_equal(torch, got[i].cpu(), want[i].cpu()),
+              f"{MD_RUNNER_RANKS}-rank checkpoint resumed on one rank: {what} differ")
+    for f in ("edges", "weights", "sizes", "n_supernodes", "n_superedges", "labels"):
+        check(bits_equal(torch, getattr(got[2], f).cpu(), getattr(want[2], f).cpu()),
+              f"{MD_RUNNER_RANKS}-rank checkpoint resumed on one rank: supergraph.{f} differs")
+    multi = dict(lead["launches"])
+    multi["near_field_rows"] = lead["grid_launches"]["near_field_rows"]
+    return multi
+
+
+# ------------------------------------------------------------- phase 11
 def save_numbers(ck, smi: str) -> dict:
     """A checkpointer's saves, bytes and seconds, beside the card."""
     n = max(ck.saves, 1)
@@ -2340,8 +2794,10 @@ def run() -> int:
         serve_phase(torch, np, cap, edges, main_result, main_cfg)
     with phase("launchers"):
         launcher_phase(np)
+    with phase("multi-device"):
+        multi_launches = multi_device_phase(torch, np, edges, main_result, main_cfg, smi)
     with phase("timing"):
-        rows = time_kernels(torch, np, cap, main_launches, full_launches)
+        rows = time_kernels(torch, np, cap, main_launches, full_launches, multi_launches)
     check(len(rows) == len(KERNELS), f"{len(rows)} kernel rows, expected {len(KERNELS)}")
     full_nodes = cap.calls["count_disks@full"][1]
     cap.calls.clear()

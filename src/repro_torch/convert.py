@@ -5,7 +5,8 @@ The system has no weights; what a run carries is configuration and state.
 ``CMSConfig``, ``FA2Config``, ``BGVConfig``, ``StreamConfig``,
 ``RenderConfig`` or ``TileConfig`` into the port's, by duck typing on
 attributes — it never imports the reference package (a ``StreamConfig``'s
-``validation`` policy becomes the port's ``ValidationPolicy``). Fields the port has
+``validation`` policy becomes the port's ``ValidationPolicy``, its ``mesh``
+None: pass a ``launch.mesh.StreamMesh``). Fields the port has
 no counterpart for (the reference's kernel ``backend`` knobs, its
 benchmark-only timing flags) are dropped. ``state_from_numpy`` builds port tensors
 from host arrays (the reference's state converted with ``np.asarray``).
@@ -53,6 +54,8 @@ def config_from_reference(cfg):
         value = getattr(cfg, f.name)
         if cls is BGVConfig and f.name in ("scoda", "cms", "layout"):
             value = config_from_reference(value)
+        if cls is StreamConfig and f.name == "mesh":
+            value = None  # the reference's device mesh; the port takes a StreamMesh
         if cls is StreamConfig and f.name == "validation" and value is not None:
             value = ValidationPolicy(**{g.name: getattr(value, g.name)
                                         for g in dataclasses.fields(ValidationPolicy)})

@@ -85,6 +85,31 @@ def merge(*sketches):
     return functools.reduce(torch.add, sketches)
 
 
+def sharded_update(sketch, keys, weights, cfg: CMSConfig, mesh):
+    """``update`` with the keys spread over ``mesh``: the keys and weights
+    (the same on every rank) are padded with the masked key -1 to a
+    multiple of D, each rank sketches its contiguous slice (kernel K8 on
+    the card) into a zero sketch, and one all-reduce sums the sketches —
+    the linearity above. Bitwise the single-rank sketch while every count
+    stays integer-valued below 2^24 (community sizes are degree sums);
+    above that, or for fractional weights, the float sum's order differs.
+    Returns a new sketch, replicated."""
+    from repro_torch.sharding.collectives import all_reduce
+
+    d = mesh.size
+    pad = (-keys.shape[0]) % d
+    if pad:
+        keys = torch.cat([keys, torch.full((pad,), -1, dtype=keys.dtype,
+                                           device=keys.device)])
+        weights = torch.cat([weights, torch.zeros(pad, dtype=weights.dtype,
+                                                  device=weights.device)])
+    per = keys.shape[0] // d
+    r = slice(mesh.rank * per, (mesh.rank + 1) * per)
+    local = update(torch.zeros_like(sketch), keys[r].contiguous(),
+                   weights[r].contiguous(), cfg)
+    return sketch + all_reduce(local, mesh, "sum")
+
+
 # Chunk-incremental API (core/stream.py engine): the sketch is linear, so
 # ``update`` already *is* the chunk step; ``finalize`` is the identity.
 init = init_sketch

@@ -45,6 +45,7 @@ as a ``[-1, -1, damped]`` row, without reading anything back to the host.
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -279,19 +280,25 @@ def _grid_repulsion(pos, mass, cfg: FA2Config):
     return force + torch.sum(fn, dim=1)[inv]
 
 
-def _repulsion_forces(pos, mass, radii, cfg: FA2Config, cell=None, order=None):
-    """One iteration's repulsion on the configured backend."""
+def _repulsion_forces(pos, mass, radii, cfg: FA2Config, cell=None, order=None,
+                      rows=None, gather=None):
+    """One iteration's repulsion on the configured backend. With ``rows=(i0,
+    nl)`` only the forces on nodes ``[i0, i0 + nl)`` ([nl, 2]; exact and
+    grid backends), the grid's sorted rows assembled by ``gather``."""
     _check_backend(cfg)
     if cfg.repulsion == "grid_dense":
         return _grid_repulsion(pos, mass, cfg)
     if cfg.repulsion in ("grid", "grid_pallas"):
-        return grid_ops.grid_repulsion(
+        out = grid_ops.grid_repulsion(
             pos, mass, cfg.repulsion_k, cfg.grid_size, cfg.grid_window,
-            cell=cell, order=order,
+            cell=cell, order=order, rows=rows, gather=gather,
         )
-    return repulsion_ops.repulsion(
-        pos, mass, cfg.repulsion_k, radii=radii if cfg.use_radii else None
-    )
+        return out if rows is None else out[rows[0]:rows[0] + rows[1]]
+    r = radii if cfg.use_radii else None
+    if rows is None:
+        return repulsion_ops.repulsion(pos, mass, cfg.repulsion_k, radii=r)
+    return repulsion_ops.repulsion_rows(pos, mass, rows[0], rows[1], cfg.repulsion_k,
+                                        radii=r)
 
 
 def _apply_speed(state, f, mass, cfg: FA2Config):
@@ -363,6 +370,92 @@ def step(state, edges, weights, mass, radii, cfg: FA2Config, n: int,
     return _apply_speed_guarded(state, f, mass, cfg)
 
 
+def _layout_inputs(edges, weights, mass, n: int, cfg: FA2Config, pos0, device):
+    """``(mass, pos, radii, (src, dst, w2))`` on ``device`` in the layout's
+    type: initial positions, radii √mass and the source-sorted edges."""
+    dtype = getattr(torch, cfg.dtype)
+    edges = torch.as_tensor(edges, device=device)
+    weights = torch.as_tensor(weights, device=device).to(dtype)
+    mass = torch.as_tensor(mass, device=device).to(dtype)
+    if pos0 is None:
+        pos0 = initial_positions(edges, mass, n, cfg)
+    pos = torch.as_tensor(pos0, device=device).to(dtype)
+    radii = torch.sqrt(torch.clamp(mass, min=0.0))  # paper: radius ∝ √size
+    return mass, pos, radii, _attraction_edge_layout(edges, weights)
+
+
+def force_pass(mass, radii, src, dst, w2, n: int, cfg: FA2Config, mesh=None):
+    """``forces(pos, it)``: one iteration's full [n, 2] force array (gravity,
+    attraction, repulsion), carrying the grid state (cell ids, cell-sorted
+    order) between calls and rebuilding it every ``cfg.grid_rebuild``
+    iterations.
+
+    With a ``mesh`` of D ranks (n divisible by D) rank r computes only the
+    forces on its nodes ``[r·n/D, (r+1)·n/D)`` and one tiled all-gather per
+    iteration assembles the array, which is then the same on every rank:
+    * gravity — on the owned rows;
+    * attraction — the full-size sorted sum with the other ranks' sources
+      weighted 0 (the reference's form), owned rows kept: they get the
+      single-rank terms in the single-rank order. On the card the
+      ``index_add_`` keeps the single-rank launch's shape, so its float
+      atomics add each owned row as the single-rank run does. This work is
+      replicated;
+    * exact repulsion — the owned targets against all sources
+      (``repulsion_rows``, kernel K2's row range);
+    * grid repulsion — binning, the stable sort and the cell statistics
+      (K7) replicated; the far field (K5) and near field (K6's row range)
+      on the owned rows of the cell-sorted order, whose gathered rows are
+      then unsorted (``grid_ops.grid_repulsion(rows=)``, a second
+      all-gather).
+    Every cross-rank step is a concatenation, never a float sum, so on the
+    CPU the array is bitwise the single-rank one."""
+    grid_state = cfg.repulsion in ("grid", "grid_pallas")
+    state = {"cell": None, "order": None}
+    if mesh is None or mesh.size == 1:
+        rows, owned, w, gather = slice(None), None, w2, None
+    else:
+        from repro_torch.sharding.collectives import all_gather_rows
+
+        nl = n // mesh.size
+        i0 = mesh.rank * nl
+        rows, owned = slice(i0, i0 + nl), (i0, nl)
+        w = torch.where((src >= i0) & (src < i0 + nl), w2, 0.0)
+
+        def gather(x):
+            return all_gather_rows(x, mesh)
+
+    def forces(p, it):
+        if grid_state and (cfg.grid_rebuild <= 1 or it % cfg.grid_rebuild == 0):
+            state["cell"], state["order"] = grid_ops.bin_and_sort(p, cfg.grid_size)
+        f = _gravity(p[rows], mass[rows], cfg)
+        f = f + _attraction_sorted(p, src, dst, w, n)[rows]
+        f = f + _repulsion_forces(p, mass, radii, cfg, cell=state["cell"],
+                                  order=state["order"], rows=owned, gather=gather)
+        return f if gather is None else gather(f)
+
+    return forces
+
+
+def _run(pos, mass, forces, cfg: FA2Config):
+    """The iteration loop around ``forces``: the speed controller, the trace
+    and the adaptive stop. Returns ``(positions, trace, iterations_run)``."""
+    dtype, device = pos.dtype, pos.device
+    state = (pos, torch.zeros_like(pos), torch.ones((), dtype=dtype, device=device))
+    trace = torch.zeros((cfg.iterations, 3), dtype=dtype, device=device)
+    adaptive = cfg.stop_tolerance > 0.0
+    it_run = 0
+    for it in range(cfg.iterations):
+        state, row = _apply_speed_guarded(state, forces(state[0], it), mass, cfg)
+        trace[it] = row
+        it_run += 1
+        if adaptive and it + 1 >= cfg.min_iterations:
+            # row[0] < 0 marks a nan_guard recovery — never "converged".
+            done = (row[0] >= 0) & (row[0] <= cfg.stop_tolerance * row[1])
+            if bool(done):
+                break
+    return state[0], trace, it_run
+
+
 def layout(edges, weights, mass, n: int, cfg: FA2Config, pos0=None, device=None):
     """Run up to ``cfg.iterations`` FA2 steps on ``device`` (None = CUDA).
 
@@ -373,38 +466,81 @@ def layout(edges, weights, mass, n: int, cfg: FA2Config, pos0=None, device=None)
     """
     _check_backend(cfg)
     device = resolve_device(device)
-    dtype = getattr(torch, cfg.dtype)
-    edges = torch.as_tensor(edges, device=device)
-    weights = torch.as_tensor(weights, device=device).to(dtype)
-    mass = torch.as_tensor(mass, device=device).to(dtype)
     with get_tracer().span(
         "fa2.layout", n=n, iterations=cfg.iterations,
         repulsion=cfg.repulsion, adaptive=cfg.stop_tolerance > 0.0,
     ):
-        if pos0 is None:
-            pos0 = initial_positions(edges, mass, n, cfg)
-        pos = torch.as_tensor(pos0, device=device).to(dtype)
-        radii = torch.sqrt(torch.clamp(mass, min=0.0))  # paper: radius ∝ √size
-        src, dst, w2 = _attraction_edge_layout(edges, weights)
-        state = (pos, torch.zeros_like(pos), torch.ones((), dtype=dtype, device=device))
-        trace = torch.zeros((cfg.iterations, 3), dtype=dtype, device=device)
-        adaptive = cfg.stop_tolerance > 0.0
-        grid_state = cfg.repulsion in ("grid", "grid_pallas")
-        cell = order = None
-        it_run = 0
-        for it in range(cfg.iterations):
-            p = state[0]
-            if grid_state and (cfg.grid_rebuild <= 1 or it % cfg.grid_rebuild == 0):
-                cell, order = grid_ops.bin_and_sort(p, cfg.grid_size)
-            f = _gravity(p, mass, cfg)
-            f = f + _attraction_sorted(p, src, dst, w2, n)
-            f = f + _repulsion_forces(p, mass, radii, cfg, cell=cell, order=order)
-            state, row = _apply_speed_guarded(state, f, mass, cfg)
-            trace[it] = row
-            it_run += 1
-            if adaptive and it + 1 >= cfg.min_iterations:
-                # row[0] < 0 marks a nan_guard recovery — never "converged".
-                done = (row[0] >= 0) & (row[0] <= cfg.stop_tolerance * row[1])
-                if bool(done):
-                    break
-    return state[0], trace, it_run
+        mass, pos, radii, (src, dst, w2) = _layout_inputs(
+            edges, weights, mass, n, cfg, pos0, device)
+        return _run(pos, mass, force_pass(mass, radii, src, dst, w2, n, cfg), cfg)
+
+
+# Node-partitioned multi-device layout (the reference's ``layout_sharded``):
+# each rank owns n/D consecutive nodes and computes only their forces; one
+# tiled all-gather per iteration reassembles the force array for the
+# replicated speed controller (``force_pass``). The adaptive stop composes
+# for free: the gathered forces, hence the converged flag, are the same on
+# every rank, so every rank stops on the same iteration.
+
+_FALLBACK_WARNED: set[str] = set()
+
+
+def _warn_fallback(reason: str) -> None:
+    """Warn once per distinct reason that a configured mesh disengaged."""
+    if reason not in _FALLBACK_WARNED:
+        _FALLBACK_WARNED.add(reason)
+        warnings.warn(
+            f"layout_sharded: falling back to single-device layout ({reason})",
+            UserWarning,
+            stacklevel=3,
+        )
+
+
+def _sharded_fallback_reason(n: int, cfg: FA2Config, mesh) -> str | None:
+    """Why a non-None mesh cannot engage, or None if it can (the
+    reference's reasons, word for word)."""
+    if mesh.size <= 1:
+        return "mesh is trivial (1 device)"
+    if n % mesh.size != 0:
+        return f"n={n} does not divide evenly over {mesh.size} devices"
+    if cfg.repulsion in ("grid_pallas", "grid_dense"):
+        return f"repulsion={cfg.repulsion!r} has no sharded form"
+    if cfg.repulsion == "grid" and cfg.dtype != "float32":
+        return (
+            f"the sharded grid path runs in float32 (kernels/grid is "
+            f"float32-pinned) and has no dtype={cfg.dtype!r} form"
+        )
+    return None
+
+
+def layout_sharded(edges, weights, mass, n: int, cfg: FA2Config, mesh, pos0=None,
+                   device=None):
+    """``layout`` with the force pass node-partitioned over ``mesh``
+    (``force_pass``); every rank calls it with the same arguments and gets
+    the same ``(positions, trace, iterations_run)``. ``device=None`` means
+    the mesh's device.
+
+    Falls back to ``layout`` — with a warn-once ``UserWarning`` naming the
+    reason — when the mesh holds one rank, ``n`` does not divide by the
+    rank count, the backend has no sharded form ("grid_pallas",
+    "grid_dense"), or the grid backend is asked for a non-float32 dtype.
+    ``mesh=None`` falls back silently: that is the caller opting out. On
+    the CPU the result is bitwise ``layout``'s; on the card within the
+    attraction's float atomics (``index_add_``)."""
+    _check_backend(cfg)
+    if device is None and mesh is not None:
+        device = mesh.device
+    if mesh is None:
+        return layout(edges, weights, mass, n, cfg, pos0, device)
+    reason = _sharded_fallback_reason(n, cfg, mesh)
+    if reason is not None:
+        _warn_fallback(reason)
+        return layout(edges, weights, mass, n, cfg, pos0, device)
+    device = resolve_device(device)
+    with get_tracer().span(
+        "fa2.layout_sharded", n=n, iterations=cfg.iterations,
+        repulsion=cfg.repulsion, devices=mesh.size,
+    ):
+        mass, pos, radii, (src, dst, w2) = _layout_inputs(
+            edges, weights, mass, n, cfg, pos0, device)
+        return _run(pos, mass, force_pass(mass, radii, src, dst, w2, n, cfg, mesh), cfg)

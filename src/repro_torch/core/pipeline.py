@@ -133,13 +133,19 @@ def default_config(
 
 
 def layout_supergraph(sg: Supergraph, cfg: BGVConfig, tracer=None,
-                      device=None) -> tuple[torch.Tensor, int]:
+                      device=None, mesh=None,
+                      shard_layout: bool = False) -> tuple[torch.Tensor, int]:
     """ForceAtlas2 on the (small, device-resident) supergraph.
 
     Returns ``(positions [s_cap, 2], iterations_run)``. The layout is sized
     to the LIVE supernode count padded to a power of two (≥ 64, ≤ s_cap):
     laying out the full s_cap padding would erase the paper's headline
     speedup.
+
+    With ``mesh`` + ``shard_layout`` the force pass is node-partitioned over
+    the mesh's ranks (``fa2.layout_sharded``, with its own fallbacks); the
+    span's ``sharded`` attribute says whether it engaged. ``s_layout`` is a
+    power of two ≥ 64, so it divides by any power-of-two rank count.
     """
     tr = tracer if tracer is not None else get_tracer()
     device = resolve_device(device if device is not None else sg.sizes.device)
@@ -152,10 +158,17 @@ def layout_supergraph(sg: Supergraph, cfg: BGVConfig, tracer=None,
     mass = torch.clamp(sg.sizes[:s_layout], min=0.0) + live.to(torch.float32)
     mass = torch.where(live, mass, 0.0)
     sedges = torch.clamp(sg.edges[:e_layout], max=s_layout)  # trash → s_layout
-    with tr.span("layout.supergraph", n=s_layout, edges=e_layout, sharded=False):
-        pos_live, trace, iters_run = fa2.layout(
-            sedges, sg.weights[:e_layout], mass, s_layout, cfg.layout, device=device
-        )
+    sharded = bool(mesh is not None and shard_layout)
+    engaged = sharded and fa2._sharded_fallback_reason(s_layout, cfg.layout, mesh) is None
+    with tr.span("layout.supergraph", n=s_layout, edges=e_layout, sharded=engaged):
+        if sharded:
+            pos_live, trace, iters_run = fa2.layout_sharded(
+                sedges, sg.weights[:e_layout], mass, s_layout, cfg.layout, mesh,
+                device=device)
+        else:
+            pos_live, trace, iters_run = fa2.layout(
+                sedges, sg.weights[:e_layout], mass, s_layout, cfg.layout,
+                device=device)
         synchronize(device)
     if cfg.layout.nan_guard:
         recovered = fa2.recovery_count(trace)
@@ -168,9 +181,9 @@ def layout_supergraph(sg: Supergraph, cfg: BGVConfig, tracer=None,
 
 def biggraphvis(source, n_nodes: int, cfg: BGVConfig,
                 stream: StreamConfig | None = None, *, checkpoint=None,
-                resume=False, device=None) -> BGVResult:
-    """Run the whole pipeline on one host and ``device`` (None = CUDA;
-    raises without it).
+                resume=False, device=None, put=None) -> BGVResult:
+    """Run the whole pipeline on ``device`` (None = CUDA, or the mesh's
+    device when ``stream.mesh`` is set; raises without CUDA).
 
     ``source`` is any engine edge source: an [E,2] unpadded int32 host
     array, an ``EdgeStore``, or a path to a ``.npy`` / ``.bin`` edge file or
@@ -183,8 +196,17 @@ def biggraphvis(source, n_nodes: int, cfg: BGVConfig,
     edge-consuming stages persist their state at chunk boundaries and a
     killed run restarts bit-identically from the newest checkpoint. The
     layout and coloring run again after a resume.
+
+    Multi-device: with ``stream.mesh`` (a ``launch.mesh.StreamMesh``) every
+    rank calls this with the same arguments; ``stream.shard_detect``
+    spreads the edge passes and ``stream.shard_layout`` the supergraph
+    layout over the ranks, and every rank returns the single-rank result
+    (positions within the attraction's float atomics on the card). ``put``
+    forwards to ``stream_pipeline``.
     """
-    device = resolve_device(device)
+    mesh = stream.mesh if stream is not None else None
+    device = resolve_device(device if device is not None or mesh is None
+                            else mesh.device)
     tr = cfg.obs
     if tr is None and stream is not None:
         tr = stream.obs
@@ -194,7 +216,7 @@ def biggraphvis(source, n_nodes: int, cfg: BGVConfig,
         labels, _gdeg, sg, q, stats = stream_pipeline(
             source, n_nodes, cfg.scoda, cfg.cms, cfg.s_cap, cfg.max_super_edges,
             stream, tracer=tr, checkpoint=checkpoint, resume=resume,
-            device=device,
+            device=device, put=put,
         )
         t = {
             "scoda_s": stats.stage_seconds["detect_s"],
@@ -203,7 +225,9 @@ def biggraphvis(source, n_nodes: int, cfg: BGVConfig,
         t0 = time.perf_counter()
         with tr.span("layout", iterations=cfg.layout.iterations,
                      repulsion=cfg.layout.repulsion):
-            pos, layout_iters = layout_supergraph(sg, cfg, tracer=tr, device=device)
+            pos, layout_iters = layout_supergraph(
+                sg, cfg, tracer=tr, device=device, mesh=mesh,
+                shard_layout=bool(stream is not None and stream.shard_layout))
         t["layout_s"] = time.perf_counter() - t0
         t["layout_iterations"] = layout_iters
         REGISTRY.counter("layout.runs").inc()

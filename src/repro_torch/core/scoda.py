@@ -15,6 +15,18 @@ bit-identical to it: the edge stream is processed in fixed-size *blocks*,
 the sequential SCoDA. The block scan is a Python loop of torch ops; the
 reference has no accelerator kernel here.
 
+Multi-device (``sharded_scoda_update``): each rank holds the same
+within-block slice of every block of a chunk (``block_chunk_spec``) and the
+whole replicated state. Per block one tiled all-gather of the slices (b×2
+int32, b = ``block_size``) rebuilds the block on every rank, which then
+runs the single-rank block update on it. So the result is bitwise the
+single-rank one, and no per-block exchange grows with n. What is split is
+the chunk's reads, staging and host→device copies; the per-edge evaluation
+and the scatters are replicated. The reference instead splits the per-edge
+evaluation and completes each scatter with an all-reduce over the full
+[n+1] state (three a block), which at n = 685,231 would move ≈ 53 GB a run
+through gloo's host staging.
+
 Rounds follow the paper's Algorithm 3: each round re-streams the edge list
 with persistent (community, degree) state and a threshold that grows
 geometrically (δ^i) so larger communities can keep absorbing smaller ones.
@@ -24,6 +36,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.sharding.collectives import all_gather_rows
 
 INT32_MAX = torch.iinfo(torch.int32).max
 
@@ -81,9 +95,15 @@ def _cumcount_endpoints(u, v, valid):
 
 
 def _block_update(state, block, *, threshold, tie_break, degree_update,
-                  exact_block_degrees, conflict, propagate_jumps):
-    """Process one block of edges [B, 2] (int64 ids, trash = n) against the
-    block-start snapshot; returns the new ``(com, deg)``."""
+                  exact_block_degrees, conflict, propagate_jumps, mesh=None):
+    """Process one block of edges [B, 2] (trash = n) against the block-start
+    snapshot; returns the new ``(com, deg)``.
+
+    With ``mesh`` the block is this rank's slice of it (``block_chunk_spec``)
+    and is gathered whole, in stream order, before anything else."""
+    if mesh is not None:
+        block = all_gather_rows(block, mesh)
+    block = block.long()
     com, deg = state
     u, v = block[:, 0], block[:, 1]
     trash = com.shape[0] - 1  # index n_nodes = trash slot
@@ -172,6 +192,30 @@ def scoda_update(state, chunk, threshold: int, cfg: ScodaConfig):
             exact_block_degrees=cfg.exact_block_degrees,
             conflict=cfg.conflict,
             propagate_jumps=cfg.propagate_jumps,
+        )
+    return state
+
+
+def sharded_scoda_update(state, local, threshold: int, cfg: ScodaConfig, mesh):
+    """``scoda_update`` of one chunk whose rows are spread over ``mesh``.
+
+    ``local`` [C/D, 2] holds this rank's slice of every block of the chunk,
+    block after block (``block_chunk_spec(mesh, cfg.block_size)``); state
+    and threshold are replicated. Each block is gathered whole and run as
+    in ``scoda_update``, in the chunk's block order, so the replicated
+    result is bitwise the single-rank one. Requires ``cfg.block_size % D ==
+    0`` and a chunk of whole blocks (the engine gates on both)."""
+    per = cfg.block_size // mesh.size
+    for k in range(local.shape[0] // per):
+        state = _block_update(
+            state, local[k * per:(k + 1) * per],
+            threshold=threshold,
+            tie_break=cfg.tie_break,
+            degree_update=cfg.degree_update,
+            exact_block_degrees=cfg.exact_block_degrees,
+            conflict=cfg.conflict,
+            propagate_jumps=cfg.propagate_jumps,
+            mesh=mesh,
         )
     return state
 

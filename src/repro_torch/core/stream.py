@@ -43,8 +43,31 @@ rounded up to a multiple of ``ScodaConfig.block_size`` — so chunked and
 one-shot runs produce identical labels, supergraphs and modularity sums
 whatever the source.
 
-Not in this slice (each raises ``NotImplementedError``): multi-device
-meshes (``mesh``, ``shard_detect``, ``shard_layout``).
+Multi-device (``StreamConfig.mesh``, a ``launch.mesh.StreamMesh``): one
+process per rank, each calling the same entry point. With ``shard_detect``
+each rank reads only its own rows of every chunk from the source into its
+staging slot — the same within-block slice of every SCoDA block in the
+detect pass (``sharding.block_chunk_spec``), contiguous C/D rows in the
+supergraph pass (``row_chunk_spec``) — and the updates merge across ranks
+so that every rank ends with the single-rank result, bitwise:
+
+* SCoDA: one all-gather of each block's slices (b×2 int32), then the
+  single-rank block update, replicated (``core/scoda.py``);
+* graph degrees: local counts, one all-reduce of [n+1] int32 per chunk of
+  the first round;
+* aggregation: local dedupe, one all-gather of the deduped runs per chunk,
+  a second dedupe, K1 (``core/supergraph.py``);
+* modularity: local sums, one all-reduce of [2n+3] float32 per chunk;
+* CMS sizing: each rank sketches its slice of the node keys, one
+  all-reduce of the sketch (``core/cms.py``).
+
+Both passes fall back to one rank (``StreamStats.devices == 1``) unless
+the block size and the chunk size divide by the rank count. A checkpointer
+with a mesh writes from rank 0 only, the others waiting at a barrier, and
+agrees a SIGTERM seen by any rank before acting on it; with a validation
+policy every rank reads the whole chunk (the same reads, faults and
+verdicts as one rank would see) and a quarantine seen by any rank is taken
+by all.
 """
 from __future__ import annotations
 
@@ -60,6 +83,7 @@ from repro_torch.core.modularity import (
     modularity_finalize,
     modularity_init,
     modularity_update,
+    sharded_modularity_update,
 )
 from repro_torch.core.scoda import (
     ScodaConfig,
@@ -68,6 +92,7 @@ from repro_torch.core.scoda import (
     scoda_finalize,
     scoda_init,
     scoda_update,
+    sharded_scoda_update,
 )
 from repro_torch.core.supergraph import (
     Supergraph,
@@ -75,6 +100,7 @@ from repro_torch.core.supergraph import (
     agg_init,
     agg_update,
     community_sizes,
+    sharded_agg_update,
 )
 from repro_torch.data.edge_store import EDGE_DTYPE, InMemoryEdgeStore, as_edge_store
 from repro_torch.device import resolve_device, synchronize
@@ -87,12 +113,13 @@ from repro_torch.resilience.checkpoint import (
     restore_latest_valid,
 )
 from repro_torch.resilience.validate import ValidationAccounting, validated_read
-
-_ROADMAP_MESH = "ROADMAP.md, modules to port, item 14 (multi-device paths)"
-
-
-def not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"repro_torch does not port {what} yet: {item}")
+from repro_torch.sharding import (
+    all_reduce,
+    any_rank,
+    barrier,
+    block_chunk_spec,
+    row_chunk_spec,
+)
 
 
 @dataclass(frozen=True)
@@ -106,22 +133,21 @@ class StreamConfig:
     ``resilience.ValidationPolicy``) makes every chunk read defensive (see
     the module docstring; None = trusting).
 
-    ``mesh``, ``shard_detect`` and ``shard_layout`` exist so a reference
-    config converts field for field; setting any of them raises
-    ``NotImplementedError`` when the engine runs."""
+    ``mesh`` (a ``launch.mesh.StreamMesh``, None = one rank) with
+    ``shard_detect`` spreads every per-chunk edge pass over the ranks (see
+    the module docstring); ``shard_layout`` asks the supergraph layout
+    (``core/pipeline.py``) to node-partition its force pass over the same
+    mesh (``fa2.layout_sharded``). A reference config's mesh does not
+    convert (``convert.config_from_reference`` maps it to None)."""
 
     chunk_size: int = 1 << 16  # edges resident on device per chunk
     prefetch: int = 1
     agg_backend: str = "merge"  # superedge aggregation: "merge" | "lexsort"
-    mesh: object = None
-    shard_detect: bool = False
-    shard_layout: bool = False
+    mesh: object = None  # launch.mesh.StreamMesh (None = one rank)
+    shard_detect: bool = False  # spread the per-chunk edge passes over mesh
+    shard_layout: bool = False  # node-partition the FA2 layout over mesh
     obs: object = None
     validation: object = None
-
-    def check_slice(self) -> None:
-        if self.mesh is not None or self.shard_detect or self.shard_layout:
-            raise not_in_slice("multi-device streaming (mesh/shard_*)", _ROADMAP_MESH)
 
 
 @dataclass
@@ -138,14 +164,21 @@ class StreamStats:
     permanently bad chunk is hit once per pass; the per-occurrence tally is
     the ``errors.quarantined_chunks`` counter). ``resumed_at`` is the
     checkpoint cursor a resumed run picked up from ("" for an
-    uninterrupted run)."""
+    uninterrupted run).
+
+    ``devices`` is the rank count the sharded passes actually ran on (1 =
+    unsharded, a fallback included); ``peak_local_bytes`` the analytic
+    per-rank footprint: replicated state at full size plus this rank's 1/D
+    of the chunk buffers (``peak_device_bytes`` when ``devices`` is 1)."""
 
     passes: int = 0
     chunks: int = 0
     edges_streamed: int = 0
     seconds: float = 0.0
     chunk_size: int = 0
+    devices: int = 1
     peak_device_bytes: int = 0
+    peak_local_bytes: int = 0
     peak_host_bytes: int = 0
     host_fill_s: float = 0.0
     copy_stall_s: float = 0.0
@@ -175,6 +208,7 @@ class StreamStats:
             ("stream.seconds", self.seconds),
             ("stream.edges_per_s", self.edges_per_s),
             ("stream.chunk_size", self.chunk_size),
+            ("stream.devices", self.devices),
             ("stream.host_fill_s", self.host_fill_s),
             ("stream.copy_stall_s", self.copy_stall_s),
         ):
@@ -182,6 +216,7 @@ class StreamStats:
         for stage, secs in self.stage_seconds.items():
             reg.gauge(f"stream.stage.{stage}").set(secs)
         reg.gauge("stream.peak_device_bytes").set_max(self.peak_device_bytes)
+        reg.gauge("stream.peak_local_bytes").set_max(self.peak_local_bytes)
         reg.gauge("stream.peak_host_bytes").set_max(self.peak_host_bytes)
 
 
@@ -210,17 +245,19 @@ class EdgeChunkStream:
     buffer — a fresh array on the CPU, the pinned ring slot on CUDA — never
     a view of the caller's edge array, since the read writes trash into
     it. ``acct`` holds the run's retries, quarantined chunks and dropped
-    rows.
+    rows. With a ``mesh`` (several ranks) the ranks agree every quarantine
+    verdict before they act on it.
     """
 
     def __init__(self, source, n_nodes: int, chunk_size: int,
-                 block_size: int = 1, policy=None):
+                 block_size: int = 1, policy=None, mesh=None):
         if chunk_size < 1:
             raise ValueError(f"chunk_size must be positive, got {chunk_size}")
         self.store = as_edge_store(source)
         self.n_nodes = n_nodes
         self.n_edges = self.store.n_edges
         self.policy = policy
+        self.mesh = mesh
         self.acct = ValidationAccounting()
         # Round up so chunk boundaries align with SCoDA block boundaries,
         # and clamp to the padded edge list.
@@ -267,8 +304,18 @@ class EdgeChunkStream:
 
     def _read_chunk(self, i: int, buf: np.ndarray) -> np.ndarray:
         if self.policy is not None:
-            return validated_read(self.store, i, self.chunk_size, buf,
-                                  self.n_nodes, self.policy, self.acct)
+            before = len(self.acct.quarantined)
+            validated_read(self.store, i, self.chunk_size, buf, self.n_nodes,
+                           self.policy, self.acct)
+            if self.mesh is not None:
+                # Every rank read the whole chunk; a quarantine on any rank
+                # is taken by all, so no two ranks stream different edges.
+                mine = len(self.acct.quarantined) > before
+                if any_rank(mine, self.mesh) and not mine:
+                    buf[:] = self.n_nodes
+                    self.acct.quarantined.append(i)
+                    REGISTRY.counter("errors.quarantined_chunks").inc()
+            return buf
         if self.edges is not None and i == self.n_chunks - 1:
             buf[:] = self._tail_buf
             return buf
@@ -289,21 +336,57 @@ class EdgeChunkStream:
             for i in range(start, self.n_chunks):
                 yield self._read_chunk(i, np.empty((cs, 2), dtype=EDGE_DTYPE))
 
+    def _read_local(self, i: int, buf: np.ndarray, spec) -> np.ndarray:
+        """This rank's rows of chunk ``i`` (``spec``) into ``buf``. Trusting
+        reads fetch only those rows from the store; with a policy the whole
+        chunk is read defensively (``_read_chunk``) and the rows kept."""
+        c = self.chunk_size
+        if self.policy is not None:
+            buf[:] = spec.take(self._read_chunk(i, np.empty((c, 2), dtype=EDGE_DTYPE)))
+            return buf
+        off = 0
+        for a, b in spec.runs(c):
+            seg = buf[off:off + b - a]
+            k = self.store.read_into(i * c + a, seg)
+            seg[k:] = self.n_nodes  # past the end: trash
+            off += b - a
+        return buf
+
     def device_chunks(self, device, prefetch: int = 1,
-                      stats: StreamStats | None = None, start: int = 0):
-        """One pass of [chunk_size, 2] int32 chunks on ``device``, from
-        chunk ``start`` on (the checkpoint/resume cursor)."""
+                      stats: StreamStats | None = None, start: int = 0,
+                      spec=None, put=None):
+        """One pass of int32 chunks on ``device``, from chunk ``start`` on
+        (the checkpoint/resume cursor).
+
+        Each is [chunk_size, 2], or with a ``spec`` (``sharding.ChunkSpec``)
+        this rank's [chunk_size / D, 2] rows of it. ``put`` (a host chunk →
+        device tensor) replaces the engine's own host→device copy of whole
+        chunks (``launch.stream_runner.StreamRunner.put``)."""
         self.passes += 1
         device = torch.device(device)
+        rows = self.chunk_size if spec is None else spec.local_rows(self.chunk_size)
+
+        def fill(i, buf):
+            return self._read_chunk(i, buf) if spec is None else self._read_local(i, buf, spec)
+
         if device.type != "cuda":
-            for buf in self._host_chunks(start):
-                t = torch.from_numpy(np.ascontiguousarray(buf)).to(device)
+            if spec is None:
+                chunks = self._host_chunks(start)
+            else:
+                chunks = (fill(i, np.empty((rows, 2), dtype=EDGE_DTYPE))
+                          for i in range(start, self.n_chunks))
+            for buf in chunks:
+                t = put(buf) if put is not None else \
+                    torch.from_numpy(np.ascontiguousarray(buf)).to(device)
                 yield sanitize_edges(t, self.n_nodes)
             return
         nbuf = self.staging_buffers(prefetch)
-        if self._ring is None or len(self._ring) < nbuf:
+        if self._ring is None or len(self._ring) < nbuf or self._ring[0].shape[0] != rows:
+            for ev in self._events or ():
+                if ev is not None:
+                    ev.synchronize()  # a slot of the old ring may still be read
             self._ring = [
-                torch.empty((self.chunk_size, 2), dtype=torch.int32).pin_memory()
+                torch.empty((rows, 2), dtype=torch.int32).pin_memory()
                 for _ in range(nbuf)
             ]
             self._events = [None] * nbuf
@@ -319,10 +402,13 @@ class EdgeChunkStream:
                     stats.copy_stall_s += time.perf_counter() - t0
                 self._events[slot] = None
             t0 = time.perf_counter()
-            self._read_chunk(i, self._ring[slot].numpy())
+            fill(i, self._ring[slot].numpy())
             if stats is not None:
                 stats.host_fill_s += time.perf_counter() - t0
-            dev = self._ring[slot].to(device, non_blocking=True)
+            if put is not None:
+                dev = put(self._ring[slot].numpy())
+            else:
+                dev = self._ring[slot].to(device, non_blocking=True)
             yield sanitize_edges(dev, self.n_nodes)
             # Resumed: the consumer has queued its work on this chunk.
             event = torch.cuda.Event()
@@ -340,10 +426,33 @@ def _degree_update(deg, chunk):
     return deg
 
 
-def _account_pass_peaks(stats, stream, prefetch, *state_trees):
+def _sharded_degree_update(deg, local, mesh):
+    """``_degree_update`` of a chunk whose rows are spread over ``mesh``
+    (``local``: this rank's rows): local counts, one integer all-reduce."""
+    inc = all_reduce(_degree_update(torch.zeros_like(deg), local), mesh, "sum")
+    deg += inc
+    deg[-1] = 0
+    return deg
+
+
+def _effective_mesh(mesh, shard: bool, *divisible: int):
+    """The mesh to shard on, or None: sharding must be asked for, the mesh
+    must hold more than one rank, and every gated extent must divide by
+    the rank count."""
+    if mesh is None or not shard or mesh.size <= 1:
+        return None
+    if any(d % mesh.size != 0 for d in divisible):
+        return None
+    return mesh
+
+
+def _account_pass_peaks(stats, stream, prefetch, *state_trees, devices: int = 1):
     state_b = tree_bytes(*state_trees)
     chunk_b = stream.chunk_bytes * stream.inflight_buffers(prefetch)
+    stats.devices = max(stats.devices, devices)
     stats.peak_device_bytes = max(stats.peak_device_bytes, state_b + chunk_b)
+    # Per rank: state replicated, chunk buffers split 1/D.
+    stats.peak_local_bytes = max(stats.peak_local_bytes, state_b + chunk_b // devices)
     stats.peak_host_bytes = max(stats.peak_host_bytes, stream.host_bytes(prefetch))
 
 
@@ -354,11 +463,18 @@ def _restored(resume: dict, key: str, device):
 
 def stream_detect(stream: EdgeChunkStream, n_nodes: int, cfg: ScodaConfig, *,
                   device, prefetch: int = 1, stats: StreamStats | None = None,
-                  tracer=None, ckpt=None, resume: dict | None = None):
+                  mesh=None, shard: bool = False, put=None, tracer=None,
+                  ckpt=None, resume: dict | None = None):
     """Multi-round SCoDA over the chunk stream; graph degrees are fused into
     the first pass. Returns (labels [n], scoda_deg [n], graph_deg [n]).
     ``tracer`` emits the ``detect``/``detect.round``/``detect.chunk`` span
     tree (None = process-global tracer).
+
+    With ``mesh`` + ``shard`` each rank reads the within-block slice of
+    every block (``block_chunk_spec``) and the updates run sharded
+    (bitwise the single-rank ones, ``core/scoda.py``); any ``put`` is then
+    superseded. It falls back to one rank unless the block size and the
+    chunk size divide by the rank count.
 
     ``ckpt`` (a ``resilience.StreamCheckpointer``) is notified at every
     chunk boundary with the resume cursor — the (round, chunk) of the next
@@ -366,9 +482,12 @@ def stream_detect(stream: EdgeChunkStream, n_nodes: int, cfg: ScodaConfig, *,
     payload of the detect state (``com``, ``deg`` and the graph-degree
     accumulator ``gdeg``, each [n+1]). ``resume`` is that payload plus the
     cursor (``{"round", "chunk", "com", "deg", "gdeg"}``, host arrays): the
-    loops pick up exactly there."""
+    loops pick up exactly there, on any rank count."""
     tr = tracer if tracer is not None else get_tracer()
     device = torch.device(device)
+    m = _effective_mesh(mesh, shard, cfg.block_size, stream.chunk_size)
+    spec = block_chunk_spec(m, cfg.block_size) if m is not None else None
+    d = m.size if m is not None else 1
     state = scoda_init(n_nodes, device)
     gdeg = torch.zeros(n_nodes + 1, dtype=torch.int32, device=device)
     start_round, start_chunk = 0, 0
@@ -376,21 +495,28 @@ def stream_detect(stream: EdgeChunkStream, n_nodes: int, cfg: ScodaConfig, *,
         start_round, start_chunk = int(resume["round"]), int(resume["chunk"])
         state = (_restored(resume, "com", device), _restored(resume, "deg", device))
         gdeg = _restored(resume, "gdeg", device)
-    with tr.span("detect", rounds=cfg.rounds, chunk_size=stream.chunk_size):
+    with tr.span("detect", rounds=cfg.rounds, chunk_size=stream.chunk_size, devices=d):
         for r in range(start_round, cfg.rounds):
             thr = round_threshold(cfg, r)
             c0 = start_chunk if r == start_round else 0
             with tr.span("detect.round", round=r):
                 for i, chunk in enumerate(
-                    stream.device_chunks(device, prefetch, stats, start=c0), start=c0
+                    stream.device_chunks(device, prefetch, stats, start=c0, spec=spec,
+                                         put=None if m is not None else put),
+                    start=c0,
                 ):
                     with tr.span("detect.chunk", round=r, chunk=i):
-                        if r == 0:
-                            gdeg = _degree_update(gdeg, chunk)
-                        state = scoda_update(state, chunk, thr, cfg)
+                        if m is not None:
+                            if r == 0:
+                                gdeg = _sharded_degree_update(gdeg, chunk, m)
+                            state = sharded_scoda_update(state, chunk, thr, cfg, m)
+                        else:
+                            if r == 0:
+                                gdeg = _degree_update(gdeg, chunk)
+                            state = scoda_update(state, chunk, thr, cfg)
                     if stats is not None:
                         stats.chunks += 1
-                        stats.edges_streamed += chunk.shape[0]
+                        stats.edges_streamed += chunk.shape[0] * d
                     if ckpt is not None:
                         last = i + 1 == stream.n_chunks
                         nr, nc = (r + 1, 0) if last else (r, i + 1)
@@ -399,7 +525,7 @@ def stream_detect(stream: EdgeChunkStream, n_nodes: int, cfg: ScodaConfig, *,
                                           "com": s[0], "deg": s[1], "gdeg": g})
     if stats is not None:
         stats.passes += cfg.rounds - start_round
-        _account_pass_peaks(stats, stream, prefetch, state, gdeg)
+        _account_pass_peaks(stats, stream, prefetch, state, gdeg, devices=d)
     labels, scoda_deg = scoda_finalize(state, n_nodes, cfg)
     return labels, scoda_deg, gdeg[:n_nodes]
 
@@ -409,12 +535,19 @@ def stream_supergraph(stream: EdgeChunkStream, labels, node_deg, n_nodes: int,
                       cms_cfg: cms_lib.CMSConfig, *, device, prefetch: int = 1,
                       stats: StreamStats | None = None,
                       with_modularity: bool = True, agg_backend: str = "merge",
+                      mesh=None, shard: bool = False, put=None,
                       tracer=None, ckpt=None, resume: dict | None = None):
     """One fused pass: superedge aggregation + modularity accumulation.
 
     CMS community sizing is node-keyed (one sketch update per node, weight =
     graph degree) and so needs no edge pass. Returns (Supergraph, Q) with Q
     None when ``with_modularity`` is false.
+
+    With ``mesh`` + ``shard`` each rank reads its contiguous C/D rows of
+    every chunk (``row_chunk_spec``), and the aggregation, modularity and
+    CMS updates run sharded (bitwise the single-rank ones); any ``put`` is
+    then superseded. It falls back to one rank unless the chunk size
+    divides by the rank count.
 
     ``ckpt``/``resume`` follow ``stream_detect``'s contract (cursor
     ``(0, i + 1)``). The payload carries the aggregation and modularity
@@ -424,12 +557,15 @@ def stream_supergraph(stream: EdgeChunkStream, labels, node_deg, n_nodes: int,
     """
     tr = tracer if tracer is not None else get_tracer()
     device = torch.device(device)
+    m = _effective_mesh(mesh, shard, stream.chunk_size)
+    spec = row_chunk_spec(m) if m is not None else None
+    d = m.size if m is not None else 1
     with tr.span("supergraph", chunk_size=stream.chunk_size, s_cap=s_cap,
-                 agg_backend=agg_backend):
+                 agg_backend=agg_backend, devices=d):
         labels_dense, n_supernodes = dense_labels(labels, n_nodes)
         with tr.span("supergraph.sizes"):
             sizes = community_sizes(
-                labels_dense, node_deg, n_supernodes, s_cap, cms_cfg
+                labels_dense, node_deg, n_supernodes, s_cap, cms_cfg, mesh=m
             )
         agg_ext = torch.cat(
             [labels_dense, torch.full((1,), s_cap, dtype=torch.int32, device=device)]
@@ -456,24 +592,32 @@ def stream_supergraph(stream: EdgeChunkStream, labels, node_deg, n_nodes: int,
             return out
 
         for i, chunk in enumerate(
-            stream.device_chunks(device, prefetch, stats, start=start_chunk),
+            stream.device_chunks(device, prefetch, stats, start=start_chunk, spec=spec,
+                                 put=None if m is not None else put),
             start=start_chunk,
         ):
             with tr.span("supergraph.chunk", chunk=i):
-                agg = agg_update(agg, chunk, agg_ext, s_cap, max_super_edges,
-                                 agg_backend)
-                if with_modularity:
-                    mod = modularity_update(mod, chunk, mod_ext)
+                if m is not None:
+                    agg = sharded_agg_update(agg, chunk, agg_ext, s_cap,
+                                             max_super_edges, agg_backend, m)
+                    if with_modularity:
+                        mod = sharded_modularity_update(mod, chunk, mod_ext, m)
+                else:
+                    agg = agg_update(agg, chunk, agg_ext, s_cap, max_super_edges,
+                                     agg_backend)
+                    if with_modularity:
+                        mod = modularity_update(mod, chunk, mod_ext)
             if stats is not None:
                 stats.chunks += 1
-                stats.edges_streamed += chunk.shape[0]
+                stats.edges_streamed += chunk.shape[0] * d
             if ckpt is not None:
                 ckpt.boundary("supergraph", 0, i + 1, i + 1 == stream.n_chunks,
                               lambda a=agg, md=mod: payload(a, md))
     if stats is not None:
         stats.passes += 1
         _account_pass_peaks(
-            stats, stream, prefetch, agg, mod, labels_dense, sizes, node_deg
+            stats, stream, prefetch, agg, mod, labels_dense, sizes, node_deg,
+            devices=d,
         )
     sedges, sweights, n_superedges = agg_finalize(agg)
     q = modularity_finalize(mod) if with_modularity else None
@@ -488,19 +632,27 @@ def stream_supergraph(stream: EdgeChunkStream, labels, node_deg, n_nodes: int,
     return sg, q
 
 
-def _find_resume(resume, checkpoint, fingerprint: str):
+def _find_resume(resume, checkpoint, fingerprint: str, mesh=None):
     """The newest checkpoint to resume from as ``(arrays, meta)``, or None.
 
     ``resume`` is True (the checkpointer's directory) or a directory path.
     A checkpoint without the resume cursor (its meta lost to a crash) is
-    walked back past; a fingerprint that differs from this run's raises."""
+    walked back past (and deleted); a fingerprint that differs from this
+    run's raises. With a mesh rank 0 walks first, the others after it, so
+    every rank reads the same file and none reads one being deleted."""
     if isinstance(resume, (str, os.PathLike)):
         ckpt_dir = os.fspath(resume)
     else:
         ckpt_dir = checkpoint.ckpt_dir if checkpoint is not None else None
     if not ckpt_dir:
         return None
-    found = restore_latest_valid(ckpt_dir, valid=lambda a, m: "chunk" in m)
+    found = None
+    if mesh is None or mesh.rank == 0:
+        found = restore_latest_valid(ckpt_dir, valid=lambda a, m: "chunk" in m)
+    if mesh is not None:
+        barrier(mesh)
+        if mesh.rank != 0:
+            found = restore_latest_valid(ckpt_dir, valid=lambda a, m: "chunk" in m)
     if found is not None:
         meta = found[1]
         if meta.get("fingerprint") and meta["fingerprint"] != fingerprint:
@@ -516,12 +668,19 @@ def stream_pipeline(source, n_nodes: int, scoda_cfg: ScodaConfig,
                     cms_cfg: cms_lib.CMSConfig, s_cap: int, max_super_edges: int,
                     stream_cfg: StreamConfig | None = None, *,
                     with_modularity: bool = True, tracer=None, checkpoint=None,
-                    resume=False, device=None):
+                    resume=False, device=None, put=None):
     """Edge source → (labels, graph degrees, Supergraph, Q, StreamStats).
 
     ``source`` is anything ``as_edge_store`` accepts: a host NumPy array, an
     ``EdgeStore``, a path to a ``.npy``/``.bin`` edge file or shard
-    directory, or a list of shard paths. ``device=None`` means CUDA.
+    directory, or a list of shard paths. ``device=None`` means CUDA, or the
+    mesh's device when ``stream_cfg.mesh`` is set. ``put`` replaces the
+    host→device copy of whole chunks in the passes that do not shard
+    (``launch.stream_runner.StreamRunner.put``).
+
+    With ``stream_cfg.mesh`` every rank calls this with the same arguments
+    and gets the same result (see the module docstring): the mesh's
+    ``shard_detect`` passes are bitwise the single-rank run's.
 
     ``checkpoint`` is a ``resilience.StreamCheckpointer``: the run then
     persists its streaming state at the checkpointer's cadence, stamped
@@ -532,15 +691,17 @@ def stream_pipeline(source, n_nodes: int, scoda_cfg: ScodaConfig,
     resume with no checkpoint on disk starts fresh. A resumed run is
     bit-identical to an uninterrupted one.
     """
-    device = resolve_device(device)
     store = as_edge_store(source)
     cfg = stream_cfg or StreamConfig(chunk_size=max(1, store.n_edges))
-    cfg.check_slice()
+    mesh = cfg.mesh if cfg.mesh is not None and cfg.mesh.size > 1 else None
+    device = resolve_device(device if device is not None or cfg.mesh is None
+                            else cfg.mesh.device)
     tr = tracer if tracer is not None else (
         cfg.obs if cfg.obs is not None else get_tracer()
     )
     stream = EdgeChunkStream(store, n_nodes, cfg.chunk_size,
-                             block_size=scoda_cfg.block_size, policy=cfg.validation)
+                             block_size=scoda_cfg.block_size, policy=cfg.validation,
+                             mesh=mesh)
     stats = StreamStats(chunk_size=stream.chunk_size)
     fingerprint = config_fingerprint(
         n_nodes=n_nodes, n_edges=store.n_edges, chunk_size=stream.chunk_size,
@@ -550,9 +711,10 @@ def stream_pipeline(source, n_nodes: int, scoda_cfg: ScodaConfig,
     )
     if checkpoint is not None:
         checkpoint.fingerprint = fingerprint
+        checkpoint.mesh = mesh
     resume_detect = resume_sg = None
     labels = gdeg = None
-    found = _find_resume(resume, checkpoint, fingerprint) if resume else None
+    found = _find_resume(resume, checkpoint, fingerprint, mesh) if resume else None
     if found is not None:
         arrays, meta = found
         if checkpoint is not None:
@@ -575,7 +737,8 @@ def stream_pipeline(source, n_nodes: int, scoda_cfg: ScodaConfig,
             t0 = time.perf_counter()
             labels, _scoda_deg, gdeg = stream_detect(
                 stream, n_nodes, scoda_cfg, device=device, prefetch=cfg.prefetch,
-                stats=stats, tracer=tr, ckpt=checkpoint, resume=resume_detect,
+                stats=stats, mesh=cfg.mesh, shard=cfg.shard_detect, put=put,
+                tracer=tr, ckpt=checkpoint, resume=resume_detect,
             )
             synchronize(device)
             stats.stage_seconds["detect_s"] = time.perf_counter() - t0
@@ -585,6 +748,7 @@ def stream_pipeline(source, n_nodes: int, scoda_cfg: ScodaConfig,
             stream, labels, gdeg, n_nodes, s_cap, max_super_edges, cms_cfg,
             device=device, prefetch=cfg.prefetch, stats=stats,
             with_modularity=with_modularity, agg_backend=cfg.agg_backend,
+            mesh=cfg.mesh, shard=cfg.shard_detect, put=put,
             tracer=tr, ckpt=checkpoint, resume=resume_sg,
         )
         synchronize(device)

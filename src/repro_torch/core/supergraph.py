@@ -161,6 +161,38 @@ def agg_update(state, chunk, labels_ext, s_cap: int, max_super_edges: int,
     return _agg_update_merge(state, a, b, w, s_cap)
 
 
+def sharded_agg_update(state, local, labels_ext, s_cap: int, max_super_edges: int,
+                       agg_backend: str, mesh):
+    """``agg_update`` of a chunk whose rows are spread over ``mesh``
+    (``local`` is this rank's [C/D, 2] share, ``row_chunk_spec``); state and
+    labels replicated, the result too.
+
+    Merge path: each rank maps and dedupes its own rows (the sort, D ways
+    parallel), one all-gather concatenates the local runs in rank order and
+    a second dedupe restores the single sorted run — the same unique pairs
+    with the same integer-valued summed weights as the one-rank dedupe, so
+    ``merge_combine`` (kernel K1) gets bitwise the same input, at capacity
+    overflow too. Lexsort path: the gathered rows are the chunk verbatim.
+    The all-invalid short-circuit reads the gathered (replicated) pairs, so
+    every rank takes the same branch."""
+    from repro_torch.sharding.collectives import all_gather_rows
+
+    if agg_backend not in ("merge", "lexsort"):
+        raise ValueError(f"unknown agg_backend {agg_backend!r}")
+    a, b, w = _chunk_pairs(local, labels_ext, s_cap)
+    if agg_backend == "merge":
+        a, b, w = _dedupe_chunk(a, b, w, s_cap)
+    # One gather of the three columns, the weights carried as their bits.
+    g = all_gather_rows(torch.stack([a, b, w.view(torch.int32)], dim=1), mesh)
+    ga, gb, gw = g[:, 0].contiguous(), g[:, 1].contiguous(), \
+        g[:, 2].contiguous().view(torch.float32)
+    if not bool((ga != s_cap).any()):
+        return state
+    if agg_backend == "lexsort":
+        return _agg_update_lexsort(state, ga, gb, gw, s_cap, max_super_edges)
+    return _agg_update_merge(state, ga, gb, gw, s_cap)
+
+
 def agg_finalize(state):
     """(sedges [cap,2], sweights [cap], n_superedges) from aggregation state."""
     a, b, w, n = state
@@ -184,13 +216,21 @@ def aggregate_edges(edges, labels_dense, s_cap: int, max_super_edges: int,
 
 
 def community_sizes(labels_dense, node_deg, n_supernodes, s_cap: int,
-                    cms_cfg: cms_lib.CMSConfig):
+                    cms_cfg: cms_lib.CMSConfig, mesh=None):
     """CMS-estimated community sizes (paper §4.1): one sketch update per node,
     weight = its true graph degree; queries beyond the live count are masked.
+
+    With a ``mesh`` of more than one rank the node keys are spread over the
+    ranks and the sketches summed (``cms.sharded_update``): exact, since
+    degrees are integer-valued.
     """
     dev = labels_dense.device
     sketch = cms_lib.init(cms_cfg, device=dev)
-    sketch = cms_lib.update(sketch, labels_dense, node_deg.to(torch.float32), cms_cfg)
+    weights = node_deg.to(torch.float32)
+    if mesh is not None and mesh.size > 1:
+        sketch = cms_lib.sharded_update(sketch, labels_dense, weights, cms_cfg, mesh)
+    else:
+        sketch = cms_lib.update(sketch, labels_dense, weights, cms_cfg)
     keys = torch.arange(s_cap, dtype=torch.int32, device=dev)
     sizes = cms_lib.query(cms_lib.finalize(sketch), keys, cms_cfg)
     return torch.where(keys < n_supernodes, sizes, 0.0)

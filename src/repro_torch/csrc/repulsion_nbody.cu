@@ -33,6 +33,14 @@
 //   meet themselves (block-uniform); a ragged slice end is padded with
 //   mass-0 sources, which add exactly 0.
 //
+// Row range (repulsion_nbody_rows): targets [row0, row0 + rows) against
+// all n sources, for the sharded layout's owned rows. The node blocks
+// start at row0, the scratch is [S, rows, 2] and the slices are those of
+// the whole n (source_slices(n, ...) in kernels/repulsion/ops.py), so each
+// row walks the same tiles in the same order and adds the same slices in
+// the same order as in the full launch: its bits do not depend on which
+// rows run beside it.
+//
 // Error against the plain version: eff and d are the plain version's bits,
 // the reciprocal errs by at most 2^-23 and m_j / kr*m_i round once each, so
 // a pair force differs by a few ulp of |f_ij|. Sums run over TILE sources,
@@ -87,11 +95,12 @@ __device__ __forceinline__ void tile_sum(const float4* src, int kend, int j0,
 template <bool RADII>
 __global__ void __launch_bounds__(THREADS)
 repulsion_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
-                 const float* __restrict__ radii, int n, float kr, int slices,
-                 float* __restrict__ part) {
+                 const float* __restrict__ radii, int n, int row0, int rows,
+                 float kr, int slices, float* __restrict__ part) {
   __shared__ float4 src[TILE];
   const int t = threadIdx.x;
-  const int b0 = blockIdx.x * NODES;  // this block's nodes: [b0, b0 + NODES)
+  const int b0 = row0 + blockIdx.x * NODES;  // this block's nodes: [b0, b0 + NODES)
+  const int row_end = row0 + rows;
   const int s = blockIdx.y;
   const long long tiles = (n + TILE - 1) / TILE;
   const int j_begin = (int)(s * tiles / slices) * TILE;
@@ -101,7 +110,7 @@ repulsion_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     i[r] = b0 + r * THREADS + t;
-    const bool live = i[r] < n;
+    const bool live = i[r] < row_end;
     x[r] = live ? pos[2 * i[r]] : 0.f;
     y[r] = live ? pos[2 * i[r] + 1] : 0.f;
     ri[r] = (live && RADII) ? radii[i[r]] : 0.f;
@@ -132,13 +141,13 @@ repulsion_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
     }
     __syncthreads();
   }
-  float* dst = part + (size_t)s * n * 2;
+  float* dst = part + (size_t)s * rows * 2;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    if (i[r] < n) {
+    if (i[r] < row_end) {
       const float kmi = kr * mass[i[r]];
-      dst[2 * i[r]] = kmi * fx[r];
-      dst[2 * i[r] + 1] = kmi * fy[r];
+      dst[2 * (i[r] - row0)] = kmi * fx[r];
+      dst[2 * (i[r] - row0) + 1] = kmi * fy[r];
     }
   }
 }
@@ -155,30 +164,41 @@ __global__ void sum_slices(const float* __restrict__ part, int slices, int len,
 
 }  // namespace
 
-// scratch: [slices, n, 2] float32, unused (may be null) when slices == 1,
-// in which case the one slice is written to out directly.
-extern "C" int repulsion_nbody(const void* pos, const void* mass,
-                               const void* radii, int n, float kr,
-                               int use_radii, int slices, void* scratch,
-                               void* out, void* stream) {
-  if (n > 0 && slices > 0) {
+// Targets [row0, row0 + rows) of n, out [rows, 2]. scratch: [slices,
+// rows, 2] float32, unused (may be null) when slices == 1, in which case
+// the one slice is written to out directly.
+extern "C" int repulsion_nbody_rows(const void* pos, const void* mass,
+                                    const void* radii, int n, int row0, int rows,
+                                    float kr, int use_radii, int slices,
+                                    void* scratch, void* out, void* stream) {
+  if (row0 < 0 || rows < 0 || row0 > n - rows) return (int)cudaErrorInvalidValue;
+  if (rows > 0 && slices > 0) {
     cudaStream_t st = (cudaStream_t)stream;
     float* part = slices == 1 ? (float*)out : (float*)scratch;
-    const dim3 grid((n + NODES - 1) / NODES, slices);
+    const dim3 grid((rows + NODES - 1) / NODES, slices);
     if (use_radii)
       repulsion_kernel<true><<<grid, THREADS, 0, st>>>(
-          (const float*)pos, (const float*)mass, (const float*)radii, n, kr,
-          slices, part);
+          (const float*)pos, (const float*)mass, (const float*)radii, n, row0,
+          rows, kr, slices, part);
     else
       repulsion_kernel<false><<<grid, THREADS, 0, st>>>(
-          (const float*)pos, (const float*)mass, (const float*)radii, n, kr,
-          slices, part);
+          (const float*)pos, (const float*)mass, (const float*)radii, n, row0,
+          rows, kr, slices, part);
     if (slices > 1) {
-      const int len = 2 * n;
+      const int len = 2 * rows;
       sum_slices<<<(len + 255) / 256, 256, 0, st>>>(part, slices, len, (float*)out);
     }
   }
   return (int)cudaGetLastError();
+}
+
+// All n targets: the row range [0, n).
+extern "C" int repulsion_nbody(const void* pos, const void* mass,
+                               const void* radii, int n, float kr,
+                               int use_radii, int slices, void* scratch,
+                               void* out, void* stream) {
+  return repulsion_nbody_rows(pos, mass, radii, n, 0, n, kr, use_radii, slices,
+                              scratch, out, stream);
 }
 
 extern "C" const char* repulsion_nbody_error_string(int code) {

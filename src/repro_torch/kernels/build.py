@@ -41,11 +41,13 @@ KERNELS = ("merge_scatter", "repulsion_nbody", "count_scatter", "disk_accum",
 # launches its kernel, and nowhere else (a run reads them to show which
 # kernels its path went through; set them to 0 before the run). A library's
 # first entry is counted under the library's name; its other entries apart:
-# K1's generic scatter_combine (merge_scatter), K3's small-disk entry
-# count_disks (count_scatter) and K8's keys-in entry cms_update_keys
-# (cms_update; "cms_update" counts the hashed entry).
+# K1's generic scatter_combine (merge_scatter), K2's and K6's row-range
+# entries repulsion_rows and near_field_rows (repulsion_nbody, near_field),
+# K3's small-disk entry count_disks (count_scatter) and K8's keys-in entry
+# cms_update_keys (cms_update; "cms_update" counts the hashed entry).
 LAUNCHES = dict.fromkeys(
-    KERNELS + ("scatter_combine", "count_disks", "cms_update_keys"), 0)
+    KERNELS + ("scatter_combine", "repulsion_rows", "near_field_rows", "count_disks",
+               "cms_update_keys"), 0)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

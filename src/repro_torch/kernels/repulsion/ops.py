@@ -7,6 +7,12 @@ The kernel splits the source axis into ``source_slices(n, sms)`` slices so
 that the card fills at the supergraph's sizes; each slice's partial forces
 go to a ``[S, n, 2]`` scratch buffer allocated here, which the kernel's
 second pass adds in slice order.
+
+``repulsion_rows`` computes only the targets ``[i0, i0 + nl)`` against all
+n sources (the sharded layout's owned rows): the kernel's row-range entry
+on the card, with the slices of the whole n and a ``[S, nl, 2]`` scratch,
+so its rows are bitwise those of the full launch; on the CPU the rows of
+the same plain version ``repulsion`` takes.
 """
 from __future__ import annotations
 
@@ -16,10 +22,17 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.repulsion.ref import repulsion_chunked, repulsion_ref
+from repro_torch.kernels.repulsion.ref import (
+    repulsion_chunked,
+    repulsion_chunked_rows,
+    repulsion_ref,
+)
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int
+] + [ctypes.c_void_p] * 3
+_ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int
 ] + [ctypes.c_void_p] * 3
 
 # The kernel's geometry (csrc/repulsion_nbody.cu): nodes per block and
@@ -86,4 +99,41 @@ def repulsion(pos, mass, kr: float, radii=None):
         )
     build.check("repulsion_nbody", code)
     build.LAUNCHES["repulsion_nbody"] += 1
+    return out
+
+
+def repulsion_rows(pos, mass, i0: int, nl: int, kr: float, radii=None):
+    """Rows ``[i0, i0 + nl)`` of ``repulsion(pos, mass, kr, radii)`` → [nl, 2],
+    bitwise, computing only those rows' forces (on the CPU at n ≤ 2048 the
+    dense plain version is cheap enough to run whole and slice)."""
+    dev = pos.device
+    n = pos.shape[0]
+    if not 0 <= i0 <= n - nl or nl < 0:
+        raise ValueError(f"repulsion_rows: rows [{i0}, {i0 + nl}) outside [0, {n})")
+    if dev.type == "cpu":
+        if n <= 2048:
+            return repulsion_ref(pos, mass, kr, radii=radii)[i0:i0 + nl]
+        return repulsion_chunked_rows(pos, mass, i0, nl, kr, radii=radii)
+    if dev.type != "cuda":
+        raise ValueError(f"repulsion_rows: unsupported device {dev}")
+    build.require(pos, "pos", torch.float32, dev, (n, 2))
+    build.require(mass, "mass", torch.float32, dev, (n,))
+    if radii is not None:
+        build.require(radii, "radii", torch.float32, dev, (n,))
+    out = torch.empty((nl, 2), dtype=torch.float32, device=dev)
+    slices = source_slices(n, _sm_count(dev.index if dev.index is not None
+                                        else torch.cuda.current_device()))
+    scratch = (torch.empty((slices, nl, 2), dtype=torch.float32, device=dev)
+               if slices > 1 else None)
+    fn = build.entry("repulsion_nbody", _ROWS_ARGTYPES, "repulsion_nbody_rows")
+    with torch.cuda.device(dev):
+        code = fn(
+            build.ptr(pos), build.ptr(mass),
+            build.ptr(radii) if radii is not None else None,
+            n, int(i0), int(nl), float(kr), int(radii is not None), slices,
+            build.ptr(scratch) if scratch is not None else None,
+            build.ptr(out), build.stream(dev),
+        )
+    build.check("repulsion_nbody", code)
+    build.LAUNCHES["repulsion_rows"] += 1
     return out

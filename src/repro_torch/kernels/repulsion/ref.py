@@ -12,6 +12,9 @@ radii (paper §4.1: big communities get space ∝ √size):
 in fixed chunks with the same per-pair arithmetic, so its live memory is
 O(n · chunk) — the form the CPU runs above 2048 nodes and the plain
 version the chip smoke holds the kernel against at full width.
+``repulsion_chunked_rows`` is rows ``[i0, i0 + nl)`` of it (the sharded
+layout's form), bitwise those rows: each row's sum runs over the same
+j-chunks in the same order whichever rows are computed beside it.
 """
 from __future__ import annotations
 
@@ -55,5 +58,27 @@ def repulsion_chunked(pos, mass, kr: float, radii=None, chunk: int = 1024):
         acc += _pair_sum(
             pos, mass, r, pos[j0:j1], mass[j0:j1], r[j0:j1], same, kr,
             radii is not None,
+        )
+    return acc
+
+
+def repulsion_chunked_rows(pos, mass, i0: int, nl: int, kr: float, radii=None,
+                           chunk: int = 1024):
+    """Rows ``[i0, i0 + nl)`` of ``repulsion_chunked`` → [nl, 2], without
+    the other rows: the same j-chunks, per-pair arithmetic and in-chunk
+    sums, with the self pair masked by global index. Keep the body in
+    lockstep with ``repulsion_chunked``: the sharded layout's bitwise
+    agreement with one rank rests on it."""
+    n = pos.shape[0]
+    r = radii if radii is not None else mass
+    rows = slice(i0, i0 + nl)
+    idx = torch.arange(n, device=pos.device)
+    acc = torch.zeros((nl, 2), dtype=pos.dtype, device=pos.device)
+    for j0 in range(0, n, chunk):
+        j1 = min(n, j0 + chunk)
+        same = idx[rows, None] == idx[None, j0:j1]
+        acc += _pair_sum(
+            pos[rows], mass[rows], r[rows], pos[j0:j1], mass[j0:j1], r[j0:j1],
+            same, kr, radii is not None,
         )
     return acc

@@ -1,5 +1,7 @@
 """Command-line launchers: ``serve`` (the tile-pyramid service),
-``render_runner`` (pipeline + streaming rasterizer) and ``layout`` (the
-paper's end-user command). Each runs on CUDA unless given ``--device cpu``,
+``render_runner`` (pipeline + streaming rasterizer), ``layout`` (the
+paper's end-user command) and ``stream_runner`` (the streaming engine, on
+one rank or several). Each runs on CUDA unless given ``--device cpu``,
 and takes the shared ``--trace-out``/``--metrics-out``/``--profile`` flags
-(``repro_torch.obs.cli``)."""
+(``repro_torch.obs.cli``). ``mesh`` builds the multi-device mesh
+(``make_stream_mesh``, ``spawn_local``)."""

@@ -239,6 +239,14 @@ class StreamCheckpointer:
     ``host_s`` and ``write_s`` add up the seconds of the saves: taking the
     payload to the host (which waits for the device's queued work) and
     writing the npz; ``last_bytes`` is the size of the last payload.
+
+    ``mesh`` (a ``launch.mesh.StreamMesh`` of several ranks; set by
+    ``stream_pipeline`` from its config) makes the checkpointer one of a
+    group: every rank calls ``boundary`` at the same boundaries, a SIGTERM
+    seen by any rank is agreed by all before any acts on it, rank 0 alone
+    writes (the state is replicated, and stored unsharded as in the
+    reference), and the others wait at a barrier until the file is there.
+    Every rank counts the save.
     """
 
     ckpt_dir: str
@@ -247,6 +255,7 @@ class StreamCheckpointer:
     fingerprint: str = ""
     exit_on_preempt: bool = False
     on_boundary: Callable | None = None
+    mesh: object = None
     _seq: int = field(default=0, repr=False)
     _preempted: bool = field(default=False, repr=False)
     saves: int = field(default=0, repr=False)
@@ -280,11 +289,22 @@ class StreamCheckpointer:
         # save (where a boundary spends most of its time) stays pending for
         # the next boundary instead of being cleared by it.
         preempted, self._preempted = self._preempted, False
+        if self.mesh is not None:
+            from repro_torch.sharding.collectives import any_rank
+
+            preempted = any_rank(preempted, self.mesh)
         if preempted or self.want_save(at_round_boundary):
-            t0 = time.perf_counter()
-            arrays = {k: _to_numpy(v) for k, v in payload().items()}
-            self.host_s += time.perf_counter() - t0
-            self.save(phase, rnd, chunk, arrays)
+            if self.mesh is None or self.mesh.rank == 0:
+                t0 = time.perf_counter()
+                arrays = {k: _to_numpy(v) for k, v in payload().items()}
+                self.host_s += time.perf_counter() - t0
+                self.save(phase, rnd, chunk, arrays)
+            if self.mesh is not None:
+                from repro_torch.sharding.collectives import barrier
+
+                if self.mesh.rank != 0:
+                    self.saves += 1
+                barrier(self.mesh)
         if preempted and self.exit_on_preempt:
             raise Preempted(
                 f"preempted: checkpoint written at {phase} round {rnd} "

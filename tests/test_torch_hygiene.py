@@ -58,7 +58,9 @@ def test_every_module_imports_without_jax_or_reference():
                  "repro_torch.launch.layout", "repro_torch.launch.stream_runner",
                  "repro_torch.resilience", "repro_torch.resilience.checkpoint",
                  "repro_torch.resilience.validate", "repro_torch.resilience.chaos",
-                 "repro_torch.resilience.fault_tolerance"):
+                 "repro_torch.resilience.fault_tolerance", "repro_torch.sharding",
+                 "repro_torch.sharding.rules", "repro_torch.sharding.collectives",
+                 "repro_torch.launch.mesh"):
         assert name in walked, name
 
 
@@ -123,20 +125,27 @@ def test_launchers_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, l
 
 
 def test_unported_knobs_raise_naming_the_roadmap(tmp_path):
-    """Only the multi-device knobs are left unported: each raises naming
-    item 14. Checkpoint/resume and validated reads run."""
+    """No knob is left unported: the multi-device knobs (a mesh of one rank
+    here; tests/test_torch_sharded.py runs several), checkpoint/resume and
+    validated reads run, and each gives the unsharded labels."""
     import repro_torch
     from repro_torch.graph.generators import planted_partition
+    from repro_torch.launch.mesh import make_stream_mesh
     from repro_torch.resilience import StreamCheckpointer, ValidationPolicy
 
     edges, _ = planted_partition(60, 3, 0.3, 0.02, seed=0)
     cfg = repro_torch.default_config(60, len(edges), 3, iterations=2)
-    for scfg in (repro_torch.StreamConfig(mesh=object()),
-                 repro_torch.StreamConfig(shard_detect=True),
-                 repro_torch.StreamConfig(shard_layout=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-            repro_torch.biggraphvis(edges, 60, cfg, scfg, device="cpu")
     want = repro_torch.biggraphvis(edges, 60, cfg, device="cpu")
+    mesh = make_stream_mesh(device="cpu")
+    assert (mesh.rank, mesh.size) == (0, 1)
+    for scfg in (repro_torch.StreamConfig(mesh=mesh),
+                 repro_torch.StreamConfig(shard_detect=True),
+                 repro_torch.StreamConfig(mesh=mesh, shard_detect=True,
+                                          shard_layout=True)):
+        got = repro_torch.biggraphvis(edges, 60, cfg, scfg, device="cpu")
+        np.testing.assert_array_equal(got.labels, want.labels)
+        np.testing.assert_array_equal(got.positions, want.positions)
+        assert got.stream.devices == 1
     ck = StreamCheckpointer(str(tmp_path))
     for kwargs in ({"checkpoint": ck}, {"checkpoint": ck, "resume": True},
                    {"resume": str(tmp_path)}):
@@ -163,21 +172,25 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
 
     before = dict(build.LAUNCHES)
     # One counter per library, and one more for each library's other entry:
-    # K1's generic scatter, K3's small-disk entry, K8's keys-in entry.
-    extra = {"scatter_combine", "count_disks", "cms_update_keys"}
-    assert set(before) == set(build.KERNELS) | extra and len(before) == 11
+    # K1's generic scatter, K2's and K6's row ranges, K3's small-disk entry,
+    # K8's keys-in entry.
+    extra = {"scatter_combine", "repulsion_rows", "near_field_rows", "count_disks",
+             "cms_update_keys"}
+    assert set(before) == set(build.KERNELS) | extra and len(before) == 13
     i = torch.zeros(4, dtype=torch.int32)
     f = torch.zeros(4)
     p = torch.zeros(4, 2)
     merge_ops.scatter_combine(i, i, i, f, 4)
     merge_ops.merge_place(i, i, i, f, i, i, i, f, 4)
     rep_ops.repulsion(p, f, 80.0)
+    rep_ops.repulsion_rows(p, f, 1, 2, 80.0)
     raster_ops.count_scatter_into(i.clone(), i)
     raster_ops.count_disks_into(torch.zeros(11, 3, 3, dtype=torch.int32), f, f, f, i, 11)
     raster_ops.disk_accum(f, f, f, i, 11, 3, 3)
     raster_ops.disk_accum_into(torch.zeros(11, 3, 3, dtype=torch.int32), f, f, f, i, 11)
     grid_ops.far_field(p, f, i, p, f, 80.0)
     grid_ops.near_field_sorted(p, f, i, 80.0, 2)
+    grid_ops.near_field_rows(p, f, i, 80.0, 2, 1, 2)
     seg_ops.segment_sum(p, i, 4)
     cfg = cms_lib.CMSConfig(rows=2, cols=8)
     cms_ops.update(cms_lib.init_sketch(cfg), i, f, cfg)
@@ -187,6 +200,11 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     m = torch.zeros(4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         rep_ops.repulsion(torch.zeros(4, 2, device="meta"), m, 80.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rep_ops.repulsion_rows(torch.zeros(4, 2, device="meta"), m, 0, 2, 80.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        grid_ops.near_field_rows(torch.zeros(4, 2, device="meta"), m, i.to("meta"),
+                                 80.0, 2, 0, 2)
     with pytest.raises(ValueError, match="unsupported device"):
         seg_ops.segment_sum(torch.zeros(4, 3, device="meta"), i.to("meta"), 4)
     im = i.to("meta")
