@@ -59,11 +59,12 @@ Phases, each printing its wall seconds:
                against direct ``render_arrays`` on the card, one within ±1
                of the CPU's; one drill's groups bitwise, its positions
                within 1e-4·max|pos| of the CPU's after 4 iterations and its
-               layout quality within 1 % after its 60 (not its image: the
-               attraction's float atomics make it vary on the card, and
-               FA2 amplifies that over 60 iterations); no kernel build
-               during a trace; no failed tile; the cold trace launches K3's
-               two entries and, through the drills, K1, K8 and K2.
+               layout quality within 1 % after its 60 (not its image: K2
+               rounds differently from its plain version, and FA2
+               amplifies that over 60 iterations), its 60 iterations
+               bitwise run to run on the card; no kernel build during a
+               trace; no failed tile; the cold trace launches K3's two
+               entries and, through the drills, K1, K8, K2 and K7.
 7. launchers — ``repro_torch.launch.serve``, ``render_runner`` and ``layout``
                at a small size, at once, each a subprocess on the card by
                default with ``--trace-out`` and ``--metrics-out`` (serve
@@ -105,8 +106,8 @@ Phases, each printing its wall seconds:
                of 101) and resumed through ``biggraphvis(..., resume=True)``
                + ``render`` with the counters set to 0 just before and read
                just after (labels, graph degrees, sizes and supergraph
-               bitwise against phase 4, Q within 1e-6, positions within
-               ``RESUME_POS_TOL``, the image written, K1, K2, K3, K4 and K8
+               bitwise against phase 4, Q within 1e-6, positions bitwise,
+               the image written, K1, K2, K3, K4, K7 and K8
                launched); a ``stream_pipeline`` run is killed after a save
                inside the supergraph pass and resumed (bitwise against an
                uninterrupted one, Q too); a validated run through
@@ -117,6 +118,24 @@ Phases, each printing its wall seconds:
                saves, bytes per checkpoint, seconds per save (to the host,
                and the npz write) and the resumed run's wall time beside
                phase 4's, each with the card's name and power limit.
+12. dry-run cells — the BigGraphVis cells of
+               ``repro_torch.configs.biggraphvis`` at the reference's padded
+               shapes through ``launch.steps.build_bgv_step``
+               (``dry_run_phase``): detect on this graph and on a
+               soc-LiveJournal-sized one made on the card, the exact and
+               grid layout steps at the paper's supernode counts; each
+               bitwise run to run, against the CPU or a direct ``fa2.step``,
+               with its step time.
+13. models   — yi-6b at full width and depth through ``LMEngine`` (16
+               requests on 8 slots × 2,048 positions, teacher-forced against
+               a prefill, each request's tokens equal to its solo run's),
+               granite-moe-1b-a400m, both LMs at 2 layers against the CPU,
+               SASRec's serve and retrieval cells, gin-tu and gat-cora
+               (``models_phase``): tokens/s, ms per decode step, peak memory.
+
+Every layout on the card (main path, full path, drills, resumed and
+sharded runs) is held bitwise run to run: FA2's attraction sums in a fixed
+order through kernel K7's per-edge entry.
 
 It then prints the ``kernels`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
@@ -163,13 +182,9 @@ LAUNCHER_TIMEOUT = 300  # seconds, for the three small launcher runs together
 # chunk leaves hundreds of boundaries between the first save and the end.
 STREAM_RUNNER_ARGS = ["--nodes", "20000", "--communities", "200", "--chunk", "1024",
                       "--block-size", "1024", "--iterations", "20"]
-# Positions of a resumed main path against phase 4's, per max|pos|. FA2's
-# attraction adds with float atomics on the card, so two runs need not agree
-# bitwise: the drills of the serve phase drift by up to 3.6e-3·max|pos| over
-# 60 iterations (PERF.md §6). On an H100 80GB HBM3 at 700 W the main path's
-# own run-to-run drift and the resumed run's were both 0.0; the phase prints
-# both beside this tolerance.
-RESUME_POS_TOL = 1e-2
+# Positions of the card's layouts are held bitwise run to run, and a resumed
+# or sharded run bitwise against its single-rank, uninterrupted run: FA2's
+# attraction sums in a fixed order (kernel K7), as K2, K5 and K6 do.
 # The multi-device phase: ranks of one process each, sharing the card under
 # gloo (NCCL refuses two ranks on one card). The grid force pass runs the
 # full graph for 20 iterations, cut from the full path's 500 for time; the
@@ -177,17 +192,26 @@ RESUME_POS_TOL = 1e-2
 # done after MD_TIMEOUT seconds is killed and fails the phase.
 MD_RANKS, MD_GRID_ITERATIONS, MD_RUNNER_RANKS, MD_TIMEOUT = 2, 20, 4, 600
 MD_SAVE_EVERY = 8  # chunks between the 4-rank run's checkpoints
-# The grid force pass's positions, sharded against single-rank, per
-# max|pos|. At 685,230 nodes the single-rank layout is not bitwise from run
-# to run on the card (the attraction's index_add_ adds with float atomics):
-# two single-rank runs of 20 iterations differed by 4.3e-4·max|pos| on an
-# H100 80GB HBM3 at 700 W, above 1e-4. So the sharded run is held to the
-# tolerance of runs that differ by those atomics (RESUME_POS_TOL), the
-# single-rank pair's difference is printed beside it, and the sharding
-# itself is held by the first iteration's forces: gravity and repulsion
-# bitwise, the total within 1e-6 of each row.
-MD_GRID_POS_TOL = RESUME_POS_TOL
 MD_RUNNER_ARGS = ["--shard", "all", "--backend", "gloo"]
+# The dry-run cells: soc-LiveJournal's counts (src/repro/configs/
+# biggraphvis.py:46-49), made on the card in blocks of LJ_BLOCK nodes.
+LJ_NODES, LJ_EDGES, LJ_BLOCK, LJ_P_IN = 3_997_962, 34_681_189, 20, 0.9
+# The layout cells' supergraphs: the paper's supernode and superedge counts
+# (Table 1), under the reference's padded shapes.
+LAYOUT_REAL = {"layout_berkstan": (31_213, 57_382), "layout_livejournal": (248_188, 566_160)}
+# The models phase. LMEngine's slots and positions; the teacher-forced
+# gate's tolerance on |decode − prefill| logits by activation type. Decode
+# runs its products with M = slots, prefill with M = tokens: cuBLAS picks
+# other algorithms, which round differently. Measured on an H100 80GB HBM3
+# at 700 W (PERF.md §6, PR 21): bfloat16 0.1016 (yi-6b, 32 layers), float32
+# 1.57e-5 (yi-6b at 2 layers) and 6.9e-6 (granite, 24 layers); the
+# tolerances are about 3× and 6× those.
+ENGINE_SLOTS, ENGINE_LEN = 8, 2048
+TF_TOL = {"float32": 1e-4, "bfloat16": 0.3}
+# Card against CPU, float32 (TF32 off), per max|out|: the two sides'
+# products and reductions add in different orders. Measured: LM logits
+# 2.2e-6, SASRec scores 1.4e-6, GNN outputs 3.9e-7.
+LM_CPU_TOL, SAS_TOL, GNN_TOL = 2e-5, 1e-5, 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32 rate
 # outside the tensor cores (a fused multiply-add counts as two operations).
@@ -261,14 +285,20 @@ KERNELS = {
                         "near_field_rows", "multi"),
     "segment_sum": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
                     "segment_sum", "full"),
+    # K7's per-edge entry: FA2's attraction (the main path's supergraph,
+    # the full path's 13.2 M directed edges) and the GNN's message sums.
+    "segment_sum_edges": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
+                          "segment_sum_edges", "main"),
+    "segment_sum_edges_full": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
+                               "segment_sum_edges", "full"),
     # K8: keys hashed in the kernel (core.cms.update), and buckets given.
     "cms_update_keys": ("cms_update", _CMS, "cms_update_keys", "main"),
     "cms_update": ("cms_update", _CMS, "cms_update", None),
 }
-# Counters the main path must move; on the full path K5–K7 launch once per
-# iteration and K3's raw entry once per edge chunk.
+# Counters the main path must move; on the full path K5–K7 (both of K7's
+# entries) launch once per iteration and K3's raw entry once per edge chunk.
 MAIN_KERNELS = {c for _, _, c, path in KERNELS.values() if path == "main"}
-FULL_KERNELS = ("far_field", "near_field", "segment_sum")
+FULL_KERNELS = ("far_field", "near_field", "segment_sum", "segment_sum_edges")
 NO_LIBRARY = "none: no single PyTorch call computes it"
 
 
@@ -1139,6 +1169,7 @@ class Capture:
             (grid_ops, "far_field", "far_field", 0, True),
             (grid_ops, "near_field_sorted", "near_field", 0, True),
             (seg_ops, "segment_sum", "segment_sum", 0, True),
+            (seg_ops, "segment_sum_edges", "segment_sum_edges", 0, True),
             (cms_lib, "update", "cms_update", 1, False),
         ]
         # Arguments recorded by shape only (a "meta" tensor): the node
@@ -1232,13 +1263,17 @@ def main_path(torch, np, cap: Capture, edges, delta):
         with cap.recording():
             rec, rec_image, _ = drive(png)
         torch.cuda.synchronize()
-    # Labels and the supergraph are deterministic; positions are not quite
-    # (the attraction's float index_add_ runs on atomics).
+    # Every output is deterministic: labels, the supergraph, the layout
+    # (the attraction sums in a fixed order, K7) and so the image.
     check(np.array_equal(rec.labels, res.labels)
           and rec.n_superedges == res.n_superedges and rec_image.shape == image.shape,
           "recording run differs from the measured run")
-    drift = float(np.abs(rec.positions - res.positions).max())
-    log(f"positions run to run: max|Δ| {drift} of {float(np.abs(res.positions).max())}")
+    bitwise = bool(np.array_equal(rec.positions.view(np.uint8), res.positions.view(np.uint8)))
+    log(f"main path layout bitwise run to run: {bitwise} (max|Δ| "
+        f"{float(np.abs(rec.positions - res.positions).max())} of "
+        f"{float(np.abs(res.positions).max())})")
+    check(bitwise, "main path: two runs' positions differ")
+    check(np.array_equal(rec_image, image), "main path: two runs' images differ")
     n_sn = res.n_supernodes
     s_layout = min(max(1 << (max(n_sn, 2) - 1).bit_length(), 64), cfg.s_cap)
     log(f"n_supernodes {n_sn} n_superedges {res.n_superedges} s_layout {s_layout} "
@@ -1269,13 +1304,16 @@ def main_path(torch, np, cap: Capture, edges, delta):
     for k in sorted(MAIN_KERNELS):
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
     check(launches["cms_update_keys"] == 1, "K8 did not launch once on the main path")
+    its = res.timings["layout_iterations"]
+    check(launches["segment_sum_edges"] == its,
+          f"K7's attraction launched {launches['segment_sum_edges']} times in {its} iterations")
     check(peak <= MAIN_PEAK_BYTES, f"main-path peak {peak} bytes above {MAIN_PEAK_BYTES}")
     # The serve phase takes this result; its supergraph waits on the host so
     # that the full path's peak memory counts nothing of it.
     res.supergraph = dataclasses.replace(
         res.supergraph, **{f.name: getattr(res.supergraph, f.name).cpu()
                            for f in dataclasses.fields(res.supergraph)})
-    return launches, wall, res, cfg, drift
+    return launches, wall, res, cfg
 
 
 # ------------------------------------------------------------- phase 5
@@ -1348,6 +1386,18 @@ def full_path(torch, np, cap: Capture, edges, delta, main_wall: float):
     check(frac >= 0.01, f"full image is {frac:.4f} non-background (< 1%)")
     check((counts > 0).sum() >= 3, "full image shows fewer than 3 palette colors")
 
+    # The whole path again: the layout must be the same bits (every force
+    # kernel and the attraction's sum add in a fixed order).
+    again, again_groups = repro_torch.full_layout_colored(edges, n, cfg,
+                                                          iterations=FULL_ITERATIONS,
+                                                          device="cuda")
+    bitwise = bool(np.array_equal(again.view(np.uint8), pos.view(np.uint8)))
+    log(f"full path layout bitwise run to run: {bitwise} (max|Δ| "
+        f"{float(np.abs(again - pos).max())} of {float(np.abs(pos).max())})")
+    check(bitwise and np.array_equal(again_groups, groups),
+          "full path: two runs' positions or groups differ")
+    del again, again_groups
+
     t0 = time.perf_counter()
     pos0 = fa2.init_positions(n, torch.Generator().manual_seed(cfg.layout.seed)).numpy()
     q = {name: layout_quality(np, p, edges, n) for name, p in (("initial", pos0), ("final", pos))}
@@ -1391,7 +1441,8 @@ def record_render_inputs(cap: Capture, edges, pos, groups):
 def record_grid_inputs(torch, cap: Capture, edges, pos):
     """One grid iteration from the full path's final layout ``pos``,
     through ``repro_torch.layout``, recording K5–K7's inputs in ``cap``
-    (outside any measured run)."""
+    (outside any measured run); K7's attraction input under
+    ``"segment_sum_edges@full"``, beside the main path's."""
     import repro_torch
     from repro_torch.core import forceatlas2 as fa2
     from repro_torch.graph.utils import degrees, pad_edges
@@ -1404,10 +1455,13 @@ def record_grid_inputs(torch, cap: Capture, edges, pos):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    main_edges = cap.calls.pop("segment_sum_edges")
     with cap.recording():
         repro_torch.layout(edges_t, torch.ones(e, device="cuda"), mass, n, lcfg,
                            pos0=torch.as_tensor(pos, device="cuda"), device="cuda")
     torch.cuda.synchronize()
+    cap.calls["segment_sum_edges@full"] = cap.calls.pop("segment_sum_edges")
+    cap.calls["segment_sum_edges"] = main_edges
     log(f"one grid layout iteration at full width: peak {torch.cuda.max_memory_allocated() - base} "
         f"bytes above its {base} bytes of inputs (recorded copies included)")
 
@@ -1568,10 +1622,11 @@ def serve_phase(torch, np, cap: Capture, edges, res, cfg):
     check(nonbg > 0.01, f"tile {top} is {nonbg:.4f} non-background")
     # A drill, card against CPU. Its groups are bitwise. Its positions are
     # held as the consistency phase holds them, within 1e-4·max|pos| after 4
-    # iterations of the drill's own config: over the drill's 60 iterations
-    # FA2's speed controller amplifies the attraction's float-atomic
-    # rounding differences far beyond that, so there the layout is held by
-    # its quality (neighbourhood preservation and stress within 1 %).
+    # iterations of the drill's own config: K2 rounds differently from its
+    # plain version, and over the drill's 60 iterations FA2's speed
+    # controller amplifies that far beyond 1e-4, so there the layout is
+    # held against the CPU by its quality (neighbourhood preservation and
+    # stress within 1 %), and on the card bitwise run to run.
     from repro_torch.quality import neighborhood_preservation, sampled_stress
 
     c = drills[0]
@@ -1581,6 +1636,13 @@ def serve_phase(torch, np, cap: Capture, edges, res, cfg):
         short = dataclasses.replace(tcfg, drill_iterations=its)
         drill[its] = {d: TilePyramid(res, short, source=edges, bgv_cfg=cfg,
                                      device=d).drill_layout(c) for d in ("cuda", "cpu")}
+    again = TilePyramid(res, tcfg, source=edges, bgv_cfg=cfg, device="cuda").drill_layout(c)
+    first = drill[tcfg.drill_iterations]["cuda"]
+    bitwise = all(np.array_equal(np.asarray(x).view(np.uint8), np.asarray(y).view(np.uint8))
+                  for x, y in zip(again, first))
+    log(f"serve drill {c}, {tcfg.drill_iterations} iterations on the card: bitwise run to "
+        f"run {bitwise}")
+    check(bitwise, f"drill {c}: two runs on the card differ")
     for its, on in drill.items():
         (sub_g, mem_g, pos_g, grp_g), (sub_c, mem_c, pos_c, grp_c) = on["cuda"], on["cpu"]
         check(np.array_equal(sub_g, sub_c) and np.array_equal(mem_g, mem_c), "drill subgraph")
@@ -1963,7 +2025,6 @@ def time_grid_kernels(torch, np, cap: Capture, row):
     from repro_torch.kernels.grid import ops as grid_ops
     from repro_torch.kernels.grid.ref import far_field_ref, near_field_ref
     from repro_torch.kernels.grid.ref import near_field_rows as near_field_rows_ref
-    from repro_torch.kernels.segment.ref import segment_sum_ref
 
     # K5, held per row against Σ_j |f_ij|.
     _, (pos, mass, cell, ccent, cmass, kr), _ = cap.calls["far_field"]
@@ -2029,25 +2090,11 @@ def time_grid_kernels(torch, np, cap: Capture, row):
         None, 0.0, band * 16 + nl * 8, rslots + K6_OPS_PER_PAIR * rpairs,
         f"n={n} rows [{i0}, {i0 + nl}) W={w} band_slots={rslots} same_cell_pairs={rpairs}")
 
-    # K7: bitwise against its plain version on the CPU and run to run,
-    # within its bound of the card's plain version. The library yardstick
-    # is index_add_ on the kept rows (filtered outside the timed span).
-    _, (data, seg, n_seg), kw = cap.calls["segment_sum"]
-    k7 = cap.fn("segment_sum")
-    worst = k7_check(torch, "full-path", data, seg, n_seg, kw.get("indices_are_sorted", False))
-    keep = (seg >= 0) & (seg < n_seg)
-    idx7, data7 = seg[keep].long(), data[keep]
-    out7 = torch.zeros((n_seg,) + tuple(data.shape[1:]), device=data.device)
-    largest = int(torch.bincount(idx7, minlength=n_seg).max())
-    log(f"K7 full-path worst |Δ| / 2γ(k−1)Σ|x| {worst}; largest segment {largest} rows")
-    e, d = data.shape[0], data.shape[1]
-    row("segment_sum",
-        cuda_ms(torch, lambda: k7(data, seg, n_seg, **kw), REPS),
-        cuda_ms(torch, lambda: segment_sum_ref(data, seg, n_seg), REPS),
-        cuda_ms(torch, lambda: out7.index_add_(0, idx7, data7), REPS),
-        0.0, e * (4 * d + 4) + n_seg * d * 4, e * d,
-        f"E={e} D={d} N={n_seg} largest_segment={largest}",
-        "index_add_ on the kept rows")
+    # K7's two entries: the cell statistics (full path), and the attraction
+    # on both paths.
+    for key, name in (("segment_sum", "segment_sum"), ("segment_sum_edges", "segment_sum_edges"),
+                      ("segment_sum_edges@full", "segment_sum_edges_full")):
+        time_k7(torch, cap, row, key, name)
 
     # K8 on the main path's CMS input. The hashed entry (the TPU kernel's
     # contract) with the keys hashed once, outside the timed span; its
@@ -2082,6 +2129,32 @@ def time_grid_kernels(torch, np, cap: Capture, row):
         cuda_ms(torch, lambda: cms_update_ref(sketch, cms_ops.hashed_buckets(keys, cfg), wv),
                 REPS),
         None, 0.0, n8 * 8 + 2 * sketch.numel() * 4, int(kept.sum()), shape)
+
+
+def time_k7(torch, cap: Capture, row, key: str, name: str):
+    """K7 on one recorded input: bitwise against its plain version on the
+    CPU and run to run, within its bound of the card's plain version. The
+    library yardstick is index_add_ on the kept rows (filtered outside the
+    timed span)."""
+    from repro_torch.kernels.segment.ref import segment_sum_ref
+
+    _, (data, seg, n_seg), kw = cap.calls[key]
+    k7 = cap.fn(key.split("@")[0])
+    worst = k7_check(torch, key, data, seg, n_seg, kw.get("indices_are_sorted", False))
+    keep = (seg >= 0) & (seg < n_seg)
+    idx7, data7 = seg[keep].long(), data[keep]
+    out7 = torch.zeros((n_seg,) + tuple(data.shape[1:]), device=data.device)
+    largest = int(torch.bincount(idx7, minlength=n_seg).max())
+    log(f"K7 {key} worst |Δ| / 2γ(k−1)Σ|x| {worst}; largest segment {largest} rows")
+    e, d = data.shape[0], data.shape[1]
+    row(name,
+        cuda_ms(torch, lambda: k7(data, seg, n_seg, **kw), REPS),
+        cuda_ms(torch, lambda: segment_sum_ref(data, seg, n_seg), REPS),
+        cuda_ms(torch, lambda: out7.index_add_(0, idx7, data7), REPS),
+        0.0, e * (4 * d + 4) + n_seg * d * 4, e * d,
+        f"E={e} D={d} N={n_seg} sorted={kw.get('indices_are_sorted', False)} "
+        f"largest_segment={largest}",
+        "index_add_ on the kept rows")
 
 
 # ------------------------------------------------------------- phase 10
@@ -2275,8 +2348,8 @@ def md_rank(mesh, npy: str, out_dir: str, delta: int) -> None:
     arrays["sketch"] = sketch.cpu().numpy()
 
     # 2. The grid force pass on the full graph: the first iteration's
-    # gathered forces (with and without the attraction's float atomics),
-    # then MD_GRID_ITERATIONS iterations.
+    # gathered forces (with and without the attraction), then
+    # MD_GRID_ITERATIONS iterations.
     lcfg = fa2.FA2Config(iterations=MD_GRID_ITERATIONS, repulsion="grid", grid_size=GRID,
                          grid_window=WINDOW, use_radii=False)
     pos0 = fa2.init_positions(n, torch.Generator().manual_seed(lcfg.seed), device=dev)
@@ -2347,11 +2420,9 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
        phase 4 launched it) on rank 0.
     2. The grid force pass on the full graph (grid 64, window 32, 20
        iterations from a seeded start): the first iteration's gathered
-       forces without the attraction bitwise the single-rank pass's, with
-       it within 1e-6 of each row's |f| (the attraction's ``index_add_``
-       adds with float atomics on the card), positions within
-       MD_GRID_POS_TOL·max|pos| of the single-rank layout, beside two
-       single-rank runs' own difference; K5, K6's row entry and K7
+       forces, with and without the attraction, and the positions after
+       the 20 iterations bitwise the single-rank pass's, and two
+       single-rank runs bitwise; K5, K6's row entry and K7 (both entries)
        launched on every rank.
     3. ``stream_runner --shard all --backend gloo`` under
        ``torch.distributed.run`` on MD_RUNNER_RANKS ranks: exit 0,
@@ -2437,7 +2508,7 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
             f"{la['repulsion_rows']}, K8 {la['cms_update_keys']}; K3 {la['count_scatter']} "
             f"+ {la['count_disks']}, K4 {la['disk_accum']}")
         ga = info["grid_launches"]
-        for k in ("far_field", "near_field_rows", "segment_sum"):
+        for k in ("far_field", "near_field_rows", "segment_sum", "segment_sum_edges"):
             check(ga[k] > 0, f"multi-device rank {r}: {k} was not launched in the grid pass")
         check(ga["near_field"] == 0, f"multi-device rank {r}: the full K6 launched")
     lead = ranks[0][1]
@@ -2464,8 +2535,6 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
     f0 = fa2.force_pass(m, radii, src, dst, torch.zeros_like(w2), n, lcfg)(p, 0).cpu().numpy()
     pos1, _, _ = fa2.layout(e_dev, w, mass, n, lcfg, pos0=pos0, device=dev)
     pos1 = pos1.cpu().numpy()
-    # The single-rank layout's own run-to-run difference (float atomics in
-    # the attraction), printed beside the sharded one's.
     again, _, _ = fa2.layout(e_dev, w, mass, n, lcfg, pos0=pos0, device=dev)
     drift1 = float(np.abs(again.cpu().numpy() - pos1).max())
     a = ranks[0][0]
@@ -2481,9 +2550,12 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
                    "max_abs_pos": gscale, "iterations": lead["grid_iterations"],
                    "seconds": [info["grid_s"] for _, info in ranks]}
     log("multi-device grid pass " + json.dumps(out["grid"]))
-    check(float(ferr.max()) <= 1e-6, f"multi-device grid pass: forces differ by {ferr.max()}")
-    check(gerr <= MD_GRID_POS_TOL * gscale,
-          f"multi-device grid pass: positions differ by {gerr} (> {MD_GRID_POS_TOL}·{gscale})")
+    check(out["grid"]["forces_bitwise"],
+          f"multi-device grid pass: forces differ by {ferr.max()} of a row's |f|")
+    check(drift1 == 0.0 and not np.isnan(again.cpu().numpy()).any(),
+          f"grid layout: two single-rank runs differ by {drift1}")
+    check(np.array_equal(a["grid_positions"].view(np.uint8), pos1.view(np.uint8)),
+          f"multi-device grid pass: positions differ by {gerr} of {gscale}")
     del e_dev, src, dst, w2, m, p
     torch.cuda.empty_cache()
     log(f"multi-device: {d} ranks under gloo on one card; wall {lead['wall_s']} s "
@@ -2551,8 +2623,7 @@ def save_numbers(ck, smi: str) -> dict:
             "card": smi}
 
 
-def resilience_phase(torch, np, cap: Capture, edges, res, cfg, main_wall: float,
-                     pos_drift: float, smi: str):
+def resilience_phase(torch, np, cap: Capture, edges, res, cfg, main_wall: float, smi: str):
     """Checkpoint/resume and validated reads on phase 4's graph and config,
     streamed from an ``.npy`` store through the pinned staging ring.
 
@@ -2561,10 +2632,8 @@ def resilience_phase(torch, np, cap: Capture, edges, res, cfg, main_wall: float,
        resume=True)`` + ``render``, the counters set to 0 just before the
        resume and read just after: labels, graph degrees (the final
        checkpoint's, against a count on the host), sizes and the supergraph
-       bitwise against phase 4, Q within 1e-6 and positions within
-       ``RESUME_POS_TOL``·max|pos| of phase 4 (FA2's attraction adds with
-       float atomics, ``pos_drift`` is phase 4's own run-to-run drift), the
-       image written, K1, K2, K3, K4 and K8 launched.
+       bitwise against phase 4, Q within 1e-6 and positions bitwise, the
+       image written, K1, K2, K3, K4, K7 and K8 launched.
     2. A ``stream_pipeline`` run with one save inside the supergraph pass is
        killed after it and resumed: labels, degrees, supergraph and Q
        bitwise against an uninterrupted ``stream_pipeline`` on the card.
@@ -2652,11 +2721,10 @@ def resilience_phase(torch, np, cap: Capture, edges, res, cfg, main_wall: float,
         scale = float(np.abs(res.positions).max())
         perr = float(np.abs(got.positions - res.positions).max())
         log(f"resilience: Q {got.modularity} vs {res.modularity} (|ΔQ| {dq}); positions "
-            f"max|Δ| {perr} of {scale} ({perr / scale} relative; phase 4's run to run "
-            f"{pos_drift / scale}); tolerance {RESUME_POS_TOL}")
+            f"max|Δ| {perr} of {scale}, bitwise {bool(np.array_equal(got.positions, res.positions))}")
         check(dq <= 1e-6, f"resumed Q differs by {dq}")
-        check(perr <= RESUME_POS_TOL * scale,
-              f"resumed positions differ by {perr} (> {RESUME_POS_TOL}·{scale})")
+        check(np.array_equal(got.positions.view(np.uint8), res.positions.view(np.uint8)),
+              f"resumed positions differ by {perr} of {scale}")
         check(np.isfinite(got.positions).all(), "non-finite resumed positions")
         check(np.array_equal(read_png(png), image), "resumed PNG round trip differs")
         frac, counts = raster.image_summary(image)
@@ -2750,6 +2818,480 @@ def resilience_phase(torch, np, cap: Capture, edges, res, cfg, main_wall: float,
     return out
 
 
+# ------------------------------------------------------------- phase 12
+def _lj_graph(torch, n_real: int, e_real: int, seed: int = 0):
+    """soc-LiveJournal's counts (3,997,962 nodes, 34,681,189 edges), made on
+    the card from a seeded generator: each edge's source uniform, its
+    target in the source's block of LJ_BLOCK nodes with probability LJ_P_IN,
+    else uniform. A few seconds of host time would become minutes for a
+    planted partition at this size."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.randint(0, n_real, (e_real,), generator=g, device="cuda", dtype=torch.int64)
+    near = (u // LJ_BLOCK) * LJ_BLOCK + torch.randint(0, LJ_BLOCK, (e_real,), generator=g,
+                                                      device="cuda")
+    far = torch.randint(0, n_real, (e_real,), generator=g, device="cuda")
+    inside = torch.rand(e_real, generator=g, device="cuda") < LJ_P_IN
+    v = torch.where(inside, near.clamp(max=n_real - 1), far)
+    return torch.stack([u, v], dim=1).to(torch.int32)
+
+
+def _padded(torch, edges, e: int, trash: int):
+    out = torch.full((e, 2), trash, dtype=torch.int32, device=edges.device)
+    out[: edges.shape[0]] = edges
+    return out
+
+
+def _wall_ms(torch, fn, reps: int):
+    """Mean host milliseconds of ``fn`` over ``reps`` calls, each ended by a
+    device synchronize (a step of many launches, not one kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3, out
+
+
+def _same(torch, a, b) -> bool:
+    return all(bits_equal(torch, x, y) for x, y in zip(a, b))
+
+
+def dry_run_phase(torch, np, cap: Capture, edges) -> dict:
+    """The BigGraphVis dry-run cells of ``repro_torch.configs.biggraphvis``
+    at the reference's full padded shapes, through
+    ``launch.steps.build_bgv_step`` on the card, the counters set to 0 just
+    before each cell and read just after.
+
+    * ``detect_berkstan`` on phase 4's graph padded with trash rows, and
+      ``detect_livejournal`` on a graph made on the card (``_lj_graph``):
+      one SCoDA round in one block plus K8's keys-in entry. Labels, degrees
+      and sketch bitwise run to run and against the port on the CPU.
+    * ``layout_berkstan`` and ``layout_livejournal`` (exact repulsion, K2)
+      and a grid variant of ``layout_livejournal`` (grid 64, window 32,
+      ``(cell, order)`` from ``bin_and_sort``; K5–K7) on seeded supergraph
+      stand-ins: the step bitwise a direct ``fa2.step`` and run to run, and
+      at berkstan within 1e-4·max|pos| of the CPU.
+    Prints each cell's step time."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.biggraphvis import BGVDryConfig
+    from repro_torch.core import forceatlas2 as fa2
+    from repro_torch.kernels.grid import ops as grid_ops
+    from repro_torch.launch.steps import build_bgv_step
+
+    arch = get_config("biggraphvis")
+    out = {}
+
+    def detect(name, e_real_dev):
+        shape = arch.shapes[name]
+        n, e = shape.n_nodes, shape.n_edges
+        step = build_bgv_step(arch, shape)
+        ed = _padded(torch, e_real_dev, e, n)
+        com0 = torch.arange(n + 1, dtype=torch.int32, device="cuda")
+        deg0 = torch.zeros(n + 1, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        cap.reset()
+        t0 = time.perf_counter()
+        got = step.fn(com0, deg0, ed)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = cap.counts()
+        ms, again = _wall_ms(torch, lambda: step.fn(com0, deg0, ed), 2)
+        check(launches["cms_update_keys"] == 1, f"{name}: K8 launched {launches['cms_update_keys']}")
+        check(_same(torch, got, again), f"{name}: two steps on the card differ")
+        communities = int(torch.unique(got[0][:n]).numel())
+        info = {"n_nodes": n, "n_edges": e, "real_edges": int(e_real_dev.shape[0]),
+                "cms_cols": shape.n_out, "step_ms": ms, "first_step_s": first_s,
+                "communities": communities, "launches": {k: v for k, v in launches.items() if v}}
+        t0 = time.perf_counter()
+        cpu = step.fn(com0.cpu(), deg0.cpu(), ed.cpu())
+        info["cpu_s"] = time.perf_counter() - t0
+        check(_same(torch, [x.cpu() for x in got], cpu),
+              f"{name}: the card's labels, degrees or sketch differ from the CPU's")
+        log(f"dry-run {name} " + json.dumps(info))
+        check(communities < n, f"{name}: no community formed")
+        out[name] = info
+
+    bs = torch.as_tensor(edges, device="cuda")
+    detect("detect_berkstan", bs)
+    del bs
+    lj = arch.shapes["detect_livejournal"]
+    t0 = time.perf_counter()
+    lj_edges = _lj_graph(torch, LJ_NODES, LJ_EDGES)
+    torch.cuda.synchronize()
+    log(f"livejournal-sized graph on the card: {LJ_NODES} nodes, {LJ_EDGES} edges in "
+        f"{time.perf_counter() - t0:.3f} s; padded to {lj.n_nodes} / {lj.n_edges}")
+    detect("detect_livejournal", lj_edges)
+    del lj_edges
+    torch.cuda.empty_cache()
+
+    def layout(name, model: BGVDryConfig, cpu_check: bool):
+        shape = arch.shapes[name.split("+")[0]]
+        real_n, real_e = LAYOUT_REAL[shape.name]
+        n, e = shape.n_nodes, shape.n_edges
+        step = build_bgv_step(dataclasses.replace(arch, model=model), shape)
+        rng = np.random.default_rng(SEED)
+        pos = rng.uniform(-1000, 1000, (n, 2)).astype(np.float32)
+        mass = rng.integers(1, 200, n).astype(np.float32)
+        ed = np.full((e, 2), n, np.int32)
+        ed[:real_e] = rng.integers(0, real_n, (real_e, 2))
+        w = rng.integers(1, 20, e).astype(np.float32)
+        host = [pos, np.zeros_like(pos), mass, np.sqrt(mass), ed, w]
+        args = [torch.as_tensor(x, device="cuda") for x in host]
+        grid = model.layout_repulsion == "grid"
+        if grid:
+            args += list(grid_ops.bin_and_sort(args[0], model.layout_grid_size))
+        cfg = fa2.FA2Config(iterations=1, use_radii=True, repulsion=model.layout_repulsion,
+                            grid_size=model.layout_grid_size,
+                            grid_window=model.layout_grid_window)
+        torch.cuda.synchronize()
+        cap.reset()
+        got = step.fn(*args)
+        torch.cuda.synchronize()
+        launches = cap.counts()
+        ms, again = _wall_ms(torch, lambda: step.fn(*args), 3)
+        extra = dict(cell=args[6], order=args[7]) if grid else {}
+        (d_pos, d_f, _), _ = fa2.step((args[0], args[1], torch.ones((), device="cuda")),
+                                      args[4], args[5], args[2], args[3], cfg, n, **extra)
+        check(_same(torch, got, again), f"{name}: two steps on the card differ")
+        check(_same(torch, got, (d_pos, d_f)), f"{name}: the step differs from a direct fa2.step")
+        want = ("far_field", "near_field", "segment_sum", "segment_sum_edges") if grid \
+            else ("repulsion_nbody", "segment_sum_edges")
+        for k in want:
+            check(launches[k] == 1, f"{name}: {k} launched {launches[k]} times in one step")
+        info = {"n_nodes": n, "n_edges": e, "real_nodes": real_n, "real_edges": real_e,
+                "repulsion": model.layout_repulsion, "step_ms": ms,
+                "launches": {k: v for k, v in launches.items() if v}}
+        if cpu_check:
+            t0 = time.perf_counter()
+            cpu_pos, _ = step.fn(*[x.cpu() for x in args])
+            info["cpu_s"] = time.perf_counter() - t0
+            scale = float(cpu_pos.abs().max())
+            info["max_abs_pos_vs_cpu"] = float((got[0].cpu() - cpu_pos).abs().max())
+            check(info["max_abs_pos_vs_cpu"] <= 1e-4 * scale,
+                  f"{name}: positions differ from the CPU by {info['max_abs_pos_vs_cpu']} "
+                  f"(> 1e-4·{scale})")
+        log(f"dry-run {name} " + json.dumps(info))
+        out[name] = info
+
+    layout("layout_berkstan", BGVDryConfig(), True)
+    layout("layout_livejournal", BGVDryConfig(), False)
+    layout("layout_livejournal+grid", BGVDryConfig(layout_repulsion="grid",
+                                                    layout_grid_size=GRID,
+                                                    layout_grid_window=WINDOW), False)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------------- phase 13
+def _serve(torch, engine, reqs, record=None):
+    """Serve ``reqs`` through ``engine`` (submitting as slots free up);
+    returns (wall seconds, the most requests live at once, decode steps).
+    With ``record`` (a dict) each live request's decode logits of every
+    tick are kept under ``id(request)``."""
+    decode, tick, last = engine._decode, engine.tick, {"steps": 0}
+
+    def counting_decode(params, cache, batch):
+        logits, cache = decode(params, cache, batch)
+        last["logits"], last["steps"] = logits, last["steps"] + 1
+        return logits, cache
+
+    def recording_tick():
+        live = dict(engine._live)
+        done = tick()
+        for slot, req in live.items():
+            record.setdefault(id(req), []).append(last["logits"][slot, 0].float())
+        return done
+
+    engine._decode = counting_decode
+    if record is not None:
+        engine.tick = recording_tick
+    torch.cuda.synchronize()
+    backlog, most, t0 = list(reqs), 0, time.perf_counter()
+    try:
+        while backlog or engine.n_live:
+            while backlog and engine.submit(backlog[0]):
+                backlog.pop(0)
+            most = max(most, engine.n_live)
+            engine.tick()
+        torch.cuda.synchronize()
+    finally:
+        engine._decode, engine.tick = decode, tick
+    return time.perf_counter() - t0, most, last["steps"]
+
+
+def teacher_forced(torch, np, cfg, params, reqs, record, tol: float, name: str) -> dict:
+    """The engine's gate: a prefill of each request's prompt and emitted
+    tokens; at every generated position |decode − prefill| ≤ tol, and the
+    emitted token's prefill logit ≥ the prefill's max − 2·tol."""
+    from repro_torch.models import transformer as tfm
+
+    prefill = tfm.make_prefill(cfg)
+    worst, worst_gap = 0.0, 0.0
+    for r in reqs:
+        full = np.concatenate([r.prompt, r.out[:-1]]).astype(np.int32)
+        want = prefill(params, {"tokens": torch.as_tensor(full, device="cuda")[None]})
+        want = want[0, len(r.prompt) - 1:, : cfg.vocab].float()
+        got = torch.stack(record[id(r)])[:, : cfg.vocab]
+        check(got.shape == want.shape, f"{name}: {got.shape} decode rows for {want.shape}")
+        worst = max(worst, float((got - want).abs().max()))
+        picked = want.gather(1, torch.as_tensor(r.out, device="cuda")[:, None])[:, 0]
+        worst_gap = max(worst_gap, float((want.max(dim=1).values - picked).max()))
+    info = {"max_abs_decode_minus_prefill": worst, "max_prefill_gap_of_emitted": worst_gap,
+            "tol": tol}
+    log(f"{name} teacher-forced gate " + json.dumps(info))
+    check(worst <= tol, f"{name}: decode and prefill logits differ by {worst} (> {tol})")
+    check(worst_gap <= 2 * tol, f"{name}: an emitted token lies {worst_gap} below the "
+                                f"prefill's max (> 2·{tol})")
+    return info
+
+
+def lm_engine_run(torch, np, cfg, params, n_req: int, new: int, name: str,
+                  prompt_lens=(16, 64), slots: int = ENGINE_SLOTS) -> dict:
+    """``LMEngine`` serving ``n_req`` requests (prompts of ``prompt_lens``
+    tokens, ``new`` new tokens each) on ``slots`` slots × ENGINE_LEN
+    positions, under the teacher-forced gate; then each request alone on the
+    same engine in its slot, whose tokens must equal the concurrent run's
+    (fault R5's repair)."""
+    from repro_torch.serve.engine import LMEngine, Request
+
+    tol = TF_TOL[str(cfg.act_dtype).removeprefix("torch.")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = LMEngine(cfg, params, n_slots=slots, max_len=ENGINE_LEN, device="cuda")
+    rng = np.random.default_rng(SEED)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab, int(rng.integers(*prompt_lens)))
+                    .astype(np.int32), max_new=new) for _ in range(n_req)]
+    record = {}
+    wall, most, steps = _serve(torch, engine, reqs, record)
+    peak = torch.cuda.max_memory_allocated()
+    info = {"requests": n_req, "slots": slots, "positions": ENGINE_LEN,
+            "prompt_tokens": sum(len(r.prompt) for r in reqs), "new_tokens": n_req * new,
+            "most_live": most, "wall_s": wall, "decode_steps": steps,
+            "ms_per_decode_step": wall / steps * 1e3, "tokens_per_s": n_req * new / wall,
+            "peak_bytes": peak, "dtype": str(cfg.act_dtype), "layers": cfg.n_layers}
+    check(all(len(r.out) == new and r.done for r in reqs), f"{name}: requests not served")
+    check(most >= min(4, slots, n_req), f"{name}: at most {most} requests live at once")
+    info.update(teacher_forced(torch, np, cfg, engine.params, reqs, record, tol, name))
+    solo, solo_steps = 0.0, 0
+    for r in reqs:
+        alone = Request(prompt=r.prompt, max_new=new, slot=r.slot)
+        w, _, k = _serve(torch, engine, [alone])
+        solo, solo_steps = solo + w, solo_steps + k
+        check(alone.slot == r.slot, f"{name}: the solo run took slot {alone.slot}")
+        check(alone.out == r.out, f"{name}: request in slot {r.slot} got {r.out} together "
+                                  f"and {alone.out} alone")
+    info.update(solo_wall_s=solo, solo_ms_per_decode_step=solo / solo_steps * 1e3,
+                concurrent_equals_solo=True)
+    log(f"{name} engine " + json.dumps(info))
+    return info
+
+
+def lm_params(cfg, gen):
+    """Seeded random LM weights at the true fan-in of every product.
+
+    ``init_params`` follows the reference's rule, fan-in = shape[-2], which
+    for the stacked [L, d, H, hd] attention weights is H (or hd for wo),
+    not the d (or H·hd) they contract over: at yi-6b's width the first
+    layer's attention logits then reach a median of 237 and a maximum of
+    1,455 (PERF.md §6, PR 21), so attention is an argmax that bfloat16
+    rounding flips, and decode and prefill disagree by whole logits. Here
+    wq, wk, wv are rescaled to 1/√d and wo to 1/√(H·hd); every other
+    weight already has its true fan-in."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.param import init_params
+
+    p = init_params(gen, tfm.param_specs(cfg))
+    lyr = p["layers"]
+    lyr["wq"] *= (cfg.n_heads / cfg.d_model) ** 0.5
+    lyr["wk"] *= (cfg.n_kv_heads / cfg.d_model) ** 0.5
+    lyr["wv"] *= (cfg.n_kv_heads / cfg.d_model) ** 0.5
+    lyr["wo"] *= cfg.n_heads ** -0.5
+    return p
+
+
+def models_phase(torch, np, cap: Capture, smi: str) -> dict:
+    """The model substrate at the shapes of its configs, on the card
+    (``repro_torch.models``, ``serve.engine``), seeded random weights (no
+    published weights are in the repository), the counters set to 0 just
+    before and read just after:
+
+    The LMs' weights come from ``lm_params`` (true fan-in).
+
+    * yi-6b at full width and depth (32 layers; 24.2 GB of float32
+      parameters, cast once to bfloat16) through ``LMEngine``: 8 slots ×
+      2,048 positions, 16 requests of 16–64 prompt tokens and 16 new
+      tokens, at least 4 live at once; the teacher-forced gate
+      (``teacher_forced``, TF_TOL) and every request's tokens equal to its
+      solo run's (fault R5).
+    * granite-moe-1b-a400m at full width and depth (24 layers, 32 experts,
+      top 8), in float32: 4 requests of 8 new tokens under the same gates;
+      its prefill reference takes a capacity that drops no token (decode
+      drops none). Float32, because top-k routing is discontinuous: in
+      bfloat16 the two paths' roundings move router logits across the
+      top-8 boundary.
+    * Card against CPU, float32, full width with the depth cut to 2
+      layers, for both LMs: prefill logits within LM_CPU_TOL·max|logits|,
+      and a short float32 engine run under the float32 gate.
+    * SASRec at its full config: ``serve_p99`` (512 × 1,048,576 scores)
+      and ``retrieval_cand`` (1,000,448 candidates), the retrieval scores
+      equal to the serve scores at the candidates within SAS_TOL, and the
+      first 8 rows of the serve scores within SAS_TOL of the CPU.
+    * GNN: gin-tu on ``molecule`` (a ``MoleculeStream`` batch) and gat-cora
+      on ``full_graph_sm`` (a seeded graph at Cora's counts): bitwise run
+      to run (their segment sums go through K7), within GNN_TOL of the CPU.
+    Prints tokens/s, ms per decode step and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import input_specs
+    from repro_torch.data.pipeline import MoleculeStream, SASRecStream
+    from repro_torch.device import resolve_device
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.models import sasrec as sas_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.param import init_params, param_count, tree_leaves, tree_map
+
+    resolve_device("cuda")
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on")
+    out = {"card": smi}
+    cap.reset()
+
+    # yi-6b, full width and depth.
+    yi = get_config("yi-6b").model
+    specs = tfm.param_specs(yi)
+    t0 = time.perf_counter()
+    params = lm_params(yi, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"yi-6b: {param_count(specs)} parameters, "
+        f"{sum(t.numel() * t.element_size() for t in tree_leaves(params))} bytes in float32, "
+        f"made on the card in {time.perf_counter() - t0:.3f} s")
+    out["yi-6b"] = lm_engine_run(torch, np, yi, params, 16, 16, "yi-6b")
+    del params
+    torch.cuda.empty_cache()
+
+    # granite-moe, full width and depth.
+    gr = get_config("granite-moe-1b-a400m").model
+    gr_nodrop = dataclasses.replace(gr, act_dtype=torch.float32, moe=dataclasses.replace(
+        gr.moe, capacity_factor=gr.moe.n_experts / gr.moe.top_k))
+    params = lm_params(gr_nodrop, torch.Generator(device="cuda").manual_seed(SEED))
+    out["granite-moe-1b-a400m"] = lm_engine_run(torch, np, gr_nodrop, params, 4, 8,
+                                                "granite-moe-1b-a400m (float32)")
+    del params
+    torch.cuda.empty_cache()
+
+    # Card against CPU in float32, full width, 2 layers.
+    for name, base in (("yi-6b", yi), ("granite-moe-1b-a400m", gr_nodrop)):
+        cfg = dataclasses.replace(base, n_layers=2, act_dtype=torch.float32)
+        host = lm_params(cfg, torch.Generator().manual_seed(SEED))
+        dev = tree_map(lambda t: t.to("cuda"), host)
+        toks = np.random.default_rng(SEED).integers(1, cfg.vocab, (1, 32)).astype(np.int32)
+        prefill = tfm.make_prefill(cfg)
+        got = prefill(dev, {"tokens": torch.as_tensor(toks, device="cuda")}).cpu()
+        t0 = time.perf_counter()
+        want = prefill(host, {"tokens": torch.as_tensor(toks)})
+        cpu_s = time.perf_counter() - t0
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        log(f"{name} (2 layers, float32) prefill card against CPU: max|Δ| {err} of {scale} "
+            f"({cpu_s:.3f} s on the CPU)")
+        check(err <= LM_CPU_TOL * scale, f"{name}: card and CPU logits differ by {err}")
+        out[f"{name}-2l-f32"] = lm_engine_run(torch, np, cfg, dev, 4, 8,
+                                              f"{name} (2 layers, float32)")
+        del host, dev
+    torch.cuda.empty_cache()
+
+    # SASRec at its full config.
+    sas = get_config("sasrec")
+    scfg = sas.model
+    sp = init_params(torch.Generator(device="cuda").manual_seed(SEED), sas_lib.param_specs(scfg))
+    seq = SASRecStream(scfg.n_items, sas.shapes["serve_p99"].global_batch, scfg.seq_len,
+                       seed=SEED).batch_at(0)["seq"]
+    check(tuple(seq.shape) == tuple(input_specs(sas, sas.shapes["serve_p99"])["seq"].shape),
+          "serve_p99 batch shape")
+    seq_d = torch.as_tensor(seq, device="cuda")
+    serve = sas_lib.make_serve_step(scfg)
+    torch.cuda.reset_peak_memory_stats()
+    serve_ms, scores = _wall_ms(torch, lambda: serve(sp, {"seq": seq_d}), 3)
+    n_cand = sas.shapes["retrieval_cand"].n_candidates
+    cand = torch.as_tensor(np.random.default_rng(SEED).integers(1, scfg.n_items, n_cand)
+                           .astype(np.int32), device="cuda")
+    retr = sas_lib.make_retrieval_step(scfg)
+    retr_ms, rs = _wall_ms(torch, lambda: retr(sp, {"seq": seq_d[:1], "candidates": cand}), 3)
+    check(scores.shape == (seq.shape[0], scfg.n_items) and bool(torch.isfinite(scores).all()),
+          "serve_p99 scores")
+    check(rs.shape == (n_cand,) and bool(torch.isfinite(rs).all()), "retrieval_cand scores")
+    smax = float(scores.abs().max())
+    rerr = float((rs - scores[0][cand.long()]).abs().max())
+    cpu_scores = serve(tree_map(lambda t: t.cpu(), sp), {"seq": torch.as_tensor(seq[:8])})
+    cerr = float((scores[:8].cpu() - cpu_scores).abs().max())
+    info = {"serve_p99_ms": serve_ms, "retrieval_cand_ms": retr_ms,
+            "scores_shape": list(scores.shape), "candidates": n_cand,
+            "retrieval_vs_serve_max_abs": rerr, "cpu_max_abs": cerr, "max_abs_score": smax,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    log("sasrec " + json.dumps(info))
+    check(rerr <= SAS_TOL * smax and cerr <= SAS_TOL * smax,
+          f"sasrec: retrieval or CPU scores differ ({rerr}, {cerr} of {smax})")
+    out["sasrec"] = info
+    del sp, scores, rs
+    torch.cuda.empty_cache()
+
+    # GNN cells.
+    for name, cell in (("gin-tu", "molecule"), ("gat-cora", "full_graph_sm")):
+        arch = get_config(name)
+        shape = arch.shapes[cell]
+        gcfg = arch.model_for(shape)
+        n, e = shape.n_nodes, shape.n_edges
+        rng = np.random.default_rng(SEED)
+        if cell == "molecule":
+            b = MoleculeStream(shape.n_graphs, 30, 64, shape.d_feat, shape.n_out,
+                               seed=SEED).batch_at(0)
+            real_n = b["feats"].shape[0]
+            feats = np.zeros((n, shape.d_feat), np.float32)
+            feats[:real_n] = b["feats"]
+            gids = np.full(n, shape.n_graphs, np.int32)
+            gids[:real_n] = b["graph_ids"]
+            ed = np.full((e, 2), n, np.int32)
+            ed[: len(b["edges"])] = b["edges"]
+            batch = {"feats": feats, "edges": ed, "graph_ids": gids, "labels": b["labels"],
+                     "mask": b["mask"]}
+        else:
+            real_n, real_e = 2708, 10556  # Cora's counts
+            feats = np.zeros((n, shape.d_feat), np.float32)
+            feats[:real_n] = (rng.random((real_n, shape.d_feat)) < 0.0127).astype(np.float32)
+            ed = np.full((e, 2), n, np.int32)
+            ed[:real_e] = rng.integers(0, real_n, (real_e, 2))
+            batch = {"feats": feats, "edges": ed,
+                     "labels": rng.integers(0, shape.n_out, n).astype(np.int32),
+                     "mask": (np.arange(n) < real_n).astype(np.float32)}
+        spec = input_specs(arch, shape)
+        for k, v in spec.items():
+            check(tuple(batch[k].shape) == tuple(v.shape), f"{name}/{cell}: {k} shape")
+        gp = init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                         gnn_lib.param_specs(gcfg))
+        bd = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+        before = cap.counts()["segment_sum_edges"]
+        ms, got = _wall_ms(torch, lambda: gnn_lib.forward(gcfg, gp, bd), 3)
+        again = gnn_lib.forward(gcfg, gp, bd)
+        check(bits_equal(torch, got, again), f"{name}/{cell}: two forward passes differ")
+        loss = float(gnn_lib.gnn_loss(gcfg, gp, bd))
+        cpu = gnn_lib.forward(gcfg, tree_map(lambda t: t.cpu(), gp),
+                              {k: torch.as_tensor(v) for k, v in batch.items()})
+        err, scale = float((got.cpu() - cpu).abs().max()), float(cpu.abs().max())
+        info = {"cell": cell, "n_nodes": n, "n_edges": e, "forward_ms": ms, "loss": loss,
+                "out_shape": list(got.shape), "cpu_max_abs": err, "max_abs_out": scale,
+                "k7_launches": cap.counts()["segment_sum_edges"] - before}
+        log(f"{name} " + json.dumps(info))
+        check(np.isfinite(loss) and bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        check(err <= GNN_TOL * scale, f"{name}/{cell}: card and CPU differ by {err} of {scale}")
+        check(info["k7_launches"] > 0, f"{name}: K7 was not launched")
+        out[name] = info
+        del gp, bd, got, again
+    launches = cap.counts()
+    log("models launches " + json.dumps({k: v for k, v in launches.items() if v}))
+    check(launches["segment_sum_edges"] > 0, "models: K7 was not launched")
+    torch.cuda.empty_cache()
+    return out
+
+
 def run() -> int:
     import torch
 
@@ -2786,7 +3328,7 @@ def run() -> int:
     cap = Capture(torch)
     edges, delta = make_graph()
     with phase("main path"):
-        main_launches, main_wall, main_result, main_cfg, pos_drift = main_path(
+        main_launches, main_wall, main_result, main_cfg = main_path(
             torch, np, cap, edges, delta)
     with phase("full path"):
         full_launches = full_path(torch, np, cap, edges, delta, main_wall)
@@ -2806,8 +3348,15 @@ def run() -> int:
         full_node_consistency(torch, np, full_nodes)
         consistency(torch, np)
     with phase("resilience"):
-        resilience_phase(torch, np, cap, edges, main_result, main_cfg, main_wall, pos_drift, smi)
-    del edges, main_result
+        resilience_phase(torch, np, cap, edges, main_result, main_cfg, main_wall, smi)
+    del main_result
+    torch.cuda.empty_cache()
+    with phase("dry-run cells"):
+        dry_run_phase(torch, np, cap, edges)
+    del edges
+    torch.cuda.empty_cache()
+    with phase("models"):
+        models_phase(torch, np, cap, smi)
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

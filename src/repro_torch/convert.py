@@ -1,6 +1,10 @@
-"""Carry configuration and state from the reference package into the port.
+"""Carry configuration, state and parameters from the reference package
+into the port.
 
-The system has no weights; what a run carries is configuration and state.
+The BigGraphVis pipeline has no weights; what a run carries is
+configuration and state. The model substrate has parameters:
+``params_from_reference`` turns the reference's parameter tree, as numpy
+arrays, into the port's nested dict of tensors.
 ``config_from_reference`` turns any of the reference's ``ScodaConfig``,
 ``CMSConfig``, ``FA2Config``, ``BGVConfig``, ``StreamConfig``,
 ``RenderConfig`` or ``TileConfig`` into the port's, by duck typing on
@@ -91,3 +95,16 @@ def state_from_numpy(kind: str, value, device="cpu"):
     if kind == "pos0":
         return t(value, torch.float32)
     raise ValueError(f"unknown state kind {kind!r}: scoda, agg, supergraph, pos0")
+
+
+def params_from_reference(tree, device="cpu"):
+    """The port's parameters from the reference's parameter tree (nested
+    dicts of arrays; each leaf is read with ``np.asarray``). bfloat16 leaves
+    keep their bits."""
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, device) for k, v in tree.items()}
+    x = np.asarray(tree)
+    if x.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(x).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(x), device=device)

@@ -30,8 +30,10 @@ kernels, so there is no backend per kernel:
 ``layout`` hoists everything reusable out of the iteration loop: radii
 √mass are computed once, and attraction edges are sorted once into a
 directed source-sorted layout whose per-iteration sum is one
-``index_add_``. The grid backends carry (cell ids, cell-sorted order) through
-the loop and rebuild them every ``grid_rebuild`` iterations (iteration 0
+``index_add_`` on the CPU and one launch of K7 on the card, which adds in
+the same order (so a layout on the card is the same bits from run to
+run). The grid backends carry (cell ids, cell-sorted order) through the
+loop and rebuild them every ``grid_rebuild`` iterations (iteration 0
 always rebuilds; 1 = every iteration). The loop is Python; with
 ``stop_tolerance`` > 0 it stops once the controller's global swing falls to
 ``stop_tolerance`` × global traction (after ``min_iterations``), leaving the
@@ -54,6 +56,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.grid import ops as grid_ops
 from repro_torch.kernels.repulsion import ops as repulsion_ops
+from repro_torch.kernels.segment import ops as segment_ops
 from repro_torch.obs.trace import get_tracer
 
 _GOLDEN_ANGLE = 2.3999632297286533  # π(3 − √5)
@@ -195,22 +198,39 @@ def _gravity(pos, mass, cfg: FA2Config):
 
 def _attraction(pos, edges, weights, n: int):
     """Σ over incident edges of w·(x_other − x_self); padded slots hit trash.
-    Unsorted two-scatter form — the single-``step`` path."""
+    Unsorted two-scatter form — the single-``step`` path.
+
+    On the CPU two ``index_add_`` calls add, into each node, its u-terms in
+    edge order and then its v-terms. On the card ``[u; v]`` with
+    ``[f; −f]`` is sorted stably by id and summed by K7, which adds the
+    same terms in the same order: the same bits, every run."""
     e = edges.long().clamp(0, n)
     u, v = e[:, 0], e[:, 1]
     pos_ext = torch.cat([pos, torch.zeros((1, 2), dtype=pos.dtype, device=pos.device)])
     f = weights[:, None] * (pos_ext[v] - pos_ext[u])  # force on u toward v
+    if pos.device.type == "cuda":
+        return _edge_sum(torch.cat([f, -f]), torch.cat([u, v]), n, indices_are_sorted=False)
     force = torch.zeros((n + 1, 2), dtype=pos.dtype, device=pos.device)
     force.index_add_(0, u, f)
     force.index_add_(0, v, -f)
     return force[:n]
 
 
+def _edge_sum(f, ids, n: int, indices_are_sorted: bool):
+    """The card's attraction sum: K7 adds each node's terms in row order
+    from +0 (ids ≥ n dropped), as the CPU's ``index_add_`` does."""
+    if f.dtype != torch.float32:
+        raise ValueError(f"the attraction sums in float32 on the card (K7), got {f.dtype}")
+    return segment_ops.segment_sum_edges(f, ids.to(torch.int32), n,
+                                         indices_are_sorted=indices_are_sorted)
+
+
 def _attraction_edge_layout(edges, weights):
     """Directed source-sorted layout, built once per ``layout`` call: both
-    edge directions concatenated and stably sorted by source node. Padded
-    slots (trash endpoints == n) sort last and are dropped by the sum."""
-    u, v = edges[:, 0].long(), edges[:, 1].long()
+    edge directions concatenated and stably sorted by source node, ids as
+    int32. Padded slots (trash endpoints == n) sort last and are dropped by
+    the sum."""
+    u, v = edges[:, 0].to(torch.int32), edges[:, 1].to(torch.int32)
     src = torch.cat([u, v])
     dst = torch.cat([v, u])
     w2 = torch.cat([weights, weights])
@@ -219,11 +239,14 @@ def _attraction_edge_layout(edges, weights):
 
 
 def _attraction_sorted(pos, src, dst, w, n: int):
-    """Σ over directed incident edges of w·(x_dst − x_src), by one
-    ``index_add_`` over the source ids (ids ≥ n land in a dropped row)."""
+    """Σ over directed incident edges of w·(x_dst − x_src), summed over the
+    source ids (ids ≥ n land in a dropped row): one ``index_add_`` on the
+    CPU, K7 on the card (the ids are sorted, so no sort)."""
     pos_ext = torch.cat([pos, torch.zeros((1, 2), dtype=pos.dtype, device=pos.device)])
     s, d = src.clamp(0, n), dst.clamp(0, n)
     f = w[:, None] * (pos_ext[d] - pos_ext[s])
+    if pos.device.type == "cuda":
+        return _edge_sum(f, s, n, indices_are_sorted=True)
     out = torch.zeros((n + 1, 2), dtype=pos.dtype, device=pos.device)
     out.index_add_(0, s, f)
     return out[:n]
@@ -394,12 +417,10 @@ def force_pass(mass, radii, src, dst, w2, n: int, cfg: FA2Config, mesh=None):
     forces on its nodes ``[r·n/D, (r+1)·n/D)`` and one tiled all-gather per
     iteration assembles the array, which is then the same on every rank:
     * gravity — on the owned rows;
-    * attraction — the full-size sorted sum with the other ranks' sources
-      weighted 0 (the reference's form), owned rows kept: they get the
-      single-rank terms in the single-rank order. On the card the
-      ``index_add_`` keeps the single-rank launch's shape, so its float
-      atomics add each owned row as the single-rank run does. This work is
-      replicated;
+    * attraction — the full-size sorted sum, owned rows kept: each node's
+      sum is the same chain of adds as in the single-rank run (K7 on the
+      card, ``index_add_`` on the CPU, both in row order), so the owned rows
+      are its bits. This work is replicated;
     * exact repulsion — the owned targets against all sources
       (``repulsion_rows``, kernel K2's row range);
     * grid repulsion — binning, the stable sort and the cell statistics
@@ -412,14 +433,13 @@ def force_pass(mass, radii, src, dst, w2, n: int, cfg: FA2Config, mesh=None):
     grid_state = cfg.repulsion in ("grid", "grid_pallas")
     state = {"cell": None, "order": None}
     if mesh is None or mesh.size == 1:
-        rows, owned, w, gather = slice(None), None, w2, None
+        rows, owned, gather = slice(None), None, None
     else:
         from repro_torch.sharding.collectives import all_gather_rows
 
         nl = n // mesh.size
         i0 = mesh.rank * nl
         rows, owned = slice(i0, i0 + nl), (i0, nl)
-        w = torch.where((src >= i0) & (src < i0 + nl), w2, 0.0)
 
         def gather(x):
             return all_gather_rows(x, mesh)
@@ -428,7 +448,7 @@ def force_pass(mass, radii, src, dst, w2, n: int, cfg: FA2Config, mesh=None):
         if grid_state and (cfg.grid_rebuild <= 1 or it % cfg.grid_rebuild == 0):
             state["cell"], state["order"] = grid_ops.bin_and_sort(p, cfg.grid_size)
         f = _gravity(p[rows], mass[rows], cfg)
-        f = f + _attraction_sorted(p, src, dst, w, n)[rows]
+        f = f + _attraction_sorted(p, src, dst, w2, n)[rows]
         f = f + _repulsion_forces(p, mass, radii, cfg, cell=state["cell"],
                                   order=state["order"], rows=owned, gather=gather)
         return f if gather is None else gather(f)
@@ -524,9 +544,8 @@ def layout_sharded(edges, weights, mass, n: int, cfg: FA2Config, mesh, pos0=None
     reason — when the mesh holds one rank, ``n`` does not divide by the
     rank count, the backend has no sharded form ("grid_pallas",
     "grid_dense"), or the grid backend is asked for a non-float32 dtype.
-    ``mesh=None`` falls back silently: that is the caller opting out. On
-    the CPU the result is bitwise ``layout``'s; on the card within the
-    attraction's float atomics (``index_add_``)."""
+    ``mesh=None`` falls back silently: that is the caller opting out. The
+    forces and positions are bitwise ``layout``'s on either device."""
     _check_backend(cfg)
     if device is None and mesh is not None:
         device = mesh.device

@@ -200,8 +200,8 @@ def biggraphvis(source, n_nodes: int, cfg: BGVConfig,
     Multi-device: with ``stream.mesh`` (a ``launch.mesh.StreamMesh``) every
     rank calls this with the same arguments; ``stream.shard_detect``
     spreads the edge passes and ``stream.shard_layout`` the supergraph
-    layout over the ranks, and every rank returns the single-rank result
-    (positions within the attraction's float atomics on the card). ``put``
+    layout over the ranks, and every rank returns the single-rank result.
+    ``put``
     forwards to ``stream_pipeline``.
     """
     mesh = stream.mesh if stream is not None else None

@@ -147,3 +147,21 @@ def grid_mesh(nx: int, ny: int) -> np.ndarray:
     right = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1)
     down = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], axis=1)
     return np.concatenate([right, down]).astype(np.int32)
+
+
+def batched_molecules(
+    batch: int, n_nodes: int, n_edges: int, d_feat: int, seed: int = 0
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A batch of random small graphs packed into one disjoint union.
+
+    Returns (edges [batch*n_edges, 2], feats [batch*n_nodes, d_feat],
+    graph_ids [batch*n_nodes]).
+    """
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_nodes, size=(batch, n_edges))
+    dst = (src + 1 + rng.integers(0, n_nodes - 1, size=(batch, n_edges))) % n_nodes
+    offset = (np.arange(batch) * n_nodes)[:, None]
+    edges = np.stack([(src + offset).ravel(), (dst + offset).ravel()], axis=1)
+    feats = rng.standard_normal((batch * n_nodes, d_feat)).astype(np.float32)
+    graph_ids = np.repeat(np.arange(batch), n_nodes).astype(np.int32)
+    return edges.astype(np.int32), feats, graph_ids

@@ -46,3 +46,15 @@ def mode_degree(edges: np.ndarray, n_nodes: int) -> int:
     counts = np.bincount(deg)
     counts[0] = 0
     return int(np.argmax(counts))
+
+
+def to_csr(edges: np.ndarray, n_nodes: int) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetrized CSR (indptr, indices) from an undirected edge list."""
+    src = np.concatenate([edges[:, 0], edges[:, 1]])
+    dst = np.concatenate([edges[:, 1], edges[:, 0]])
+    order = np.argsort(src, kind="stable")
+    src, dst = src[order], dst[order]
+    indptr = np.zeros(n_nodes + 1, dtype=np.int64)
+    np.add.at(indptr, src + 1, 1)
+    indptr = np.cumsum(indptr)
+    return indptr, dst.astype(np.int32)

@@ -1,6 +1,12 @@
-"""Public wrapper for the segment sum: kernel K7 (``csrc/segment_sum.cu``)
+"""Public wrappers for the segment sum: kernel K7 (``csrc/segment_sum.cu``)
 for CUDA tensors, the plain PyTorch version (``ref.py``) for CPU tensors.
 A tensor anywhere else raises.
+
+Two entries launch the same kernel and count apart: ``segment_sum`` (the
+grid repulsion's cell statistics) and ``segment_sum_edges`` (per-edge terms
+summed into their nodes: FA2's attraction and the GNN's message sums). On
+the card both add each segment in row order, so their sums are the same
+bits from run to run, where ``index_add_`` would add on float atomics.
 """
 from __future__ import annotations
 
@@ -24,6 +30,15 @@ def segment_sum(data, seg_ids, n_segments: int, indices_are_sorted: bool = False
     input is first sorted stably by id (each segment keeps its row order,
     so the sum is the same either way).
     """
+    return _segment_sum(data, seg_ids, n_segments, indices_are_sorted, "segment_sum")
+
+
+def segment_sum_edges(data, seg_ids, n_segments: int, indices_are_sorted: bool = False):
+    """``segment_sum`` for per-edge terms, counted under its own name."""
+    return _segment_sum(data, seg_ids, n_segments, indices_are_sorted, "segment_sum_edges")
+
+
+def _segment_sum(data, seg_ids, n_segments: int, indices_are_sorted: bool, counter: str):
     dev = data.device
     if dev.type == "cpu":
         return segment_sum_ref(data, seg_ids, n_segments, indices_are_sorted)
@@ -45,5 +60,5 @@ def segment_sum(data, seg_ids, n_segments: int, indices_are_sorted: bool = False
         code = fn(build.ptr(x), build.ptr(seg_ids), e, d, n_segments,
                   build.ptr(out), build.stream(dev))
     build.check("segment_sum", code)
-    build.LAUNCHES["segment_sum"] += 1
+    build.LAUNCHES[counter] += 1
     return out.reshape((n_segments,) + tuple(data.shape[1:])).to(data.dtype)

@@ -1,0 +1,174 @@
+"""GNN family: GIN, GAT, MeshGraphNet, GraphCast (encode-process-decode).
+
+All four share one substrate: message passing = gather(src) → edge
+compute → segment sum scatter(dst). Edges are padded with the trash id
+(= n_nodes): a gather clamps it to the last row, as the reference's does,
+and the segment sum drops it.
+
+The segment sums go through ``kernels/segment``'s per-edge entry: kernel
+K7 on the card, after a stable sort by id, so every sum is added in row
+order and the card's forward pass is the same bits from run to run (an
+``index_add_`` there would add on float atomics); its plain version on the
+CPU. That is a choice of this port, not a kernel of the reference (whose
+sums are its compiler's).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.segment import ops as segment_ops
+from repro_torch.models.param import ParamSpec
+
+
+@dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    arch: str  # gin | gat | meshgraphnet | graphcast
+    n_layers: int
+    d_hidden: int
+    d_feat: int
+    n_out: int
+    n_heads: int = 1  # gat
+    task: str = "node_class"  # node_class | graph_class | node_reg
+    act_dtype: Any = torch.float32
+    remat: bool = False
+
+
+def param_specs(cfg: GNNConfig) -> dict:
+    nl, d = cfg.n_layers, cfg.d_hidden
+    dt = torch.float32
+    specs = {
+        "in_w": ParamSpec((cfg.d_feat, d), ("gnn_feat", "gnn_hidden"), "scaled", dt),
+        "in_b": ParamSpec((d,), ("gnn_hidden",), "zeros", dt),
+        "out_w": ParamSpec((d, cfg.n_out), ("gnn_hidden", "gnn_out"), "scaled", dt),
+        "out_b": ParamSpec((cfg.n_out,), ("gnn_out",), "zeros", dt),
+    }
+    if cfg.arch == "gin":
+        specs["layers"] = {
+            "eps": ParamSpec((nl,), ("layer",), "zeros", dt),
+            "w1": ParamSpec((nl, d, d), ("layer", "gnn_hidden", "gnn_mlp"), "scaled", dt),
+            "b1": ParamSpec((nl, d), ("layer", "gnn_mlp"), "zeros", dt),
+            "w2": ParamSpec((nl, d, d), ("layer", "gnn_mlp", "gnn_hidden"), "scaled", dt),
+            "b2": ParamSpec((nl, d), ("layer", "gnn_hidden"), "zeros", dt),
+        }
+    elif cfg.arch == "gat":
+        h = cfg.n_heads
+        dh = d // h
+        specs["layers"] = {
+            "w": ParamSpec((nl, d, h, dh), ("layer", "gnn_hidden", "heads", "gnn_mlp"), "scaled", dt),
+            "a_src": ParamSpec((nl, h, dh), ("layer", "heads", "gnn_mlp"), "scaled", dt),
+            "a_dst": ParamSpec((nl, h, dh), ("layer", "heads", "gnn_mlp"), "scaled", dt),
+        }
+    else:  # meshgraphnet / graphcast: MPNN with edge + node MLPs
+        specs["edge_in_w"] = ParamSpec((2 * d, d), ("gnn_concat", "gnn_hidden"), "scaled", dt)
+        specs["edge_in_b"] = ParamSpec((d,), ("gnn_hidden",), "zeros", dt)
+        specs["layers"] = {
+            "we1": ParamSpec((nl, 3 * d, d), ("layer", "gnn_concat", "gnn_mlp"), "scaled", dt),
+            "be1": ParamSpec((nl, d), ("layer", "gnn_mlp"), "zeros", dt),
+            "we2": ParamSpec((nl, d, d), ("layer", "gnn_mlp", "gnn_hidden"), "scaled", dt),
+            "be2": ParamSpec((nl, d), ("layer", "gnn_hidden"), "zeros", dt),
+            "wv1": ParamSpec((nl, 2 * d, d), ("layer", "gnn_concat", "gnn_mlp"), "scaled", dt),
+            "bv1": ParamSpec((nl, d), ("layer", "gnn_mlp"), "zeros", dt),
+            "wv2": ParamSpec((nl, d, d), ("layer", "gnn_mlp", "gnn_hidden"), "scaled", dt),
+            "bv2": ParamSpec((nl, d), ("layer", "gnn_hidden"), "zeros", dt),
+        }
+    return specs
+
+
+def _gather(x, idx):
+    """``x[idx]`` with out-of-range ids clamped to the last row."""
+    return x[torch.clamp(idx, 0, x.shape[0] - 1)]
+
+
+def _segsum(data, seg, n: int):
+    return segment_ops.segment_sum_edges(data, seg.to(torch.int32), n)
+
+
+def _gin_layer(h, lp, src, dst, n):
+    agg = _segsum(_gather(h, src), dst, n) + _segsum(_gather(h, dst), src, n)  # symmetrized
+    z = (1.0 + lp["eps"]) * h + agg
+    z = F.relu(z @ lp["w1"] + lp["b1"])
+    return z @ lp["w2"] + lp["b2"]
+
+
+def _gat_layer(h, lp, src, dst, n):
+    d = h.shape[-1]
+    nh, dh = lp["a_src"].shape
+    q = (h @ lp["w"].reshape(d, nh * dh)).reshape(n, nh, dh)
+    es = torch.einsum("nhd,hd->nh", q, lp["a_src"])
+    ed = torch.einsum("nhd,hd->nh", q, lp["a_dst"])
+    # Symmetrize: both directions of every undirected edge.
+    s2 = torch.cat([src, dst])
+    d2 = torch.cat([dst, src])
+    logit = F.leaky_relu(_gather(es, s2) + _gather(ed, d2), 0.2)  # [2E, H]
+    # Numerically stable edge softmax over incoming edges per dst; the max
+    # is order-free, and ids ≥ n land in a dropped row.
+    keep = (d2 >= 0) & (d2 < n)
+    mx = torch.full((n + 1, nh), -1e30, dtype=logit.dtype, device=logit.device)
+    mx.scatter_reduce_(0, torch.where(keep, d2, n).long()[:, None].expand(-1, nh), logit,
+                       "amax", include_self=True)
+    mx = mx[:n]
+    ex = torch.exp(logit - _gather(mx, d2))
+    denom = _segsum(ex, d2, n) + 1e-9
+    alpha = ex / _gather(denom, d2)
+    msg = alpha[:, :, None] * _gather(q, s2)
+    out = _segsum(msg.reshape(-1, nh * dh), d2, n)
+    return F.elu(out)
+
+
+def _mpnn_layer(h, e_feat, lp, src, dst, n):
+    z = torch.cat([e_feat, _gather(h, src), _gather(h, dst)], dim=-1)
+    e_new = F.relu(z @ lp["we1"] + lp["be1"]) @ lp["we2"] + lp["be2"]
+    e_feat = e_feat + e_new
+    agg = _segsum(e_feat, dst, n) + _segsum(e_feat, src, n)
+    z = torch.cat([h, agg], dim=-1)
+    h_new = F.relu(z @ lp["wv1"] + lp["bv1"]) @ lp["wv2"] + lp["bv2"]
+    return h + h_new, e_feat
+
+
+def forward(cfg: GNNConfig, params, batch):
+    """batch: feats [N, d_feat], edges [E, 2] (trash id = N), plus
+    graph_ids [N] for graph_class. Returns [N, n_out] (or [B, n_out])."""
+    feats, edges = batch["feats"], batch["edges"]
+    n = feats.shape[0]
+    src, dst = edges[:, 0].long(), edges[:, 1].long()
+
+    h = torch.tanh(feats.to(cfg.act_dtype) @ params["in_w"] + params["in_b"])
+    layers = params["layers"]
+    n_layers = next(iter(layers.values())).shape[0]
+
+    if cfg.arch in ("meshgraphnet", "graphcast"):
+        h_ext = torch.cat([h, torch.zeros((1, h.shape[1]), dtype=h.dtype, device=h.device)])
+        src_c = torch.clamp(src, max=n)
+        dst_c = torch.clamp(dst, max=n)
+        e_feat = torch.cat([h_ext[src_c], h_ext[dst_c]], dim=-1)
+        e_feat = F.relu(e_feat @ params["edge_in_w"] + params["edge_in_b"])
+        for i in range(n_layers):
+            h, e_feat = _mpnn_layer(h, e_feat, {k: v[i] for k, v in layers.items()},
+                                    src, dst, n)
+    else:
+        layer = _gin_layer if cfg.arch == "gin" else _gat_layer
+        for i in range(n_layers):
+            h = h + layer(h, {k: v[i] for k, v in layers.items()}, src, dst, n)
+
+    if cfg.task == "graph_class":
+        pooled = _segsum(h, batch["graph_ids"], batch["labels"].shape[0])
+        return pooled @ params["out_w"] + params["out_b"]
+    return h @ params["out_w"] + params["out_b"]
+
+
+def gnn_loss(cfg: GNNConfig, params, batch):
+    """The training loss's value (gradients wait for the training slice)."""
+    out = forward(cfg, params, batch).to(torch.float32)
+    labels, mask = batch["labels"], batch["mask"]
+    if cfg.task == "node_reg":
+        err = torch.square(out - labels) * mask[:, None]
+        return torch.sum(err) / torch.clamp(torch.sum(mask) * cfg.n_out, min=1.0)
+    logz = torch.logsumexp(out, dim=-1)
+    gold = torch.gather(out, -1, labels.long()[:, None])[:, 0]
+    nll = (logz - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)

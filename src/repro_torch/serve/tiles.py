@@ -28,14 +28,13 @@ Contract. A served pyramid tile equals, bit for bit, a direct one-shot
 ``render_arrays`` of the same viewport on the same device: the renderer's
 integer accumulators make a render deterministic given the positions. A
 served drill tile equals a direct ``full_layout_colored`` + fitted render
-of the same community on the CPU. On the card a drill's layout is not
-bitwise from run to run, because the attraction adds forces with float
-atomics (``core/forceatlas2.py``, the sorted attraction's ``index_add_``),
-and FA2's speed controller amplifies those roundings over a drill's 60
-iterations to ≈ 1e-3·max|pos|. There a drill holds its groups bitwise,
-its positions within 1e-4·max|pos| of the CPU's after 4 iterations, and
-its layout quality after 60; not its image (``chip_smoke.py``, phase
-serve).
+of the same community on the CPU. On the card a drill is the same bits
+from run to run (the attraction sums in a fixed order, kernel K7), but
+not the CPU's: the repulsion kernels round differently from their plain
+versions, and FA2's speed controller amplifies that over a drill's 60
+iterations. There a drill holds its groups bitwise against the CPU, its
+positions within 1e-4·max|pos| of the CPU's after 4 iterations, and its
+layout quality after 60 (``chip_smoke.py``, phase serve).
 
 The service compiles nothing at steady state: ``jit_compile_count`` counts
 kernel builds and library loads, which happen once per process.

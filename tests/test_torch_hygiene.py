@@ -60,7 +60,14 @@ def test_every_module_imports_without_jax_or_reference():
                  "repro_torch.resilience.validate", "repro_torch.resilience.chaos",
                  "repro_torch.resilience.fault_tolerance", "repro_torch.sharding",
                  "repro_torch.sharding.rules", "repro_torch.sharding.collectives",
-                 "repro_torch.launch.mesh"):
+                 "repro_torch.launch.mesh", "repro_torch.launch.steps",
+                 "repro_torch.configs", "repro_torch.configs.base",
+                 "repro_torch.configs.biggraphvis", "repro_torch.configs.lm_archs",
+                 "repro_torch.configs.gnn_archs", "repro_torch.configs.sasrec",
+                 "repro_torch.models.param", "repro_torch.models.layers",
+                 "repro_torch.models.transformer", "repro_torch.models.gnn",
+                 "repro_torch.models.sasrec", "repro_torch.serve.engine",
+                 "repro_torch.graph.sampling", "repro_torch.data.pipeline"):
         assert name in walked, name
 
 
@@ -72,6 +79,21 @@ def test_public_surface_covers_the_reference():
 
     assert set(repro.__all__) <= set(repro_torch.__all__)
     assert set(repro.resilience.__all__) <= set(repro_torch.resilience.__all__)
+
+
+def test_registry_has_the_reference_keys():
+    import repro.configs
+    import repro.graph
+    import repro_torch.configs
+    import repro_torch.graph
+
+    assert list(repro_torch.configs.REGISTRY) == list(repro.configs.REGISTRY)
+    assert repro_torch.configs.ASSIGNED == repro.configs.ASSIGNED
+    cells = [(a.name, s.name) for a, s in repro_torch.configs.all_cells()]
+    assert cells == [(a.name, s.name) for a, s in repro.configs.all_cells()]
+    public = {n for n in dir(repro.graph) if not n.startswith("_")} - {
+        "generators", "sampling", "utils", "EDGE_SENTINEL", "pad_to_multiple"}
+    assert public <= set(repro_torch.graph.__all__), public - set(repro_torch.graph.__all__)
 
 
 @pytest.mark.parametrize("pattern", [r"\bjax\b", r"(?<![\w/])repro\."])
@@ -89,7 +111,11 @@ def test_no_port_file_names_jax_or_the_reference(pattern):
 
 def test_device_none_raises_without_cuda(monkeypatch):
     import repro_torch
+    from repro_torch.configs.lm_archs import smoke_lm
     from repro_torch.graph.generators import planted_partition
+    from repro_torch.models.param import init_params
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.serve.engine import LMEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     edges, _ = planted_partition(60, 3, 0.3, 0.02, seed=0)
@@ -101,6 +127,8 @@ def test_device_none_raises_without_cuda(monkeypatch):
         lambda: repro_torch.render_arrays(np.zeros((4, 2)), np.ones(4), np.zeros(4)),
         lambda: repro_torch.stream_pipeline(edges, 60, cfg.scoda, cfg.cms, 60, 64),
         lambda: repro_torch.full_layout_colored(edges, 60, cfg, iterations=2),
+        lambda: LMEngine(smoke_lm(), init_params(torch.Generator().manual_seed(0),
+                                                 param_specs(smoke_lm())), 2, 8),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -173,10 +201,10 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     before = dict(build.LAUNCHES)
     # One counter per library, and one more for each library's other entry:
     # K1's generic scatter, K2's and K6's row ranges, K3's small-disk entry,
-    # K8's keys-in entry.
+    # K7's per-edge entry, K8's keys-in entry.
     extra = {"scatter_combine", "repulsion_rows", "near_field_rows", "count_disks",
-             "cms_update_keys"}
-    assert set(before) == set(build.KERNELS) | extra and len(before) == 13
+             "segment_sum_edges", "cms_update_keys"}
+    assert set(before) == set(build.KERNELS) | extra and len(before) == 14
     i = torch.zeros(4, dtype=torch.int32)
     f = torch.zeros(4)
     p = torch.zeros(4, 2)
@@ -192,6 +220,7 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     grid_ops.near_field_sorted(p, f, i, 80.0, 2)
     grid_ops.near_field_rows(p, f, i, 80.0, 2, 1, 2)
     seg_ops.segment_sum(p, i, 4)
+    seg_ops.segment_sum_edges(p, i, 4)
     cfg = cms_lib.CMSConfig(rows=2, cols=8)
     cms_ops.update(cms_lib.init_sketch(cfg), i, f, cfg)
     cms_ops.update_hashed(cms_lib.init_sketch(cfg), torch.zeros(2, 4, dtype=torch.int32), f)
@@ -207,6 +236,8 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
                                  80.0, 2, 0, 2)
     with pytest.raises(ValueError, match="unsupported device"):
         seg_ops.segment_sum(torch.zeros(4, 3, device="meta"), i.to("meta"), 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        seg_ops.segment_sum_edges(torch.zeros(4, 3, device="meta"), i.to("meta"), 4)
     im = i.to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         merge_ops.merge_place(im, im, im, m, im, im, im, m, 4)
