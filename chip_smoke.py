@@ -132,6 +132,21 @@ Phases, each printing its wall seconds:
                granite-moe-1b-a400m, both LMs at 2 layers against the CPU,
                SASRec's serve and retrieval cells, gin-tu and gat-cora
                (``models_phase``): tokens/s, ms per decode step, peak memory.
+14. training — ``repro_torch.train`` through ``make_train_step`` at full
+               width (``training_phase``): yi-6b ``train_4k`` with its depth
+               cut by a memory estimate (17 of 32 layers, one 4,096-token
+               row), granite-moe-1b-a400m at full depth with the float32 and
+               the 8-bit AdamW state, SASRec ``train_batch`` uncut, gin-tu
+               on ogbn-products' counts (remat), twice, bitwise; 3 steps
+               each (step ms, tokens/s, estimate and peak memory; the loss
+               finite and the last below the first + 0.5). Card against CPU
+               after 2 steps (yi-6b and granite at 2 layers, gin-tu
+               ``molecule``, gat-cora ``full_graph_sm``, SASRec at batch
+               256), the GNNs bitwise run to run; K7's per-edge entry and
+               its gather backward launched by every GNN step and timed on
+               ogbn-products' edges; ``python -m repro_torch.launch.train``
+               killed after step 12 and resumed, bitwise an uninterrupted
+               run.
 
 Every layout on the card (main path, full path, drills, resumed and
 sharded runs) is held bitwise run to run: FA2's attraction sums in a fixed
@@ -146,7 +161,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -291,6 +309,13 @@ KERNELS = {
                           "segment_sum_edges", "main"),
     "segment_sum_edges_full": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
                                "segment_sum_edges", "full"),
+    # K7 on the training path (gin-tu on ogbn-products' counts): the GNN's
+    # message sums (forward and remat recompute) and its row gathers'
+    # gradients (segment_sum_gather_bwd).
+    "segment_sum_edges_train": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
+                                "segment_sum_edges", "train"),
+    "segment_sum_gather_bwd": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
+                               "segment_sum_gather_bwd", "train"),
     # K8: keys hashed in the kernel (core.cms.update), and buckets given.
     "cms_update_keys": ("cms_update", _CMS, "cms_update_keys", "main"),
     "cms_update": ("cms_update", _CMS, "cms_update", None),
@@ -1805,6 +1830,28 @@ def bbox_pixels(torch, cx, cy, r, live, h, w) -> int:
     return int((span(cx, w) * span(cy, h))[live].sum())
 
 
+def kernel_row(by_path, name, ms, plain_ms, lib_ms, err, bytes_, ops, shape,
+               library=NO_LIBRARY) -> dict:
+    """One row of the ``kernels`` line; ``launches`` from ``by_path`` (each
+    path's measured run's counts), the bound from the run's bytes and
+    operations."""
+    bound_b = bytes_ / PEAK_BYTES_PER_S * 1e3
+    bound_o = ops / PEAK_F32_PER_S * 1e3
+    source, replaces, counter, path = KERNELS[name]
+    r = {
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{source}.cu", "replaces": replaces,
+        "launches": by_path.get(path, {}).get(counter, 0), "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
+        "bound_by": "bytes" if bound_b >= bound_o else "operations",
+        "library_ms": lib_ms, "library": library, "path": path or "none",
+    }
+    log(f"{name} {shape}: ms {ms} plain_ms {plain_ms} library_ms {lib_ms} "
+        f"({library}) bound_ms {r['bound_ms']} ({r['bound_by']}: bytes {bound_b} ms, "
+        f"operations {bound_o} ms) max_abs_err {err} launches {r['launches']} ({r['path']})")
+    return r
+
+
 def time_kernels(torch, np, cap: Capture, main_launches, full_launches, multi_launches):
     """One row per kernel entry and path (``KERNELS``). ``launches`` is the
     entry's count from the measured run of its path: the main path for K1,
@@ -1824,25 +1871,10 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches, multi_la
     from repro_torch.kernels.repulsion.ref import repulsion_chunked, repulsion_chunked_rows
 
     rows = []
+    by_path = {"main": main_launches, "full": full_launches, "multi": multi_launches}
 
-    def row(name, ms, plain_ms, lib_ms, err, bytes_, ops, shape, library=NO_LIBRARY):
-        bound_b = bytes_ / PEAK_BYTES_PER_S * 1e3
-        bound_o = ops / PEAK_F32_PER_S * 1e3
-        source, replaces, counter, path = KERNELS[name]
-        launches = {"main": main_launches, "full": full_launches,
-                    "multi": multi_launches}.get(path, {})
-        r = {
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{source}.cu", "replaces": replaces,
-            "launches": launches.get(counter, 0), "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bound_b, bound_o),
-            "bound_by": "bytes" if bound_b >= bound_o else "operations",
-            "library_ms": lib_ms, "library": library, "path": path or "none",
-        }
-        rows.append(r)
-        log(f"{name} {shape}: ms {ms} plain_ms {plain_ms} library_ms {lib_ms} "
-            f"({library}) bound_ms {r['bound_ms']} ({r['bound_by']}: bytes {bound_b} ms, "
-            f"operations {bound_o} ms) max_abs_err {err} launches {r['launches']} ({r['path']})")
+    def row(*args, **kw):
+        rows.append(kernel_row(by_path, *args, **kw))
 
     # K1 (merge_place) on the main path's last merge, and the generic
     # scatter_combine on the same rows, concatenated (outside the timed
@@ -3016,7 +3048,11 @@ def _serve(torch, engine, reqs, record=None):
             engine.tick()
         torch.cuda.synchronize()
     finally:
-        engine._decode, engine.tick = decode, tick
+        engine._decode = decode
+        if record is not None:
+            del engine.tick  # the class's method again: an instance attribute
+            # holding a bound method would keep the engine (and its weights
+            # on the card) alive in a reference cycle after the phase
     return time.perf_counter() - t0, most, last["steps"]
 
 
@@ -3087,6 +3123,19 @@ def lm_engine_run(torch, np, cfg, params, n_req: int, new: int, name: str,
     return info
 
 
+def sasrec_params(cfg, gen):
+    """Seeded random SASRec weights at the true fan-in (``lm_params``'s
+    rule: ``init_params`` takes the [L, d, H, hd] attention weights' fan-in
+    as H = 1, so its attention logits are an argmax)."""
+    from repro_torch.models import sasrec as sas_lib
+    from repro_torch.models.param import init_params
+
+    p = init_params(gen, sas_lib.param_specs(cfg))
+    for k in ("wq", "wk", "wv"):
+        p["layers"][k] *= (cfg.n_heads / cfg.embed_dim) ** 0.5
+    return p
+
+
 def lm_params(cfg, gen):
     """Seeded random LM weights at the true fan-in of every product.
 
@@ -3108,6 +3157,48 @@ def lm_params(cfg, gen):
     lyr["wv"] *= (cfg.n_kv_heads / cfg.d_model) ** 0.5
     lyr["wo"] *= cfg.n_heads ** -0.5
     return p
+
+
+GNN_SMALL_CELLS = (("gin-tu", "molecule"), ("gat-cora", "full_graph_sm"))
+
+
+def gnn_cell_batch(np, name: str, cell: str):
+    """``(arch, shape, model config, numpy batch)`` of gin-tu's ``molecule``
+    (a ``MoleculeStream`` batch, padded to the cell) or gat-cora's
+    ``full_graph_sm`` (a seeded graph at Cora's counts, padded), checked
+    against the cell's ``input_specs``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import input_specs
+    from repro_torch.data.pipeline import MoleculeStream
+
+    arch = get_config(name)
+    shape = arch.shapes[cell]
+    n, e = shape.n_nodes, shape.n_edges
+    rng = np.random.default_rng(SEED)
+    if cell == "molecule":
+        b = MoleculeStream(shape.n_graphs, 30, 64, shape.d_feat, shape.n_out,
+                           seed=SEED).batch_at(0)
+        real_n = b["feats"].shape[0]
+        feats = np.zeros((n, shape.d_feat), np.float32)
+        feats[:real_n] = b["feats"]
+        gids = np.full(n, shape.n_graphs, np.int32)
+        gids[:real_n] = b["graph_ids"]
+        ed = np.full((e, 2), n, np.int32)
+        ed[: len(b["edges"])] = b["edges"]
+        batch = {"feats": feats, "edges": ed, "graph_ids": gids, "labels": b["labels"],
+                 "mask": b["mask"]}
+    else:
+        real_n, real_e = 2708, 10556  # Cora's counts
+        feats = np.zeros((n, shape.d_feat), np.float32)
+        feats[:real_n] = (rng.random((real_n, shape.d_feat)) < 0.0127).astype(np.float32)
+        ed = np.full((e, 2), n, np.int32)
+        ed[:real_e] = rng.integers(0, real_n, (real_e, 2))
+        batch = {"feats": feats, "edges": ed,
+                 "labels": rng.integers(0, shape.n_out, n).astype(np.int32),
+                 "mask": (np.arange(n) < real_n).astype(np.float32)}
+    for k, v in input_specs(arch, shape).items():
+        check(tuple(batch[k].shape) == tuple(v.shape), f"{name}/{cell}: {k} shape")
+    return arch, shape, arch.model_for(shape), batch
 
 
 def models_phase(torch, np, cap: Capture, smi: str) -> dict:
@@ -3143,7 +3234,7 @@ def models_phase(torch, np, cap: Capture, smi: str) -> dict:
     Prints tokens/s, ms per decode step and peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import input_specs
-    from repro_torch.data.pipeline import MoleculeStream, SASRecStream
+    from repro_torch.data.pipeline import SASRecStream
     from repro_torch.device import resolve_device
     from repro_torch.models import gnn as gnn_lib
     from repro_torch.models import sasrec as sas_lib
@@ -3235,36 +3326,9 @@ def models_phase(torch, np, cap: Capture, smi: str) -> dict:
     torch.cuda.empty_cache()
 
     # GNN cells.
-    for name, cell in (("gin-tu", "molecule"), ("gat-cora", "full_graph_sm")):
-        arch = get_config(name)
-        shape = arch.shapes[cell]
-        gcfg = arch.model_for(shape)
+    for name, cell in GNN_SMALL_CELLS:
+        arch, shape, gcfg, batch = gnn_cell_batch(np, name, cell)
         n, e = shape.n_nodes, shape.n_edges
-        rng = np.random.default_rng(SEED)
-        if cell == "molecule":
-            b = MoleculeStream(shape.n_graphs, 30, 64, shape.d_feat, shape.n_out,
-                               seed=SEED).batch_at(0)
-            real_n = b["feats"].shape[0]
-            feats = np.zeros((n, shape.d_feat), np.float32)
-            feats[:real_n] = b["feats"]
-            gids = np.full(n, shape.n_graphs, np.int32)
-            gids[:real_n] = b["graph_ids"]
-            ed = np.full((e, 2), n, np.int32)
-            ed[: len(b["edges"])] = b["edges"]
-            batch = {"feats": feats, "edges": ed, "graph_ids": gids, "labels": b["labels"],
-                     "mask": b["mask"]}
-        else:
-            real_n, real_e = 2708, 10556  # Cora's counts
-            feats = np.zeros((n, shape.d_feat), np.float32)
-            feats[:real_n] = (rng.random((real_n, shape.d_feat)) < 0.0127).astype(np.float32)
-            ed = np.full((e, 2), n, np.int32)
-            ed[:real_e] = rng.integers(0, real_n, (real_e, 2))
-            batch = {"feats": feats, "edges": ed,
-                     "labels": rng.integers(0, shape.n_out, n).astype(np.int32),
-                     "mask": (np.arange(n) < real_n).astype(np.float32)}
-        spec = input_specs(arch, shape)
-        for k, v in spec.items():
-            check(tuple(batch[k].shape) == tuple(v.shape), f"{name}/{cell}: {k} shape")
         gp = init_params(torch.Generator(device="cuda").manual_seed(SEED),
                          gnn_lib.param_specs(gcfg))
         bd = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
@@ -3290,6 +3354,475 @@ def models_phase(torch, np, cap: Capture, smi: str) -> dict:
     check(launches["segment_sum_edges"] > 0, "models: K7 was not launched")
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------------------- phase 14
+# Training: full-width runs take TRAIN_STEPS steps each; the runs against
+# the CPU TRAIN_CMP_STEPS. yi-6b's depth is the deepest whose estimate
+# (lm_train_estimate) stays under TRAIN_BUDGET bytes; granite-moe runs at
+# full depth, SASRec's train_batch uncut, gin-tu on ogbn-products' counts.
+TRAIN_STEPS, TRAIN_CMP_STEPS, TRAIN_BUDGET = 3, 2, 70e9
+TRAIN_LM_TOKENS = {"yi-6b": (1, 4096), "granite-moe-1b-a400m": (2, 4096)}
+TRAIN_CMP_TOKENS, TRAIN_CMP_SAS_BATCH = (1, 32), 256
+# ogbn-products' true counts (the cell pads them to 2,449,408 and
+# 61,859,328), made on the card as the dry-run phase makes LiveJournal's.
+PRODUCTS_NODES, PRODUCTS_EDGES = 2_449_029, 61_859_140
+# Card against CPU after TRAIN_CMP_STEPS steps, float32, TF32 off: each
+# step's loss and grad norm within a relative tolerance, and each parameter
+# tensor within tol_p·max|p|: (tol_loss, tol_gnorm, tol_p) by family, about
+# 3× the worst measured on an H100 80GB HBM3 at 700 W (PERF.md §6,
+# training): LMs 1.4e-6, 1.5e-6, 4.3e-3 (granite's; AdamW's first steps
+# move an element whose gradient is near zero by up to lr whatever the
+# gradient's size, so there a rounding-level difference moves it by a
+# fraction of lr, 0.48·lr at worst); GNNs 6.0e-8, 6.2e-8, 5.5e-6; SASRec
+# (true fan-in) 0, 1.1e-7, 4.5e-5.
+TRAIN_TOL = {"lm": (5e-6, 5e-6, 1.5e-2), "gnn": (2e-7, 2e-7, 1.5e-5),
+             "sasrec": (2e-7, 3e-7, 1.5e-4)}
+LR = 1e-3  # AdamWConfig's default: every run of the phase but the full-width LMs'
+# The full-width LMs take the learning rate of a warm-up's first steps:
+# AdamW's first steps move every weight by ≈ lr in its gradient's sign,
+# which moves a width-d product by ≈ 0.8·lr·d of its scale. At lr 1e-3,
+# yi-6b (17 layers) went from loss 11.6 to 17.5 in 3 steps (PERF.md §6),
+# and the reference diverges alike at full width: 11.06 → 18.66 → 24.58
+# over 3 steps at 2 layers, the port within 1.1e-6 of it
+# (tests/torch_lm_lr_witness.py, the configuration of the 2-layer gate
+# below, which holds the card's full-width backward at lr 1e-3).
+LM_LR = 1e-5
+TRAIN_KILL_ARGS = ["--arch", "gin-tu", "--preset", "smoke", "--steps", "20",
+                   "--ckpt-every", "5"]
+TRAIN_KILL_AT = 12
+# Fault injection from outside the launcher: ``launch.train.main`` with its
+# step function wrapped so that the process SIGKILLs itself right after step
+# ``argv[1]`` (counted from a fresh start) and before that step's checkpoint.
+TRAIN_KILL_HARNESS = """
+import os, signal, sys
+import repro_torch.launch.train as launcher
+kill_at, make = int(sys.argv[1]), launcher.make_train_step
+def make_killed(*args, **kwargs):
+    step_fn, calls = make(*args, **kwargs), [0]
+    def step(*a):
+        out = step_fn(*a)
+        if calls[0] == kill_at:
+            float(out[2]["loss"])
+            print(f"step {kill_at}: killed", flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+        calls[0] += 1
+        return out
+    return step
+launcher.make_train_step = make_killed
+launcher.main(sys.argv[2:])
+"""
+
+
+def lm_train_estimate(torch, cfg, rows: int, seq: int, bits: int) -> int:
+    """Device bytes of an LM train step: parameters, gradients and AdamW
+    state (4 + 4 + 8 bytes a parameter, or 4 + 4 + ≈ 1 at 8 bits), the
+    layer weights cast to the activation type, each layer's saved input
+    (remat), one layer's attention (float32 softmax and its cast, a row of
+    heads at a time), its MLP, and the float32 logits with their gradient."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.param import param_count
+
+    specs = tfm.param_specs(cfg)
+    p = param_count(specs)
+    p_layers = param_count(specs["layers"])
+    a = 2 if cfg.act_dtype == torch.bfloat16 else 4
+    t = rows * seq
+    if cfg.moe is None:
+        ff = t * cfg.d_ff
+    else:
+        ff = int(t * cfg.moe.top_k * cfg.moe.capacity_factor) * cfg.moe.d_ff_expert
+    state = 8 if bits == 32 else 1
+    return int(p * (8 + state) + (p_layers * a if a < 4 else 0) + cfg.n_layers * t * cfg.d_model * a
+               + rows * cfg.n_heads * seq * seq * (4 + a) + 6 * ff * a
+               + 4 * t * cfg.vocab_padded * 4)
+
+
+def train_run(torch, loss_fn, params, batches, bits: int = 32, microbatch: int = 0,
+              lr: float = LR) -> tuple:
+    """``len(batches)`` steps of ``make_train_step(loss_fn)`` with AdamW at
+    ``lr``; parameters and state updated in place. Returns ``(params,
+    state, info)`` with each step's loss, grad norm and wall ms (host clock
+    around a step ended by its loss's read)."""
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+
+    tcfg = TrainConfig(adamw=opt.AdamWConfig(lr=lr, state_bits=bits), microbatch=microbatch)
+    state = opt.init_opt_state(params, tcfg.adamw)
+    step = make_train_step(loss_fn, tcfg)
+    cuda = tree_leaves(params)[0].is_cuda
+    info = {"losses": [], "grad_norms": [], "step_ms": []}
+    for b in batches:
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        info["losses"].append(float(m["loss"]))
+        info["grad_norms"].append(float(m["grad_norm"]))
+        info["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    return params, state, info
+
+
+def loss_gate(np, name: str, losses) -> None:
+    """Every loss finite, the last below the first + 0.5 (the reference's
+    criterion, tests/test_arch_smoke.py)."""
+    check(bool(np.isfinite(losses).all()), f"{name}: a non-finite loss {losses}")
+    check(losses[-1] < losses[0] + 0.5, f"{name}: loss {losses[0]} → {losses[-1]}")
+
+
+def _tree_to(tree, device):
+    from repro_torch.models.param import tree_map
+
+    return tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+def _max_rel(torch, a, b) -> float:
+    """max over leaves of max|a − b| / max|b| (0 for two zero tensors)."""
+    from repro_torch.models.param import tree_leaves
+
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        d = float((x.float().cpu() - y.float().cpu()).abs().max())
+        worst = max(worst, d / max(float(y.float().abs().max()), 1e-30))
+    return worst
+
+
+def card_against_cpu(torch, np, name: str, family: str, loss_fn, host_params, host_batches):
+    """The first TRAIN_CMP_STEPS of ``host_batches`` on the card and on the
+    CPU from the same parameters: the gate TRAIN_TOL[family]. Then two runs
+    of all of ``host_batches`` (TRAIN_STEPS) on the card from the same
+    parameters: their run to run measured (bitwise or not), gated only for
+    the GNNs."""
+    from repro_torch.models.param import tree_leaves
+
+    dev_batches = [{k: v.to("cuda") for k, v in b.items()} for b in host_batches]
+    card, _, card_info = train_run(torch, loss_fn, _tree_to(host_params, "cuda"),
+                                   dev_batches[:TRAIN_CMP_STEPS])
+    runs = [train_run(torch, loss_fn, _tree_to(host_params, "cuda"), dev_batches)[:2]
+            for _ in range(2)]
+    t0 = time.perf_counter()
+    cpu, _, cpu_info = train_run(torch, loss_fn, host_params, host_batches[:TRAIN_CMP_STEPS])
+    cpu_s = time.perf_counter() - t0
+    tol_loss, tol_gnorm, tol_p = TRAIN_TOL[family]
+    loss_err = max(abs(a / b - 1) for a, b in zip(card_info["losses"], cpu_info["losses"]))
+    gnorm_err = max(abs(a / b - 1)
+                    for a, b in zip(card_info["grad_norms"], cpu_info["grad_norms"]))
+    p_err = _max_rel(torch, card, cpu)
+    worst = max(((float((x.cpu() - y).abs().max()) / LR, i)
+                 for i, (x, y) in enumerate(zip(tree_leaves(card), tree_leaves(cpu)))))
+    bitwise = _same(torch, tree_leaves({"p": runs[0][0], "s": runs[0][1]}),
+                    tree_leaves({"p": runs[1][0], "s": runs[1][1]}))
+    info = {"losses_card": card_info["losses"], "losses_cpu": cpu_info["losses"],
+            "grad_norms_card": card_info["grad_norms"], "grad_norms_cpu": cpu_info["grad_norms"],
+            "loss_rel": loss_err, "grad_norm_rel": gnorm_err, "param_max_rel": p_err,
+            "param_max_abs_over_lr": worst[0], "worst_leaf": worst[1],
+            "tol": TRAIN_TOL[family], "card_run_to_run_bitwise": bitwise,
+            "card_run_to_run_param_max_rel": _max_rel(torch, runs[0][0], runs[1][0]),
+            "cpu_seconds": cpu_s}
+    log(f"{name} card against CPU after {TRAIN_CMP_STEPS} steps, card run to run after "
+        f"{len(host_batches)} " + json.dumps(info))
+    check(loss_err <= tol_loss and gnorm_err <= tol_gnorm,
+          f"{name}: card and CPU loss or grad norm differ ({loss_err}, {gnorm_err})")
+    check(p_err <= tol_p, f"{name}: card and CPU parameters differ by {p_err} of max|p|")
+    if family == "gnn":
+        check(bitwise, f"{name}: two runs on the card differ")
+    return info
+
+
+def products_batch(torch, shape, seed: int = SEED) -> dict:
+    """gin-tu's ``ogb_products`` cell on the card: ogbn-products' node and
+    edge counts (the dataset is not in the repository) as ``_lj_graph``
+    makes them, padded with the trash id; seeded float32 features, labels
+    of the cell's 47 classes, every real node in the loss."""
+    n, e = shape.n_nodes, shape.n_edges
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    edges = _padded(torch, _lj_graph(torch, PRODUCTS_NODES, PRODUCTS_EDGES, seed), e, n)
+    feats = torch.zeros((n, shape.d_feat), device="cuda")
+    feats[:PRODUCTS_NODES] = torch.randn((PRODUCTS_NODES, shape.d_feat), generator=g,
+                                         device="cuda")
+    labels = torch.randint(0, shape.n_out, (n,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    mask = (torch.arange(n, device="cuda") < PRODUCTS_NODES).to(torch.float32)
+    return {"feats": feats, "edges": edges, "labels": labels, "mask": mask}
+
+
+def time_k7_train(torch, rows: list, launches: dict, edges, n: int, d: int):
+    """K7's two training entries on ogb_products' edges (seeded [E, d]
+    float32 terms): the message sum (ids = dst, unsorted) and the gather
+    backward (ids = src). Each against the card's plain version within
+    2γ(k−1)·Σ|x| per segment (in row chunks: the float64 bound of the whole
+    input would be 32 GB) and run to run; timed beside the plain version
+    and ``index_add_`` on the kept rows."""
+    from repro_torch.kernels.segment import ops as seg_ops
+    from repro_torch.kernels.segment.ref import segment_sum_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    e = edges.shape[0]
+    data = torch.randn((e, d), generator=g, device="cuda")
+    for name, col, counter in (("segment_sum_edges_train", 1, "segment_sum_edges"),
+                               ("segment_sum_gather_bwd", 0, "segment_sum_gather_bwd")):
+        seg = edges[:, col].contiguous()
+
+        def k7():
+            return seg_ops._segment_sum(data, seg, n, False, counter)
+
+        got = k7()
+        check(bits_equal(torch, got, k7()), f"K7 {name}: two launches differ")
+        plain = segment_sum_ref(data, seg, n)
+        keep = (seg >= 0) & (seg < n)
+        idx = seg[keep].long()
+        k = torch.bincount(idx, minlength=n).double()
+        absum = torch.zeros((n, d), dtype=torch.float64, device="cuda")
+        for i0 in range(0, e, 1 << 22):
+            s, x = seg[i0:i0 + (1 << 22)], data[i0:i0 + (1 << 22)]
+            kk = (s >= 0) & (s < n)
+            absum.index_add_(0, s[kk].long(), x[kk].double().abs())
+        m = torch.clamp(k - 1, min=0) * 2.0**-24
+        err = (got.double() - plain.double()).abs()
+        check(bool((err <= (2 * m / (1 - m))[:, None] * absum).all()),
+              f"K7 {name}: |Δ| above 2γ(k−1)·Σ|x| of the card's plain version")
+        del absum, plain, got
+        data_k = data[keep]
+        out = torch.zeros((n, d), device="cuda")
+        lib = cuda_ms(torch, lambda: out.index_add_(0, idx, data_k), 5)
+        del data_k, out
+        largest = int(k.max())
+        rows.append(kernel_row(
+            {"train": launches}, name, cuda_ms(torch, k7, 5),
+            cuda_ms(torch, lambda: segment_sum_ref(data, seg, n), 3), lib,
+            float(err.max()), e * (4 * d + 4) + n * d * 4, e * d,
+            f"E={e} D={d} N={n} sorted=False largest_segment={largest}",
+            "index_add_ on the kept rows"))
+        del err
+        torch.cuda.empty_cache()
+
+
+def train_launcher_round_trip(np) -> dict:
+    """``python -m repro_torch.launch.train`` on the card: TRAIN_KILL_ARGS
+    uninterrupted (exit 0), and killed (SIGKILL, TRAIN_KILL_HARNESS) after
+    step TRAIN_KILL_AT, both at once, then resumed: it must restore the step-10
+    checkpoint, and its final checkpoint must equal the uninterrupted run's
+    bit for bit."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_KILL_ARGS]
+    kill_cmd = [sys.executable, "-c", TRAIN_KILL_HARNESS, str(TRAIN_KILL_AT), *TRAIN_KILL_ARGS]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(c + ["--ckpt-dir", f"{d}/{tag}"], cwd=ROOT,
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+                 for tag, c in (("whole", cmd), ("killed", kill_cmd))]
+        outs = [p.communicate(timeout=LAUNCHER_TIMEOUT)[0] for p in procs]
+        check(procs[0].returncode == 0, f"train launcher exited {procs[0].returncode}:\n"
+                                        f"{outs[0][-3000:]}")
+        check(procs[1].returncode == -9 and f"step {TRAIN_KILL_AT}: killed" in outs[1],
+              f"killed train launcher exited {procs[1].returncode}:\n{outs[1][-3000:]}")
+        res = subprocess.run(cmd + ["--ckpt-dir", f"{d}/killed"], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=LAUNCHER_TIMEOUT)
+        check(res.returncode == 0, f"resumed train launcher exited {res.returncode}:\n"
+                                   f"{res.stdout[-3000:]}{res.stderr[-3000:]}")
+        check("restored checkpoint @ step 10" in res.stdout,
+              f"the resumed run did not restore step 10:\n{res.stdout[-2000:]}")
+        last = "step_00000019.npz"
+        with np.load(f"{d}/whole/{last}") as a, np.load(f"{d}/killed/{last}") as b:
+            same = sorted(a.files) == sorted(b.files) and all(
+                a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes() for k in a.files)
+            n_arrays = len(a.files)
+        info = {"wall_s": time.perf_counter() - t0, "arrays": n_arrays,
+                "resumed_bitwise": same,
+                "whole_tail": outs[0].strip().splitlines()[-1]}
+    log("train launcher kill at step 12 and resume " + json.dumps(info))
+    check(same, "the resumed run's final checkpoint differs from the uninterrupted run's")
+    return info
+
+
+def training_phase(torch, np, cap: Capture, smi: str) -> list:
+    """Training on the card (``repro_torch.train``), through
+    ``make_train_step`` and ``python -m repro_torch.launch.train``, seeded
+    random weights (the LMs' at the true fan-in, ``lm_params``), AdamW at
+    LR, TF32 off. A memory estimate is printed before each full-width run
+    and its peak after it.
+
+    * yi-6b ``train_4k`` at full width, depth cut to the deepest under
+      TRAIN_BUDGET (parameters, gradients, m and v in float32 take 16 B a
+      parameter: all 32 layers would need 97 GB), one 4,096-token row;
+      granite-moe-1b-a400m at full width and depth, 2 × 4,096 tokens, with
+      the float32 and the 8-bit state; SASRec ``train_batch`` uncut
+      (65,536 × 50); gin-tu ``ogb_products`` at ogbn-products' counts
+      (remat on), twice from the same parameters, bitwise. Each run
+      TRAIN_STEPS steps: step ms, tokens/s, peak bytes; every loss finite
+      and the last below the first + 0.5.
+    * Card against CPU (``card_against_cpu``), float32: yi-6b and granite
+      at full width and 2 layers (32 tokens), gin-tu ``molecule``,
+      gat-cora ``full_graph_sm``, SASRec at a batch of 256; the card's run
+      to run measured (the LMs' and SASRec's embedding gathers add their
+      gradients with ``index_put_``), and held bitwise for the GNNs.
+    * K7: every GNN run launches its per-edge entry (forward sums and the
+      remat recompute) and its gather backward; both are timed on
+      ogb_products' edges (``time_k7_train``) for the ``kernels`` line.
+    * The launcher: ``train_launcher_round_trip``.
+    Returns the ``kernels`` rows of K7's two training entries."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LMStream, SASRecStream
+    from repro_torch.device import resolve_device
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.models import sasrec as sas_lib
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.param import init_params, param_count, tree_leaves
+
+    resolve_device("cuda")
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"training: {torch.cuda.memory_allocated()} bytes allocated on the card at the start")
+    out = {"card": smi}
+    rows = []
+
+    def lm_batches(cfg, shape_rows, seq, host=False):
+        stream = LMStream(cfg.vocab, shape_rows, seq, seed=SEED)
+        dev = "cpu" if host else "cuda"
+        return [{k: torch.as_tensor(v, device=dev) for k, v in stream.batch_at(i).items()}
+                for i in range(TRAIN_STEPS)]
+
+    def full_run(name, cfg, loss_fn, params, batches, est, tokens, bits=32, microbatch=0,
+                 lr=LR):
+        log(f"{name}: estimate {est} bytes ({est / 1e9:.1f} GB) of device memory")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, state, info = train_run(torch, loss_fn, params, batches, bits, microbatch, lr)
+        info["lr"] = lr
+        info["peak_bytes"] = torch.cuda.max_memory_allocated()
+        info["estimate_bytes"] = est
+        info["tokens_per_step"] = tokens
+        info["tokens_per_s"] = [tokens / ms * 1e3 for ms in info["step_ms"]]
+        log(f"{name} train " + json.dumps(info))
+        loss_gate(np, name, info["losses"])
+        return params, state, info
+
+    # yi-6b train_4k, full width, depth cut.
+    yi_arch = get_config("yi-6b")
+    rows_, seq = TRAIN_LM_TOKENS["yi-6b"]
+    depth = max(n for n in range(1, yi_arch.model.n_layers + 1)
+                if lm_train_estimate(torch, dataclasses.replace(yi_arch.model, n_layers=n), rows_, seq,
+                                     yi_arch.opt_state_bits) <= TRAIN_BUDGET)
+    yi = dataclasses.replace(yi_arch.model, n_layers=depth)
+    log(f"yi-6b train_4k: {depth} of {yi_arch.model.n_layers} layers, "
+        f"{param_count(tfm.param_specs(yi))} of {param_count(tfm.param_specs(yi_arch.model))} "
+        "parameters")
+    params = lm_params(yi, torch.Generator(device="cuda").manual_seed(SEED))
+    params, state, out["yi-6b"] = full_run(
+        f"yi-6b ({depth} layers)", yi, functools.partial(tfm.lm_loss, yi), params,
+        lm_batches(yi, rows_, seq), lm_train_estimate(torch, yi, rows_, seq, yi_arch.opt_state_bits),
+        rows_ * seq, yi_arch.opt_state_bits, yi_arch.microbatch_train, LM_LR)
+    out["yi-6b"]["layers"] = depth
+    del params, state
+    torch.cuda.empty_cache()
+
+    # granite-moe, full width and depth, float32 and 8-bit state.
+    gr_arch = get_config("granite-moe-1b-a400m")
+    gr = gr_arch.model
+    rows_, seq = TRAIN_LM_TOKENS["granite-moe-1b-a400m"]
+    for bits in (32, 8):
+        params = lm_params(gr, torch.Generator(device="cuda").manual_seed(SEED))
+        params, state, out[f"granite-moe-{bits}"] = full_run(
+            f"granite-moe-1b-a400m (state {bits} bits)", gr, functools.partial(tfm.lm_loss, gr),
+            params, lm_batches(gr, rows_, seq), lm_train_estimate(torch, gr, rows_, seq, bits),
+            rows_ * seq, bits, lr=LM_LR)
+        del params, state
+        torch.cuda.empty_cache()
+
+    # The LMs against the CPU: full width, 2 layers, float32.
+    for name, base in (("yi-6b", yi_arch.model), ("granite-moe-1b-a400m", gr)):
+        cfg = dataclasses.replace(base, n_layers=2, act_dtype=torch.float32)
+        host = lm_params(cfg, torch.Generator().manual_seed(SEED))
+        out[f"{name}-2l-f32-cmp"] = card_against_cpu(
+            torch, np, f"{name} (2 layers, float32)", "lm", functools.partial(tfm.lm_loss, cfg),
+            host, lm_batches(cfg, *TRAIN_CMP_TOKENS, host=True))
+        del host
+    torch.cuda.empty_cache()
+
+    # SASRec train_batch, uncut, and against the CPU at a cut batch.
+    sas = get_config("sasrec")
+    scfg = sas.model
+    sb = sas.shapes["train_batch"].global_batch
+    sparams = sasrec_params(scfg, torch.Generator(device="cuda").manual_seed(SEED))
+    stream = SASRecStream(scfg.n_items, sb, scfg.seq_len, seed=SEED)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in stream.batch_at(i).items()}
+               for i in range(TRAIN_STEPS)]
+    p_sas = param_count(sas_lib.param_specs(scfg))
+    est = p_sas * 16 + sb * scfg.seq_len * (scfg.seq_len * 12 + scfg.embed_dim * 4 * 24)
+    sparams, sstate, out["sasrec"] = full_run(
+        "sasrec train_batch", scfg, functools.partial(sas_lib.sasrec_loss, scfg), sparams,
+        batches, est, sb * scfg.seq_len)
+    del sparams, sstate, batches
+    torch.cuda.empty_cache()
+    host = sasrec_params(scfg, torch.Generator().manual_seed(SEED))
+    hs = SASRecStream(scfg.n_items, TRAIN_CMP_SAS_BATCH, scfg.seq_len, seed=SEED)
+    out["sasrec-cmp"] = card_against_cpu(
+        torch, np, f"sasrec (batch {TRAIN_CMP_SAS_BATCH})", "sasrec",
+        functools.partial(sas_lib.sasrec_loss, scfg), host,
+        [{k: torch.as_tensor(v) for k, v in hs.batch_at(i).items()}
+         for i in range(TRAIN_STEPS)])
+    del host
+
+    # GNNs: the small cells against the CPU and bitwise run to run.
+    for name, cell in GNN_SMALL_CELLS:
+        arch, shape, gcfg, batch = gnn_cell_batch(np, name, cell)
+        host = init_params(torch.Generator().manual_seed(SEED), gnn_lib.param_specs(gcfg))
+        cap.reset()
+        info = card_against_cpu(torch, np, f"{name}/{cell}", "gnn",
+                                functools.partial(gnn_lib.gnn_loss, gcfg), host,
+                                [{k: torch.as_tensor(v) for k, v in batch.items()}]
+                                * TRAIN_STEPS)
+        launches = cap.counts()
+        info["launches"] = {k: launches[k] for k in ("segment_sum_edges",
+                                                     "segment_sum_gather_bwd")}
+        check(min(info["launches"].values()) > 0, f"{name}/{cell}: K7 not launched "
+                                                  f"in training: {info['launches']}")
+        out[f"{name}/{cell}"] = info
+
+    # gin-tu on ogb_products, twice from the same parameters.
+    arch = get_config("gin-tu")
+    shape = arch.shapes["ogb_products"]
+    gcfg = arch.model_for(shape)
+    check(gcfg.remat, "ogb_products: remat is off")
+    t0 = time.perf_counter()
+    batch = products_batch(torch, shape)
+    torch.cuda.synchronize()
+    log(f"ogb_products batch: {shape.n_nodes} nodes, {shape.n_edges} edges, made on the card "
+        f"in {time.perf_counter() - t0:.3f} s")
+    p0 = init_params(torch.Generator(device="cuda").manual_seed(SEED), gnn_lib.param_specs(gcfg))
+    e, d = shape.n_edges, gcfg.d_hidden
+    est = 3 * e * d * 4 + e * 8 * 3 + shape.n_nodes * (shape.d_feat + 16 * d) * 4
+    loss_fn = functools.partial(gnn_lib.gnn_loss, gcfg)
+    runs = []
+    for k in range(2):
+        cap.reset()
+        p, st, info = full_run(f"gin-tu/ogb_products run {k + 1}", gcfg, loss_fn,
+                               _tree_to(p0, "cuda"), [batch] * TRAIN_STEPS, est, shape.n_nodes)
+        runs.append((p, st, info, cap.counts()))
+        info["launches"] = {c: v for c, v in runs[-1][3].items() if v}
+    train_launches = runs[0][3]
+    same = _same(torch, tree_leaves({"p": runs[0][0], "s": runs[0][1]}),
+                 tree_leaves({"p": runs[1][0], "s": runs[1][1]}))
+    out["gin-tu/ogb_products"] = runs[0][2] | {"run_to_run_bitwise": same}
+    log(f"gin-tu/ogb_products launches per run of {TRAIN_STEPS} steps "
+        + json.dumps(runs[0][2]["launches"]))
+    check(same, "gin-tu/ogb_products: two runs of the same steps differ")
+    check(train_launches["segment_sum_edges"] > 0 and train_launches["segment_sum_gather_bwd"] > 0,
+          "gin-tu/ogb_products: K7's training entries were not launched")
+    edges = batch["edges"]
+    del runs, p0, batch
+    torch.cuda.empty_cache()
+    time_k7_train(torch, rows, train_launches, edges, shape.n_nodes, d)
+    del edges
+    torch.cuda.empty_cache()
+
+    out["launcher"] = train_launcher_round_trip(np)
+    log("training " + json.dumps({k: v for k, v in out.items() if k != "card"}))
+    return rows
 
 
 def run() -> int:
@@ -3340,7 +3873,8 @@ def run() -> int:
         multi_launches = multi_device_phase(torch, np, edges, main_result, main_cfg, smi)
     with phase("timing"):
         rows = time_kernels(torch, np, cap, main_launches, full_launches, multi_launches)
-    check(len(rows) == len(KERNELS), f"{len(rows)} kernel rows, expected {len(KERNELS)}")
+    before_train = [k for k, v in KERNELS.items() if v[3] != "train"]
+    check(len(rows) == len(before_train), f"{len(rows)} kernel rows, expected {len(before_train)}")
     full_nodes = cap.calls["count_disks@full"][1]
     cap.calls.clear()
     torch.cuda.empty_cache()
@@ -3357,6 +3891,9 @@ def run() -> int:
     torch.cuda.empty_cache()
     with phase("models"):
         models_phase(torch, np, cap, smi)
+    with phase("training"):
+        rows += training_phase(torch, np, cap, smi)
+    check(len(rows) == len(KERNELS), f"{len(rows)} kernel rows, expected {len(KERNELS)}")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

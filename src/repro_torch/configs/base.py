@@ -51,6 +51,7 @@ class ArchConfig:
     # train-time knobs of the reference's launcher (per arch)
     opt_state_bits: int = 32
     microbatch_train: int = 0
+    train_param_dtype: torch.dtype | None = None  # None: the model's own param_dtype
     notes: str = ""
 
     def model_for(self, shape: ShapeSpec):

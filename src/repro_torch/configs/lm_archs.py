@@ -22,6 +22,7 @@ def kimi_k2_1t_a32b() -> ArchConfig:
         name="kimi-k2-1t-a32b", family="lm", profile="tp", model=model,
         shapes=lm_shapes(sub_quadratic=False), opt_state_bits=8,
         microbatch_train=4,
+        train_param_dtype=torch.bfloat16,  # 1 T parameters: bf16 weights for training
     )
 
 

@@ -4,7 +4,8 @@ into the port.
 The BigGraphVis pipeline has no weights; what a run carries is
 configuration and state. The model substrate has parameters:
 ``params_from_reference`` turns the reference's parameter tree, as numpy
-arrays, into the port's nested dict of tensors.
+arrays, into the port's nested dict of tensors, and
+``opt_state_from_reference`` its AdamW state (either layout).
 ``config_from_reference`` turns any of the reference's ``ScodaConfig``,
 ``CMSConfig``, ``FA2Config``, ``BGVConfig``, ``StreamConfig``,
 ``RenderConfig`` or ``TileConfig`` into the port's, by duck typing on
@@ -108,3 +109,24 @@ def params_from_reference(tree, device="cpu"):
         bits = torch.from_numpy(np.ascontiguousarray(x).view(np.int16))
         return bits.view(torch.bfloat16).to(device)
     return torch.as_tensor(np.array(x), device=device)
+
+
+def opt_state_from_reference(tree, device="cpu"):
+    """The port's AdamW state (``repro_torch.train.optimizer``) from the
+    reference's, as numpy arrays: ``{"count", "mv"}`` with each parameter's
+    ``{"m", "v"}`` either float32 arrays (``state_bits=32``) or the 8-bit
+    layout (m as int8 ``q`` and float32 ``s``, v factored into ``r`` and
+    ``c`` for parameters of rank ≥ 2). Dtypes are kept, so the state
+    restores bit for bit."""
+    if set(tree) != {"count", "mv"}:
+        raise ValueError(f"not an AdamW state: keys {sorted(tree)}, expected count and mv")
+
+    def one(node):
+        if isinstance(node, dict) and set(node) == {"m", "v"}:
+            return {k: params_from_reference(node[k], device) for k in ("m", "v")}
+        if isinstance(node, dict):
+            return {k: one(v) for k, v in node.items()}
+        raise ValueError("AdamW state: a parameter's entry must be a dict of m and v")
+
+    count = torch.as_tensor(np.array(tree["count"]), dtype=torch.int32, device=device)
+    return {"count": count, "mv": one(tree["mv"])}

@@ -2,23 +2,31 @@
 per (arch × shape) cell, with the roofline metadata the reference's
 builders give (``launch/steps.py`` there).
 
+Every cell builds: the training cells (the LMs' ``train_*``, every GNN
+cell, SASRec's ``train_batch``) as ``train.make_train_step`` over the
+family's loss, taking ``(params, opt_state, batch)`` and updating both in
+place (the reference donates them, ``donate=(0, 1)``); the rest as the
+prefill, decode, serve and retrieval steps and the BigGraphVis cells.
+
 The reference also lowers each step onto a TPU device mesh with
 per-input shardings; that has no meaning on one card, so ``mesh`` must be
-None and anything else raises. Multi-device cells and the training steps
-(``train_*`` and the GNN cells, which are all training cells) are not
-ported yet; their builders raise.
+None and anything else raises. The multi-device cells are not ported.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, replace
 from typing import Callable
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec, input_specs, meta
+from repro_torch.models import gnn as gnn_lib
 from repro_torch.models import sasrec as sas_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.param import abstract_params, param_count
+from repro_torch.train import optimizer as opt
+from repro_torch.train.train_loop import TrainConfig, make_train_step
 
 
 @dataclass
@@ -36,10 +44,10 @@ def _no_mesh(mesh) -> None:
         )
 
 
-def _not_ported(arch: ArchConfig, shape: ShapeSpec):
-    raise NotImplementedError(
-        f"{arch.name}/{shape.name}: {shape.kind} steps (training) are not ported yet"
-    )
+def _train_step(loss_fn, aparams, abstract_batch, info, acfg: opt.AdamWConfig,
+                microbatch: int = 0) -> BuiltStep:
+    fn = make_train_step(loss_fn, TrainConfig(adamw=acfg, microbatch=microbatch))
+    return BuiltStep(fn, (aparams, opt.abstract_opt_state(aparams, acfg), abstract_batch), info)
 
 
 # ------------------------------------------------------------------ LM cells
@@ -70,27 +78,61 @@ def _lm_flops_meta(cfg: tfm.LMConfig, shape: ShapeSpec) -> dict:
 
 def build_lm_step(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> BuiltStep:
     _no_mesh(mesh)
-    if shape.kind not in ("prefill", "decode"):
-        _not_ported(arch, shape)
-    # Serving weights are stored in the activation dtype.
-    cfg = replace(arch.model, param_dtype=arch.model.act_dtype)
+    cfg = arch.model
+    if shape.kind == "train" and arch.train_param_dtype is not None:
+        cfg = replace(cfg, param_dtype=arch.train_param_dtype)
+    if shape.kind in ("prefill", "decode"):
+        # Serving weights are stored in the activation dtype.
+        cfg = replace(cfg, param_dtype=cfg.act_dtype)
     specs = tfm.param_specs(cfg)
     aparams = abstract_params(specs)
     abstract_batch = input_specs(arch, shape)
     info = _lm_flops_meta(cfg, shape)
     info["param_count"] = param_count(specs)
+    if shape.kind == "train":
+        return _train_step(functools.partial(tfm.lm_loss, cfg), aparams, abstract_batch, info,
+                           opt.AdamWConfig(state_bits=arch.opt_state_bits),
+                           arch.microbatch_train)
     if shape.kind == "prefill":
         return BuiltStep(tfm.make_prefill(cfg), (aparams, abstract_batch), info)
     acache = tfm.abstract_kv_cache(cfg, shape.global_batch, shape.seq_len)
     return BuiltStep(tfm.make_decode_step(cfg), (aparams, acache, abstract_batch), info)
 
 
+# ----------------------------------------------------------------- GNN cells
+
+def _gnn_flops_meta(cfg: gnn_lib.GNNConfig, shape: ShapeSpec) -> dict:
+    d = cfg.d_hidden
+    n, e = shape.n_nodes, shape.n_edges
+    if cfg.arch in ("meshgraphnet", "graphcast"):
+        per_layer = e * (3 * d * d + d * d) * 2 + n * (2 * d * d + d * d) * 2
+    elif cfg.arch == "gin":
+        per_layer = n * 2 * d * d * 2 + e * 2 * d
+    else:  # gat
+        per_layer = n * 2 * d * d + e * 8 * d
+    fwd = cfg.n_layers * per_layer + n * 2 * (shape.d_feat + shape.n_out) * d
+    return {
+        "model_flops": float(3 * fwd),  # train = fwd + 2×bwd
+        "scan_trip_count": cfg.n_layers,
+        "tokens": n,
+    }
+
+
+def build_gnn_step(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> BuiltStep:
+    """Every GNN cell is a training cell (``graph_train``)."""
+    _no_mesh(mesh)
+    cfg = arch.model_for(shape)
+    specs = gnn_lib.param_specs(cfg)
+    info = _gnn_flops_meta(cfg, shape)
+    info["param_count"] = param_count(specs)
+    return _train_step(functools.partial(gnn_lib.gnn_loss, cfg), abstract_params(specs),
+                       input_specs(arch, shape), info, opt.AdamWConfig())
+
+
 # -------------------------------------------------------------- recsys cells
 
 def build_recsys_step(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> BuiltStep:
     _no_mesh(mesh)
-    if shape.kind not in ("serve", "retrieval"):
-        _not_ported(arch, shape)
     cfg: sas_lib.SASRecConfig = arch.model
     specs = sas_lib.param_specs(cfg)
     aparams = abstract_params(specs)
@@ -100,6 +142,10 @@ def build_recsys_step(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> BuiltSte
     enc_flops = b * s * (4 * d * d + 2 * d * d + 2 * s * d) * cfg.n_blocks
     info = {"scan_trip_count": cfg.n_blocks, "param_count": param_count(specs),
             "tokens": b * s}
+    if shape.kind == "train":
+        info["model_flops"] = float(3 * (enc_flops + b * s * 2 * 2 * d))
+        return _train_step(functools.partial(sas_lib.sasrec_loss, cfg), aparams,
+                           abstract_batch, info, opt.AdamWConfig())
     if shape.kind == "serve":
         info["model_flops"] = float(enc_flops + b * 2 * d * v)
         return BuiltStep(sas_lib.make_serve_step(cfg), (aparams, abstract_batch), info)
@@ -169,9 +215,8 @@ def build_step(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> BuiltStep:
         return build_lm_step(arch, shape, mesh)
     if arch.family == "recsys":
         return build_recsys_step(arch, shape, mesh)
+    if arch.family == "gnn":
+        return build_gnn_step(arch, shape, mesh)
     if arch.family == "bgv":
         return build_bgv_step(arch, shape, mesh)
-    if arch.family == "gnn":
-        _no_mesh(mesh)
-        _not_ported(arch, shape)
     raise ValueError(arch.family)

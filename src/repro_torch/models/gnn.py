@@ -9,8 +9,16 @@ The segment sums go through ``kernels/segment``'s per-edge entry: kernel
 K7 on the card, after a stable sort by id, so every sum is added in row
 order and the card's forward pass is the same bits from run to run (an
 ``index_add_`` there would add on float atomics); its plain version on the
-CPU. That is a choice of this port, not a kernel of the reference (whose
-sums are its compiler's).
+CPU. The row gathers go through ``kernels/segment.gather_rows``, whose
+backward sums the edge gradients into their rows through K7 as well, so a
+training step on the card is the same bits from run to run too. That is a
+choice of this port, not a kernel of the reference (whose sums are its
+compiler's).
+
+``cfg.remat`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``), as the reference's
+``checkpoint(..., nothing_saveable)`` does: at ogbn-products' 61.9 M
+edges one gathered [E, 64] tensor is 15.8 GB.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.segment import ops as segment_ops
 from repro_torch.models.param import ParamSpec
@@ -81,7 +90,7 @@ def param_specs(cfg: GNNConfig) -> dict:
 
 def _gather(x, idx):
     """``x[idx]`` with out-of-range ids clamped to the last row."""
-    return x[torch.clamp(idx, 0, x.shape[0] - 1)]
+    return segment_ops.gather_rows(x, idx)
 
 
 def _segsum(data, seg, n: int):
@@ -106,11 +115,13 @@ def _gat_layer(h, lp, src, dst, n):
     d2 = torch.cat([dst, src])
     logit = F.leaky_relu(_gather(es, s2) + _gather(ed, d2), 0.2)  # [2E, H]
     # Numerically stable edge softmax over incoming edges per dst; the max
-    # is order-free, and ids ≥ n land in a dropped row.
+    # is order-free, and ids ≥ n land in a dropped row. The softmax does not
+    # depend on the shift, so its gradient through the max is 0: the max is
+    # taken on detached logits, and no backward of "amax" runs.
     keep = (d2 >= 0) & (d2 < n)
     mx = torch.full((n + 1, nh), -1e30, dtype=logit.dtype, device=logit.device)
-    mx.scatter_reduce_(0, torch.where(keep, d2, n).long()[:, None].expand(-1, nh), logit,
-                       "amax", include_self=True)
+    mx.scatter_reduce_(0, torch.where(keep, d2, n).long()[:, None].expand(-1, nh),
+                       logit.detach(), "amax", include_self=True)
     mx = mx[:n]
     ex = torch.exp(logit - _gather(mx, d2))
     denom = _segsum(ex, d2, n) + 1e-9
@@ -141,19 +152,25 @@ def forward(cfg: GNNConfig, params, batch):
     layers = params["layers"]
     n_layers = next(iter(layers.values())).shape[0]
 
+    def layer_step(body, *carry):
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint(body, *carry, use_reentrant=False)
+        return body(*carry)
+
     if cfg.arch in ("meshgraphnet", "graphcast"):
         h_ext = torch.cat([h, torch.zeros((1, h.shape[1]), dtype=h.dtype, device=h.device)])
-        src_c = torch.clamp(src, max=n)
-        dst_c = torch.clamp(dst, max=n)
-        e_feat = torch.cat([h_ext[src_c], h_ext[dst_c]], dim=-1)
+        # Ids above n read h_ext's zero row (gather_rows clamps them to it).
+        e_feat = torch.cat([_gather(h_ext, src), _gather(h_ext, dst)], dim=-1)
         e_feat = F.relu(e_feat @ params["edge_in_w"] + params["edge_in_b"])
         for i in range(n_layers):
-            h, e_feat = _mpnn_layer(h, e_feat, {k: v[i] for k, v in layers.items()},
-                                    src, dst, n)
+            lp = {k: v[i] for k, v in layers.items()}
+            h, e_feat = layer_step(lambda h, e, lp=lp: _mpnn_layer(h, e, lp, src, dst, n),
+                                   h, e_feat)
     else:
         layer = _gin_layer if cfg.arch == "gin" else _gat_layer
         for i in range(n_layers):
-            h = h + layer(h, {k: v[i] for k, v in layers.items()}, src, dst, n)
+            lp = {k: v[i] for k, v in layers.items()}
+            h = layer_step(lambda h, lp=lp: h + layer(h, lp, src, dst, n), h)
 
     if cfg.task == "graph_class":
         pooled = _segsum(h, batch["graph_ids"], batch["labels"].shape[0])
@@ -162,7 +179,8 @@ def forward(cfg: GNNConfig, params, batch):
 
 
 def gnn_loss(cfg: GNNConfig, params, batch):
-    """The training loss's value (gradients wait for the training slice)."""
+    """Masked cross-entropy (``node_class``, ``graph_class``) or masked
+    squared error (``node_reg``)."""
     out = forward(cfg, params, batch).to(torch.float32)
     labels, mask = batch["labels"], batch["mask"]
     if cfg.task == "node_reg":

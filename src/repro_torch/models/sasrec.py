@@ -5,8 +5,8 @@ last S interactions → next-item scores against the same table. Steps per
 shape cell:
   serve_p99/bulk  → ``make_serve_step`` (score every item for the last position)
   retrieval_cand  → ``make_retrieval_step`` (1 user × C candidate dot scores)
-  train_batch     → ``sasrec_loss`` (its value; gradients wait for the
-                    training slice)
+  train_batch     → ``sasrec_loss`` (``train.make_train_step`` takes its
+                    gradient)
 """
 from __future__ import annotations
 

@@ -4,7 +4,11 @@
 
 The reference's ``models/transformer.py`` scans over stacked layer
 parameters; here a Python loop walks the same stacked tensors. Its
-activation sharding constraints have no counterpart on one card.
+activation sharding constraints have no counterpart on one card. Where a
+gradient is being recorded, each layer is recomputed in the backward pass
+(``torch.utils.checkpoint``), as the reference's scan body is under
+``checkpoint(..., nothing_saveable)``: at yi-6b's width a 4,096-token
+row keeps 2.1 GB of float32 attention scores a layer otherwise.
 
 The decode step differs from the reference's in one way, a repair: it
 takes each slot's own length (``cur_len`` [B]) and an optional ``active``
@@ -20,6 +24,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models.param import ParamSpec, cast_floats
@@ -169,13 +174,24 @@ def _moe_capacity(cfg: LMConfig, tokens: int) -> int | None:
 
 def forward(cfg: LMConfig, params, tokens, positions):
     """tokens [B, S] → (logits [B, S, vocab_padded], aux). Train and
-    prefill."""
+    prefill. Where a gradient is being recorded, each layer keeps only its
+    input for the backward pass and is run again there."""
     x = params["embed"].to(cfg.act_dtype)[tokens]
     capacity = _moe_capacity(cfg, tokens.shape[0] * tokens.shape[1])
-    layers = cast_floats(params["layers"], cfg.act_dtype)
+    # Cast once, before the loop (the reference casts before its scan), and
+    # split each stacked tensor into its layers with one unbind: its
+    # backward stacks the layers' gradients once, where indexing layer i
+    # would give each layer a zero-filled gradient of the whole stack.
+    layers = {k: v.unbind(0) for k, v in cast_floats(params["layers"], cfg.act_dtype).items()}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x, a = _layer(cfg, x, _layer_params(layers, i), i, positions, capacity=capacity)
+        lp = _layer_params(layers, i)
+        if remat:
+            x, a = checkpoint(_layer, cfg, x, lp, i, positions, capacity=capacity,
+                              use_reentrant=False)
+        else:
+            x, a = _layer(cfg, x, lp, i, positions, capacity=capacity)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"])
     logits = torch.einsum("bsd,dv->bsv", x, params["unembed"].to(x.dtype))
@@ -187,8 +203,8 @@ def _positions(b: int, s: int, device):
 
 
 def lm_loss(cfg: LMConfig, params, batch):
-    """Causal next-token cross-entropy with vocab padding masked out (the
-    value; gradients wait for the training slice)."""
+    """Causal next-token cross-entropy with vocab padding masked out, plus
+    0.01 × the MoE load-balance term."""
     tokens, loss_mask = batch["tokens"], batch["loss_mask"]
     b, s = tokens.shape
     logits, aux = forward(cfg, params, tokens, _positions(b, s, tokens.device))

@@ -1,7 +1,7 @@
 """Step-counted checkpointing and elastic data schedules, the training
 flavor of ``resilience`` (the reference keeps them in
-``src/repro/train/fault_tolerance.py``; the port has no ``train`` package
-yet, so they live here).
+``src/repro/train/fault_tolerance.py``; ``repro_torch.train.fault_tolerance``
+re-exports them from here).
 
 * ``CheckpointManager`` — periodic save, restore-latest-valid, the
   preemption-signal hook. A partial newest checkpoint is impossible by

@@ -1,0 +1,112 @@
+"""Train-step factories (loss → gradient → AdamW) shared by every family,
+with microbatch gradient accumulation, optional gradient compression and a
+step-time watchdog for straggler detection: the reference's
+``train/train_loop.py``.
+
+Gradients come from ``torch.autograd.grad`` over the parameter leaves
+(sorted key order). The step sets ``requires_grad`` on the leaves for its
+own duration (a restored checkpoint's leaves have none) and updates them
+in place (``optimizer.apply_updates``).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable
+
+import torch
+
+from repro_torch.models.param import tree_leaves
+from repro_torch.train import optimizer as opt
+from repro_torch.train.compression import compress_decompress
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    adamw: opt.AdamWConfig = field(default_factory=opt.AdamWConfig)
+    microbatch: int = 0  # 0 = no accumulation; else split the batch dim
+    compress_grads: bool = False  # int8 gradient compression (no error feedback)
+
+
+def _unflatten(like, leaves):
+    """A tree shaped like ``like`` (nested dicts) from its sorted-order leaves."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        return next(it)
+
+    return build(like)
+
+
+def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
+    """``loss_fn(params, batch)`` → scalar. Returns ``train_step(params,
+    state, batch)`` → ``(params, state, metrics)``, metrics ``loss`` and
+    ``grad_norm`` (0-d float32 tensors)."""
+
+    def grads_of(params, leaves, batch):
+        loss = loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return loss.detach(), grads
+
+    def train_step(params, state, batch):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            if tcfg.microbatch and tcfg.microbatch > 1:
+                n = tcfg.microbatch
+
+                def part(x, i):
+                    b = x.shape[0] // n
+                    return x[i * b:(i + 1) * b]
+
+                # Accumulate in the parameter dtype, from zeros, and the
+                # loss in float32, as the reference's scan does.
+                loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+                grads = [torch.zeros_like(p, requires_grad=False) for p in leaves]
+                for i in range(n):
+                    li, gi = grads_of(params, leaves, {k: part(v, i) for k, v in batch.items()})
+                    loss = loss + li
+                    grads = [a + g for a, g in zip(grads, gi)]
+                    del gi
+                loss = loss / n
+                grads = [g / n for g in grads]
+            else:
+                loss, grads = grads_of(params, leaves, batch)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+
+        if tcfg.compress_grads:
+            grads = [compress_decompress(g) for g in grads]
+        params, state, metrics = opt.apply_updates(
+            params, _unflatten(params, grads), state, tcfg.adamw)
+        metrics["loss"] = loss
+        return params, state, metrics
+
+    return train_step
+
+
+class StepWatchdog:
+    """Host-side straggler detector: flags steps slower than ``threshold ×``
+    the running median of the earlier ones, after ``warmup`` steps."""
+
+    def __init__(self, threshold: float = 3.0, warmup: int = 3):
+        self.threshold = threshold
+        self.warmup = warmup
+        self.durations: list[float] = []
+        self._t0 = None
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> bool:
+        dt = time.perf_counter() - self._t0
+        self.durations.append(dt)
+        if len(self.durations) <= self.warmup:
+            return False
+        med = sorted(self.durations[:-1])[len(self.durations[:-1]) // 2]
+        return dt > self.threshold * med

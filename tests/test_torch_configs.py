@@ -125,8 +125,13 @@ def test_step_builders_cover_the_serving_cells_and_refuse_a_mesh():
     assert prefill.abstract_args[0]["embed"].dtype == torch.bfloat16  # serving weights
     for name, cell in (("yi-6b", "train_4k"), ("sasrec", "train_batch"),
                        ("gin-tu", "molecule")):
-        with pytest.raises(NotImplementedError):
-            build_step(get_config(name), get_config(name).shapes[cell])
+        arch = get_config(name)
+        built = build_step(arch, arch.shapes[cell])  # training cells (params, opt state, batch)
+        assert len(built.abstract_args) == 3 and set(built.abstract_args[1]) == {"count", "mv"}
+        with pytest.raises(ValueError, match="mesh must be None"):
+            build_step(arch, arch.shapes[cell], mesh=object())
+    train = build_step(get_config("yi-6b"), get_config("yi-6b").shapes["train_4k"])
+    assert train.abstract_args[0]["embed"].dtype == torch.float32  # training weights
 
 
 # ----------------------------------------------------------- data pieces

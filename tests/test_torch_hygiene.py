@@ -67,7 +67,11 @@ def test_every_module_imports_without_jax_or_reference():
                  "repro_torch.models.param", "repro_torch.models.layers",
                  "repro_torch.models.transformer", "repro_torch.models.gnn",
                  "repro_torch.models.sasrec", "repro_torch.serve.engine",
-                 "repro_torch.graph.sampling", "repro_torch.data.pipeline"):
+                 "repro_torch.graph.sampling", "repro_torch.data.pipeline",
+                 "repro_torch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.compression", "repro_torch.train.train_loop",
+                 "repro_torch.train.checkpoint", "repro_torch.train.fault_tolerance",
+                 "repro_torch.launch.train"):
         assert name in walked, name
 
 
@@ -140,6 +144,7 @@ def test_device_none_raises_without_cuda(monkeypatch):
     ("layout", ["--edges", "synthetic:60:3"]),
     ("stream_runner", ["--nodes", "60", "--communities", "3",
                        "--checkpoint-dir", "ck"]),
+    ("train", ["--arch", "gin-tu", "--steps", "2", "--ckpt-dir", "ck"]),
 ])
 def test_launchers_default_to_cuda_and_raise_without_it(monkeypatch, tmp_path, launcher, argv):
     import importlib
@@ -201,10 +206,10 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     before = dict(build.LAUNCHES)
     # One counter per library, and one more for each library's other entry:
     # K1's generic scatter, K2's and K6's row ranges, K3's small-disk entry,
-    # K7's per-edge entry, K8's keys-in entry.
+    # K7's per-edge entry and its gather backward, K8's keys-in entry.
     extra = {"scatter_combine", "repulsion_rows", "near_field_rows", "count_disks",
-             "segment_sum_edges", "cms_update_keys"}
-    assert set(before) == set(build.KERNELS) | extra and len(before) == 14
+             "segment_sum_edges", "segment_sum_gather_bwd", "cms_update_keys"}
+    assert set(before) == set(build.KERNELS) | extra and len(before) == 15
     i = torch.zeros(4, dtype=torch.int32)
     f = torch.zeros(4)
     p = torch.zeros(4, 2)
@@ -221,6 +226,8 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     grid_ops.near_field_rows(p, f, i, 80.0, 2, 1, 2)
     seg_ops.segment_sum(p, i, 4)
     seg_ops.segment_sum_edges(p, i, 4)
+    x = p.clone().requires_grad_(True)
+    seg_ops.segment_sum_edges(seg_ops.gather_rows(x, i), i, 4).sum().backward()
     cfg = cms_lib.CMSConfig(rows=2, cols=8)
     cms_ops.update(cms_lib.init_sketch(cfg), i, f, cfg)
     cms_ops.update_hashed(cms_lib.init_sketch(cfg), torch.zeros(2, 4, dtype=torch.int32), f)
