@@ -20,7 +20,11 @@ Phases, each printing its wall seconds:
                bitwise the same rows of their full launches (halves,
                quarters, ragged ranges, one row), K7 bitwise against its plain
                version on the CPU, within its bound of the one on the card,
-               and bitwise run to run. K1's cases hold merges at capacity,
+               and bitwise run to run; K7's layout entries (the layout build,
+               the per-edge sum through a layout at D = 1 to 128, the gather
+               backward, the fused attraction) bitwise their plain versions
+               on the CPU, the pre-change compositions on the card and run
+               to run (``layout_checks``). K1's cases hold merges at capacity,
                with all-duplicate, all-new and all-sentinel chunks, −0.0
                weights and ragged capacities; K3's raw entry a hot pixel,
                runs, dropped rows, ragged and misaligned rows; K3's
@@ -37,16 +41,20 @@ Phases, each printing its wall seconds:
                graph at web-BerkStan's size (685,230 nodes, ≈ 6.6 M edges),
                with every launch counter set to 0 just before and read just
                after; wall time, stage times and peak memory are taken from
-               this run, and the content of the image is checked. A second
-               run of the same path records each kernel's inputs.
+               this run, and the content of the image is checked; K7's fused
+               attraction launches once an iteration and its layout build
+               once. A second run of the same path records each kernel's
+               inputs.
 5. full path — ``full_layout_colored`` (grid repulsion, 500 iterations) +
                ``render_arrays`` over every edge, on the same graph, with the
                counters set to 0 just before and read just after: stage
                times, wall, peak memory (``render_arrays`` below 1 GiB), the
                image and the layout's quality against its initial
-               positions. One more iteration from the final layout records
-               K5–K7's inputs, and one node pass and one edge chunk from it
-               K3's, under keys of their own.
+               positions; K5, K6, K7's cell statistics and its fused
+               attraction launch once an iteration, the layout build once.
+               One more iteration from the final layout records K5–K7's
+               inputs, and one node pass and one edge chunk from it K3's,
+               under keys of their own.
 6. serve     — the tile service over phase 4's result (685,230 nodes,
                ≈ 12.8 k supernodes): ``TilePyramid`` (256-px tiles, 3
                levels, 21 tiles) and ``TileEngine`` (64 MiB, 8 slots) warm
@@ -125,7 +133,10 @@ Phases, each printing its wall seconds:
                soc-LiveJournal-sized one made on the card, the exact and
                grid layout steps at the paper's supernode counts; each
                bitwise run to run, against the CPU or a direct ``fa2.step``,
-               with its step time.
+               with its step time; each layout step builds one segment
+               layout and sums its two-scatter attraction through it once,
+               and that sum (``layout_livejournal``'s input) is timed for
+               the ``kernels`` line.
 13. models   — yi-6b at full width and depth through ``LMEngine`` (16
                requests on 8 slots × 2,048 positions, teacher-forced against
                a prefill, each request's tokens equal to its solo run's),
@@ -142,15 +153,17 @@ Phases, each printing its wall seconds:
                finite and the last below the first + 0.5). Card against CPU
                after 2 steps (yi-6b and granite at 2 layers, gin-tu
                ``molecule``, gat-cora ``full_graph_sm``, SASRec at batch
-               256), the GNNs bitwise run to run; K7's per-edge entry and
-               its gather backward launched by every GNN step and timed on
-               ogbn-products' edges; ``python -m repro_torch.launch.train``
+               256), the GNNs bitwise run to run; K7's layout build, per-edge
+               sum and gather backward launched by every GNN step (2, 20 and
+               10 a gin-tu step on ogbn-products: no sum sorts) and timed on
+               ogbn-products' edges against the pre-change composition;
+               ``python -m repro_torch.launch.train``
                killed after step 12 and resumed, bitwise an uninterrupted
                run.
 
 Every layout on the card (main path, full path, drills, resumed and
 sharded runs) is held bitwise run to run: FA2's attraction sums in a fixed
-order through kernel K7's per-edge entry.
+order through kernel K7's fused ``attraction_sum`` entry.
 
 It then prints the ``kernels`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
@@ -271,6 +284,7 @@ K6_OPS_PER_PAIR = 12
 # at a time), for the edge cases.
 K6_BLOCK_NODES, K6_FIXED_WINDOW = 512, 32
 K7_CHUNK_FLOATS = 1024
+SEG_SPAN = 256  # rows a warp stages at a time in K7's narrow layout entries
 K1_TILE = 512  # output slots a merge_place block owns (csrc/merge_scatter.cu)
 
 # The rows of the ``kernels`` line, one per kernel entry and path: name →
@@ -279,6 +293,7 @@ K1_TILE = 512  # output slots a merge_place block owns (csrc/merge_scatter.cu)
 # None for an entry on no path).
 _SPLAT = "src/repro/kernels/raster/splat.py"
 _CMS = "src/repro/kernels/cms/cms_update.py:64"
+_SEG = "src/repro/kernels/segment/seg_matmul.py:60"
 KERNELS = {
     "merge_scatter": ("merge_scatter", "src/repro/kernels/merge/sorted_merge.py:96",
                       "merge_scatter", "main"),
@@ -301,29 +316,34 @@ KERNELS = {
     # K6's row range: the owned rows of the multi-device grid force pass.
     "near_field_rows": ("near_field", "src/repro/kernels/grid/tiled.py:188",
                         "near_field_rows", "multi"),
-    "segment_sum": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
-                    "segment_sum", "full"),
-    # K7's per-edge entry: FA2's attraction (the main path's supergraph,
-    # the full path's 13.2 M directed edges) and the GNN's message sums.
-    "segment_sum_edges": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
-                          "segment_sum_edges", "main"),
-    "segment_sum_edges_full": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
-                               "segment_sum_edges", "full"),
-    # K7 on the training path (gin-tu on ogbn-products' counts): the GNN's
-    # message sums (forward and remat recompute) and its row gathers'
-    # gradients (segment_sum_gather_bwd).
-    "segment_sum_edges_train": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
-                                "segment_sum_edges", "train"),
-    "segment_sum_gather_bwd": ("segment_sum", "src/repro/kernels/segment/seg_matmul.py:60",
-                               "segment_sum_gather_bwd", "train"),
+    "segment_sum": ("segment_sum", _SEG, "segment_sum", "full"),
+    # K7's layout entries. The layout build (segment_offsets): the
+    # attraction's source layout once a layout call on the main and full
+    # paths, and the GNN's id arrays on the training path (2 a gin-tu step).
+    "segment_offsets": ("segment_sum", _SEG, "segment_offsets", "main"),
+    "segment_offsets_full": ("segment_sum", _SEG, "segment_offsets", "full"),
+    "segment_offsets_train": ("segment_sum", _SEG, "segment_offsets", "train"),
+    # FA2's attraction fused (attraction_sum): the main path's supergraph,
+    # the full path's 13.2 M directed edges.
+    "attraction_sum": ("segment_sum", _SEG, "attraction_sum", "main"),
+    "attraction_sum_full": ("segment_sum", _SEG, "attraction_sum", "full"),
+    # The per-edge sum through a layout (segment_sum_edges): the
+    # two-scatter attraction of a single FA2 step (the dry-run layout
+    # cells, narrow rows through a sort order), the GNN's message sums
+    # (forward and remat recompute, wide rows), and its row gathers'
+    # gradients (segment_sum_gather_bwd), gin-tu on ogbn-products' counts.
+    "segment_sum_edges": ("segment_sum", _SEG, "segment_sum_edges", "step"),
+    "segment_sum_edges_train": ("segment_sum", _SEG, "segment_sum_edges", "train"),
+    "segment_sum_gather_bwd": ("segment_sum", _SEG, "segment_sum_gather_bwd", "train"),
     # K8: keys hashed in the kernel (core.cms.update), and buckets given.
     "cms_update_keys": ("cms_update", _CMS, "cms_update_keys", "main"),
     "cms_update": ("cms_update", _CMS, "cms_update", None),
 }
-# Counters the main path must move; on the full path K5–K7 (both of K7's
-# entries) launch once per iteration and K3's raw entry once per edge chunk.
+# Counters the main path must move; on the full path K5, K6 and K7's cell
+# statistics and fused attraction launch once per iteration, and K3's raw
+# entry once per edge chunk.
 MAIN_KERNELS = {c for _, _, c, path in KERNELS.values() if path == "main"}
-FULL_KERNELS = ("far_field", "near_field", "segment_sum", "segment_sum_edges")
+FULL_KERNELS = ("far_field", "near_field", "segment_sum", "attraction_sum")
 NO_LIBRARY = "none: no single PyTorch call computes it"
 
 
@@ -1038,8 +1058,158 @@ def grid_kernel_checks(torch, np, rng):
         worst7 = max(worst7, k7_check(torch, name, data, seg, n_seg, sorted_ids))
     log(f"K7 segment_sum: bitwise on the CPU and run to run on {len(cases7)} cases; worst "
         f"|Δ| / 2γ(k−1)Σ|x| against the card's plain version {worst7}")
+    layout_checks(torch, np, rng)
 
     cms_checks(torch, np, rng)
+
+
+def attraction_old(torch, pos, dst, w, offsets):
+    """The pre-change composition of FA2's sorted attraction on the card,
+    from the fused entry's inputs: the [E, 2] terms materialised from the
+    clamped sources (rows past ``offsets[n]`` are the trash sources, id n)
+    and summed by K7's warp-per-segment kernel (ids sorted). Returns a
+    function of no arguments, and the kept rows' (terms, sources)."""
+    from repro_torch.kernels.segment import ops as seg_ops
+
+    n, e = pos.shape[0], dst.shape[0]
+    hi = int(offsets[n])
+    src = torch.full((e,), n, dtype=torch.int32, device=pos.device)
+    src[:hi] = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=pos.device), torch.diff(offsets).long(),
+        output_size=hi - int(offsets[0]))
+
+    def terms():
+        pos_ext = torch.cat([pos, torch.zeros((1, 2), dtype=pos.dtype, device=pos.device)])
+        return w[:, None] * (pos_ext[dst.long().clamp(0, n)] - pos_ext[src.long()])
+
+    def old():
+        return seg_ops.segment_sum(terms(), src, n, indices_are_sorted=True)
+
+    return old, terms()[:hi], src[:hi]
+
+
+def layout_checks(torch, np, rng):
+    """K7's layout entries on edge cases, each bitwise its plain version on
+    the CPU, bitwise the pre-change composition on the card (the stable
+    sort, the sorted copy and the warp-per-segment kernel; for the
+    attraction the materialised terms through it) and bitwise run to run:
+    the layout build (negative and trash ids, empty segments, N = 1, no
+    rows, a trash tail after a gap of 10^5 empty segments, which one
+    thread writes); the per-edge sum at D = 2-4 (a thread a segment,
+    SEG_SPAN-row chunks: one segment far longer than a chunk, segments
+    across chunk edges) and D = 1, 5, 33, 63, 64, 128 (a warp a segment,
+    float2 loads where D is even and the rows 8-byte aligned; a misaligned
+    D = 64 view, one segment of 1,000 rows), through the sort's order and
+    through a layout of sorted ids; the gather backward; the fused
+    attraction (destinations past the zero row and negative, N = 1, a node
+    with 5,000 edges, trash tails)."""
+    from repro_torch.core import forceatlas2 as fa2
+    from repro_torch.kernels.segment import ops as seg_ops
+    from repro_torch.kernels.segment.ref import attraction_sum_ref, segment_sum_ref
+
+    dev = torch.device("cuda")
+
+    def same_layout(a, b):
+        return bits_equal(torch, a.offsets, b.offsets) and bits_equal(torch, a.groups, b.groups) \
+            and (a.perm is None and b.perm is None or bits_equal(torch, a.perm, b.perm))
+
+    cases = (("mixed", 50000, 4096, 2), ("one_column", 40000, 200, 0), ("d3", 30000, 1000, 3),
+             ("d4", 30000, 1000, 4), ("d5", 20000, 500, 5), ("d33", 8000, 300, 33),
+             ("d63", 5000, 100, 63), ("wide64", 100000, 4000, 64), ("wide128", 20000, 300, 128),
+             ("misaligned64", 20000, 400, 64), ("long_narrow", 60000, 300, 2),
+             ("long_wide", 6000, 40, 64), ("empty_gaps", 30000, 500, 2),
+             ("all_dropped", 5000, 16, 2), ("no_rows", 0, 10, 2), ("one_segment", 200000, 1, 2),
+             ("big_gap", 5000, 100000, 2))
+    for name, e, n, d in cases:
+        ids = rng.integers(0, n, e)
+        if name == "mixed":
+            ids = rng.integers(-50, n + 50, e)
+        elif name.startswith("long"):  # segment 5: many chunks' (narrow) or batches' rows
+            ids[rng.permutation(e)[:10 * SEG_SPAN + 3 if 2 <= d <= 4 else 1000]] = 5
+        elif name == "empty_gaps":
+            ids = rng.choice(np.arange(10, n - 10, 3), e)
+        elif name == "all_dropped":
+            ids = np.where(rng.random(e) < 0.5, -1, n)
+        elif name == "one_segment":
+            ids = rng.integers(-1, 2, e)
+        elif name == "big_gap":
+            ids = np.where(rng.random(e) < 0.5, rng.integers(0, 100, e), n + 7)
+        ids_t = torch.as_tensor(ids.astype(np.int32), device=dev)
+        shape = (e,) if d == 0 else (e, d)
+        if name == "misaligned64":
+            flat = torch.as_tensor(rng.standard_normal(e * d + 1).astype(np.float32), device=dev)
+            data = flat[1:].view(shape)
+            check(data.data_ptr() % 8 == 4, "misaligned64: the view is 8-byte aligned")
+        else:
+            data = torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 1e3,
+                                   device=dev)
+        lay = seg_ops.segment_layout(ids_t, n)
+        check(same_layout(lay, seg_ops.segment_layout(ids_t, n)),
+              f"K7 layout {name}: two builds differ")
+        lay_c = seg_ops.segment_layout(ids_t.cpu(), n)
+        check(bits_equal(torch, lay.perm.cpu(), lay_c.perm)
+              and bits_equal(torch, lay.offsets.cpu(), lay_c.offsets)
+              and bits_equal(torch, lay.groups.cpu(), lay_c.groups),
+              f"K7 layout {name}: differs from the plain version on the CPU")
+        got = seg_ops.segment_sum_edges(data, lay, n)
+        check(bits_equal(torch, got, seg_ops.segment_sum_edges(data, lay, n)),
+              f"K7 edges {name}: two launches differ")
+        check(bits_equal(torch, got.cpu(), segment_sum_ref(data.cpu(), ids_t.cpu(), n)),
+              f"K7 edges {name}: differs from the plain version on the CPU")
+        if e:
+            check(bits_equal(torch, got, seg_ops.segment_sum(data, ids_t, n)),
+                  f"K7 edges {name}: differs from the pre-change composition")
+        order = lay.perm.long()
+        srt = seg_ops.segment_layout(ids_t[order], n, sorted=True)
+        check(srt.perm is None and bits_equal(torch, srt.offsets, lay.offsets),
+              f"K7 layout {name}: the sorted ids' offsets differ")
+        check(bits_equal(torch, seg_ops.segment_sum_edges(data[order], srt, n), got),
+              f"K7 edges {name}: the sum through sorted ids differs")
+        if name in ("mixed", "wide64", "d5"):
+            x = torch.as_tensor(rng.standard_normal((n,) + shape[1:]).astype(np.float32),
+                                device=dev).requires_grad_(True)
+            gout = data
+            (gx,) = torch.autograd.grad(seg_ops.gather_rows(x, ids_t, lay), x, gout)
+            xc = x.detach().cpu().requires_grad_(True)
+            (gc,) = torch.autograd.grad(seg_ops.gather_rows(xc, ids_t.cpu()), xc, gout.cpu())
+            check(bits_equal(torch, gx.cpu(), gc), f"K7 gather backward {name}: differs from "
+                  "the plain version on the CPU")
+    log(f"K7 layout entries: segment_offsets and segment_sum_edges bitwise on the CPU, the "
+        f"pre-change composition and run to run on {len(cases)} cases; the gather backward "
+        "bitwise on the CPU")
+
+    acases = (("random", 50000, 400000), ("hub", 300, 60000), ("n1", 1, 100),
+              ("out_of_range", 2000, 30000), ("all_trash", 100, 500))
+    for name, n, e in acases:
+        edges = rng.integers(0, n, (e, 2))
+        edges[-e // 8:] = n  # trash-padded slots
+        if name == "hub":
+            edges[:5000, 0] = 7
+        elif name == "out_of_range":
+            edges[:50, 1] = n + 5
+            edges[50:100, 1] = -3
+            edges[100:150, 0] = -2
+        elif name == "all_trash":
+            edges[:] = n
+        edges_t = torch.as_tensor(edges.astype(np.int32), device=dev)
+        w = torch.as_tensor(rng.integers(1, 20, e).astype(np.float32), device=dev)
+        pos = torch.as_tensor(rng.uniform(-1000, 1000, (n, 2)).astype(np.float32), device=dev)
+        dst, w2, lay = fa2._attraction_edge_layout(edges_t, w, n)
+        d2, w3, lay2 = fa2._attraction_edge_layout(edges_t, w, n)
+        check(all(bits_equal(torch, a, b) for a, b in zip(
+            (dst, w2, lay.offsets, lay.groups), (d2, w3, lay2.offsets, lay2.groups))),
+              f"K7 attraction {name}: two layouts differ")
+        got = seg_ops.attraction_sum(pos, dst, w2, lay)
+        check(bits_equal(torch, got, seg_ops.attraction_sum(pos, dst, w2, lay)),
+              f"K7 attraction {name}: two launches differ")
+        cpu = attraction_sum_ref(pos.cpu(), dst.cpu(), w2.cpu(), lay.offsets.cpu())
+        check(bits_equal(torch, got.cpu(), cpu),
+              f"K7 attraction {name}: differs from the plain version on the CPU")
+        old, _, _ = attraction_old(torch, pos, dst, w2, lay.offsets)
+        check(bits_equal(torch, got, old()),
+              f"K7 attraction {name}: differs from the pre-change composition")
+    log(f"K7 attraction_sum: bitwise on the CPU, the pre-change composition and run to run "
+        f"on {len(acases)} cases")
 
 
 def cms_bound(torch, sketch, h, w):
@@ -1194,6 +1364,8 @@ class Capture:
             (grid_ops, "far_field", "far_field", 0, True),
             (grid_ops, "near_field_sorted", "near_field", 0, True),
             (seg_ops, "segment_sum", "segment_sum", 0, True),
+            (seg_ops, "segment_layout", "segment_offsets", 0, True),
+            (seg_ops, "attraction_sum", "attraction_sum", 1, True),
             (seg_ops, "segment_sum_edges", "segment_sum_edges", 0, True),
             (cms_lib, "update", "cms_update", 1, False),
         ]
@@ -1330,8 +1502,11 @@ def main_path(torch, np, cap: Capture, edges, delta):
         check(launches[k] > 0, f"kernel {k} was not launched on the main path")
     check(launches["cms_update_keys"] == 1, "K8 did not launch once on the main path")
     its = res.timings["layout_iterations"]
-    check(launches["segment_sum_edges"] == its,
-          f"K7's attraction launched {launches['segment_sum_edges']} times in {its} iterations")
+    check(launches["attraction_sum"] == its,
+          f"K7's attraction launched {launches['attraction_sum']} times in {its} iterations")
+    check(launches["segment_offsets"] == 1 and launches["segment_sum_edges"] == 0,
+          f"the main path built {launches['segment_offsets']} segment layouts (1: the "
+          f"attraction's) and summed {launches['segment_sum_edges']} times through one")
     check(peak <= MAIN_PEAK_BYTES, f"main-path peak {peak} bytes above {MAIN_PEAK_BYTES}")
     # The serve phase takes this result; its supergraph waits on the host so
     # that the full path's peak memory counts nothing of it.
@@ -1398,6 +1573,9 @@ def full_path(torch, np, cap: Capture, edges, delta, main_wall: float):
     check(its == FULL_ITERATIONS, f"full layout ran {its} iterations")
     for k in FULL_KERNELS:
         check(launches[k] == its, f"kernel {k} launched {launches[k]} times in {its} iterations")
+    check(launches["segment_offsets"] == 1 and launches["segment_sum_edges"] == 0,
+          f"the full path built {launches['segment_offsets']} segment layouts (1: the "
+          f"attraction's) and summed {launches['segment_sum_edges']} times through one")
     check(launches["count_scatter"] == rstats.chunks and launches["count_disks"] == 1,
           f"K3 on the full path: {launches['count_scatter']} raw launches for "
           f"{rstats.chunks} edge chunks, {launches['count_disks']} node passes")
@@ -1466,8 +1644,9 @@ def record_render_inputs(cap: Capture, edges, pos, groups):
 def record_grid_inputs(torch, cap: Capture, edges, pos):
     """One grid iteration from the full path's final layout ``pos``,
     through ``repro_torch.layout``, recording K5–K7's inputs in ``cap``
-    (outside any measured run); K7's attraction input under
-    ``"segment_sum_edges@full"``, beside the main path's."""
+    (outside any measured run); K7's attraction and its layout build under
+    ``"attraction_sum@full"`` and ``"segment_offsets@full"``, beside the
+    main path's."""
     import repro_torch
     from repro_torch.core import forceatlas2 as fa2
     from repro_torch.graph.utils import degrees, pad_edges
@@ -1480,13 +1659,15 @@ def record_grid_inputs(torch, cap: Capture, edges, pos):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    main_edges = cap.calls.pop("segment_sum_edges")
+    keys = ("attraction_sum", "segment_offsets")
+    main_calls = {k: cap.calls.pop(k) for k in keys}
     with cap.recording():
         repro_torch.layout(edges_t, torch.ones(e, device="cuda"), mass, n, lcfg,
                            pos0=torch.as_tensor(pos, device="cuda"), device="cuda")
     torch.cuda.synchronize()
-    cap.calls["segment_sum_edges@full"] = cap.calls.pop("segment_sum_edges")
-    cap.calls["segment_sum_edges"] = main_edges
+    for k in keys:
+        cap.calls[k + "@full"] = cap.calls.pop(k)
+    cap.calls.update(main_calls)
     log(f"one grid layout iteration at full width: peak {torch.cuda.max_memory_allocated() - base} "
         f"bytes above its {base} bytes of inputs (recorded copies included)")
 
@@ -2122,11 +2303,12 @@ def time_grid_kernels(torch, np, cap: Capture, row):
         None, 0.0, band * 16 + nl * 8, rslots + K6_OPS_PER_PAIR * rpairs,
         f"n={n} rows [{i0}, {i0 + nl}) W={w} band_slots={rslots} same_cell_pairs={rpairs}")
 
-    # K7's two entries: the cell statistics (full path), and the attraction
-    # on both paths.
-    for key, name in (("segment_sum", "segment_sum"), ("segment_sum_edges", "segment_sum_edges"),
-                      ("segment_sum_edges@full", "segment_sum_edges_full")):
-        time_k7(torch, cap, row, key, name)
+    # K7: the cell statistics (full path), and on both paths the
+    # attraction's layout build and its fused sum.
+    time_k7(torch, cap, row, "segment_sum", "segment_sum")
+    for tag, suffix in (("", ""), ("@full", "_full")):
+        time_offsets(torch, cap, row, tag, "segment_offsets" + suffix)
+        time_attraction(torch, cap, row, tag, "attraction_sum" + suffix)
 
     # K8 on the main path's CMS input. The hashed entry (the TPU kernel's
     # contract) with the keys hashed once, outside the timed span; its
@@ -2187,6 +2369,78 @@ def time_k7(torch, cap: Capture, row, key: str, name: str):
         f"E={e} D={d} N={n_seg} sorted={kw.get('indices_are_sorted', False)} "
         f"largest_segment={largest}",
         "index_add_ on the kept rows")
+
+
+
+def time_offsets(torch, cap: Capture, row, tag: str, name: str):
+    """K7's layout build on one path's recorded input (the attraction's
+    sorted sources): the layout bitwise its plain version on the CPU and
+    run to run; the offsets entry timed beside its plain version and
+    ``searchsorted`` (one PyTorch call that computes the offsets from the
+    sorted ids), the whole build (the groups included) logged."""
+    from repro_torch.kernels.segment import ops as seg_ops
+    from repro_torch.kernels.segment.ref import segment_layout_ref, segment_offsets_ref
+
+    _, (ids, n), kw = cap.calls["segment_offsets" + tag]
+    build_fn = cap.fn("segment_offsets")
+    lay = build_fn(ids, n, **kw)
+    again = build_fn(ids, n, **kw)
+    check(bits_equal(torch, lay.offsets, again.offsets)
+          and bits_equal(torch, lay.groups, again.groups)
+          and (lay.perm is None or bits_equal(torch, lay.perm, again.perm)),
+          f"K7 {name}: two layout builds differ")
+    perm_c, off_c = segment_layout_ref(ids.cpu(), n, **kw)
+    check(bits_equal(torch, lay.offsets.cpu(), off_c)
+          and (perm_c is None or bits_equal(torch, lay.perm.cpu(), perm_c)),
+          f"K7 {name}: differs from the plain version on the CPU")
+    check(bits_equal(torch, lay.groups.cpu(), seg_ops.segment_groups(off_c, ids.shape[0])),
+          f"K7 {name}: the groups differ from the CPU's")
+    e = ids.shape[0]
+    sid = ids if kw.get("sorted") else ids[lay.perm.long()]
+    marks = torch.arange(n + 1, dtype=torch.int32, device=ids.device)
+    build_ms = cuda_ms(torch, lambda: build_fn(ids, n, **kw), REPS)
+    row(name,
+        cuda_ms(torch, lambda: seg_ops.segment_offsets(sid, n), REPS),
+        cuda_ms(torch, lambda: segment_offsets_ref(sid, n), REPS),
+        cuda_ms(torch, lambda: torch.searchsorted(sid, marks), REPS),
+        0.0, e * 4 + (n + 1) * 4, e + n,
+        f"E={e} N={n} sorted={kw.get('sorted', False)}; the whole layout build {build_ms} ms",
+        "searchsorted of every segment id in the sorted ids")
+
+
+def time_attraction(torch, cap: Capture, row, tag: str, name: str):
+    """K7's fused attraction on one path's recorded input: bitwise its
+    plain version on the CPU, the pre-change composition on the card
+    (``attraction_old``) and run to run; timed beside that composition (the
+    earlier time), the plain version and ``index_add_`` of the materialised
+    kept terms (materialised outside the timed span)."""
+    from repro_torch.kernels.segment.ref import attraction_sum_ref
+
+    _, (pos, dst, w, lay), _ = cap.calls["attraction_sum" + tag]
+    offsets = lay.offsets
+    k = cap.fn("attraction_sum")
+    got = k(pos, dst, w, lay)
+    check(bits_equal(torch, got, k(pos, dst, w, lay)), f"K7 {name}: two launches differ")
+    cpu = attraction_sum_ref(pos.cpu(), dst.cpu(), w.cpu(), offsets.cpu())
+    check(bits_equal(torch, got.cpu(), cpu),
+          f"K7 {name}: differs from the plain version on the CPU")
+    old, terms, src = attraction_old(torch, pos, dst, w, offsets)
+    check(bits_equal(torch, got, old()), f"K7 {name}: differs from the pre-change composition")
+    n, e = pos.shape[0], dst.shape[0]
+    kept = terms.shape[0]
+    idx = src.long()
+    out = torch.zeros((n, 2), device=pos.device)
+    largest = int(torch.diff(offsets).max()) if n else 0
+    old_ms = cuda_ms(torch, old, REPS)
+    log(f"K7 {name}: the pre-change composition (terms materialised, the warp-per-segment "
+        f"kernel) {old_ms} ms")
+    row(name,
+        cuda_ms(torch, lambda: k(pos, dst, w, lay), REPS),
+        cuda_ms(torch, lambda: attraction_sum_ref(pos, dst, w, offsets), REPS),
+        cuda_ms(torch, lambda: out.index_add_(0, idx, terms), REPS),
+        0.0, kept * 8 + 20 * n, 6 * kept,
+        f"E={e} rows, {kept} kept, N={n} largest_segment={largest}; pre-change composition "
+        f"{old_ms} ms", "index_add_ of the materialised kept terms")
 
 
 # ------------------------------------------------------------- phase 10
@@ -2391,10 +2645,10 @@ def md_rank(mesh, npy: str, out_dir: str, delta: int) -> None:
     zero()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    m, p, radii, (src, dst, w2) = fa2._layout_inputs(edges, w, mass, n, lcfg, pos0, dev)
-    arrays["forces"] = fa2.force_pass(m, radii, src, dst, w2, n, lcfg, mesh)(p, 0).cpu().numpy()
+    m, p, radii, (dst, w2, lay) = fa2._layout_inputs(edges, w, mass, n, lcfg, pos0, dev)
+    arrays["forces"] = fa2.force_pass(m, radii, dst, w2, lay, n, lcfg, mesh)(p, 0).cpu().numpy()
     arrays["forces_no_attraction"] = fa2.force_pass(
-        m, radii, src, dst, torch.zeros_like(w2), n, lcfg, mesh)(p, 0).cpu().numpy()
+        m, radii, dst, torch.zeros_like(w2), lay, n, lcfg, mesh)(p, 0).cpu().numpy()
     pos, _, iters = fa2.layout_sharded(edges, w, mass, n, lcfg, mesh, pos0=pos0)
     torch.cuda.synchronize()
     info["grid_s"] = time.perf_counter() - t0
@@ -2454,7 +2708,8 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
        iterations from a seeded start): the first iteration's gathered
        forces, with and without the attraction, and the positions after
        the 20 iterations bitwise the single-rank pass's, and two
-       single-rank runs bitwise; K5, K6's row entry and K7 (both entries)
+       single-rank runs bitwise; K5, K6's row entry and K7 (the cell
+       statistics, the layout build and the fused attraction)
        launched on every rank.
     3. ``stream_runner --shard all --backend gloo`` under
        ``torch.distributed.run`` on MD_RUNNER_RANKS ranks: exit 0,
@@ -2540,7 +2795,8 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
             f"{la['repulsion_rows']}, K8 {la['cms_update_keys']}; K3 {la['count_scatter']} "
             f"+ {la['count_disks']}, K4 {la['disk_accum']}")
         ga = info["grid_launches"]
-        for k in ("far_field", "near_field_rows", "segment_sum", "segment_sum_edges"):
+        for k in ("far_field", "near_field_rows", "segment_sum", "segment_offsets",
+                  "attraction_sum"):
             check(ga[k] > 0, f"multi-device rank {r}: {k} was not launched in the grid pass")
         check(ga["near_field"] == 0, f"multi-device rank {r}: the full K6 launched")
     lead = ranks[0][1]
@@ -2562,9 +2818,9 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
     pos0 = fa2.init_positions(n, torch.Generator().manual_seed(lcfg.seed), device=dev)
     w = torch.ones(e_dev.shape[0], device=dev)
     mass = torch.as_tensor(gdeg, device=dev).to(torch.float32) + 1.0
-    m, p, radii, (src, dst, w2) = fa2._layout_inputs(e_dev, w, mass, n, lcfg, pos0, dev)
-    f1 = fa2.force_pass(m, radii, src, dst, w2, n, lcfg)(p, 0).cpu().numpy()
-    f0 = fa2.force_pass(m, radii, src, dst, torch.zeros_like(w2), n, lcfg)(p, 0).cpu().numpy()
+    m, p, radii, (dst, w2, lay) = fa2._layout_inputs(e_dev, w, mass, n, lcfg, pos0, dev)
+    f1 = fa2.force_pass(m, radii, dst, w2, lay, n, lcfg)(p, 0).cpu().numpy()
+    f0 = fa2.force_pass(m, radii, dst, torch.zeros_like(w2), lay, n, lcfg)(p, 0).cpu().numpy()
     pos1, _, _ = fa2.layout(e_dev, w, mass, n, lcfg, pos0=pos0, device=dev)
     pos1 = pos1.cpu().numpy()
     again, _, _ = fa2.layout(e_dev, w, mass, n, lcfg, pos0=pos0, device=dev)
@@ -2588,7 +2844,7 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
           f"grid layout: two single-rank runs differ by {drift1}")
     check(np.array_equal(a["grid_positions"].view(np.uint8), pos1.view(np.uint8)),
           f"multi-device grid pass: positions differ by {gerr} of {gscale}")
-    del e_dev, src, dst, w2, m, p
+    del e_dev, dst, w2, lay, m, p
     torch.cuda.empty_cache()
     log(f"multi-device: {d} ranks under gloo on one card; wall {lead['wall_s']} s "
         f"(phase 4: {res.timings}); scoda_s {lead['timings']['scoda_s']}, supergraph_s "
@@ -2987,9 +3243,10 @@ def dry_run_phase(torch, np, cap: Capture, edges) -> dict:
                                       args[4], args[5], args[2], args[3], cfg, n, **extra)
         check(_same(torch, got, again), f"{name}: two steps on the card differ")
         check(_same(torch, got, (d_pos, d_f)), f"{name}: the step differs from a direct fa2.step")
-        want = ("far_field", "near_field", "segment_sum", "segment_sum_edges") if grid \
-            else ("repulsion_nbody", "segment_sum_edges")
-        for k in want:
+        # The step's two-scatter attraction: one layout of [u; v] and one
+        # sum through it.
+        want = ("far_field", "near_field", "segment_sum") if grid else ("repulsion_nbody",)
+        for k in want + ("segment_offsets", "segment_sum_edges"):
             check(launches[k] == 1, f"{name}: {k} launched {launches[k]} times in one step")
         info = {"n_nodes": n, "n_edges": e, "real_nodes": real_n, "real_edges": real_e,
                 "repulsion": model.layout_repulsion, "step_ms": ms,
@@ -3005,14 +3262,64 @@ def dry_run_phase(torch, np, cap: Capture, edges) -> dict:
                   f"(> 1e-4·{scale})")
         log(f"dry-run {name} " + json.dumps(info))
         out[name] = info
+        if name == "layout_livejournal":
+            with cap.recording("@step"):
+                step.fn(*args)
+            torch.cuda.synchronize()
+            rows.append(time_edges_step(torch, cap, launches))
+            cap.calls.clear()
 
+    rows = []
     layout("layout_berkstan", BGVDryConfig(), True)
     layout("layout_livejournal", BGVDryConfig(), False)
     layout("layout_livejournal+grid", BGVDryConfig(layout_repulsion="grid",
                                                     layout_grid_size=GRID,
                                                     layout_grid_window=WINDOW), False)
     torch.cuda.empty_cache()
-    return out
+    return rows
+
+
+def time_edges_step(torch, cap: Capture, launches: dict) -> dict:
+    """K7's per-edge sum through a layout on the input one step of the
+    ``layout_livejournal`` cell gave it: the two-scatter attraction's
+    [f; −f] by [u; v] (narrow rows through the stable sort's order). The
+    layout bitwise run to run; the sum bitwise its plain version on the
+    CPU, the pre-change composition on the card (the stable sort, the
+    sorted copy, the warp-per-segment kernel) and run to run; timed beside
+    that composition, the plain version and ``index_add_`` on the kept
+    rows, the layout build apart. ``launches``: the cell's step."""
+    from repro_torch.kernels.segment import ops as seg_ops
+    from repro_torch.kernels.segment.ref import segment_sum_layout_ref, segment_sum_ref
+
+    _, (data, ids, n), _ = cap.calls["segment_sum_edges@step"]
+    lay = seg_ops.segment_layout(ids, n)
+    again = seg_ops.segment_layout(ids, n)
+    check(bits_equal(torch, lay.perm, again.perm) and bits_equal(torch, lay.offsets, again.offsets),
+          "K7 segment_sum_edges (step): two layout builds differ")
+    got = seg_ops.segment_sum_edges(data, lay, n)
+    check(bits_equal(torch, got, seg_ops.segment_sum_edges(data, lay, n)),
+          "K7 segment_sum_edges (step): two launches differ")
+    check(bits_equal(torch, got.cpu(), segment_sum_ref(data.cpu(), ids.cpu(), n)),
+          "K7 segment_sum_edges (step): differs from the plain version on the CPU")
+    check(bits_equal(torch, got, seg_ops.segment_sum(data, ids, n)),
+          "K7 segment_sum_edges (step): differs from the pre-change composition")
+    e, d = data.shape
+    keep = (ids >= 0) & (ids < n)
+    idx, data_k = ids[keep].long(), data[keep]
+    out = torch.zeros((n, d), device=data.device)
+    build_ms = cuda_ms(torch, lambda: seg_ops.segment_layout(ids, n), REPS)
+    old_ms = cuda_ms(torch, lambda: seg_ops.segment_sum(data, ids, n), REPS)
+    log(f"K7 segment_sum_edges (step): layout build {build_ms} ms, the pre-change composition "
+        f"{old_ms} ms")
+    largest = int(torch.diff(lay.offsets).max())
+    return kernel_row(
+        {"step": launches}, "segment_sum_edges",
+        cuda_ms(torch, lambda: seg_ops.segment_sum_edges(data, lay, n), REPS),
+        cuda_ms(torch, lambda: segment_sum_layout_ref(data, lay.perm, lay.offsets), REPS),
+        cuda_ms(torch, lambda: out.index_add_(0, idx, data_k), REPS),
+        0.0, e * (4 * d + 4) + 4 * (n + 1) + 4 * n * d, e * d,
+        f"E={e} D={d} N={n} kept={idx.numel()} largest_segment={largest}; layout build "
+        f"{build_ms} ms; pre-change composition {old_ms} ms", "index_add_ on the kept rows")
 
 
 # ------------------------------------------------------------- phase 13
@@ -3351,7 +3658,8 @@ def models_phase(torch, np, cap: Capture, smi: str) -> dict:
         del gp, bd, got, again
     launches = cap.counts()
     log("models launches " + json.dumps({k: v for k, v in launches.items() if v}))
-    check(launches["segment_sum_edges"] > 0, "models: K7 was not launched")
+    check(launches["segment_sum_edges"] > 0 and launches["segment_offsets"] > 0,
+          "models: K7's layout build or per-edge sum was not launched")
     torch.cuda.empty_cache()
     return out
 
@@ -3548,14 +3856,19 @@ def products_batch(torch, shape, seed: int = SEED) -> dict:
 
 
 def time_k7_train(torch, rows: list, launches: dict, edges, n: int, d: int):
-    """K7's two training entries on ogb_products' edges (seeded [E, d]
-    float32 terms): the message sum (ids = dst, unsorted) and the gather
-    backward (ids = src). Each against the card's plain version within
-    2γ(k−1)·Σ|x| per segment (in row chunks: the float64 bound of the whole
-    input would be 32 GB) and run to run; timed beside the plain version
-    and ``index_add_`` on the kept rows."""
+    """K7's training entries on ogb_products' edges (seeded [E, d] float32
+    terms): the layout of each id array (dst for the message sum, src for
+    the gather backward), built twice and bitwise, and the sum through it.
+    Each sum bitwise the pre-change composition (a stable sort of the ids,
+    the rows copied into its order, the warp-per-segment kernel) in the
+    same call and run to run, within 2γ(k−1)·Σ|x| per segment of the card's
+    plain version (in row chunks: the float64 bound of the whole input would
+    be 32 GB); timed beside that composition, the plain version and
+    ``index_add_`` on the kept rows. The layout build is timed apart: its
+    offsets entry alone (``segment_offsets_train``, from the sorted ids) and
+    the whole build (stable sort, int32 cast, offsets)."""
     from repro_torch.kernels.segment import ops as seg_ops
-    from repro_torch.kernels.segment.ref import segment_sum_ref
+    from repro_torch.kernels.segment.ref import segment_offsets_ref, segment_sum_ref
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     e = edges.shape[0]
@@ -3563,12 +3876,43 @@ def time_k7_train(torch, rows: list, launches: dict, edges, n: int, d: int):
     for name, col, counter in (("segment_sum_edges_train", 1, "segment_sum_edges"),
                                ("segment_sum_gather_bwd", 0, "segment_sum_gather_bwd")):
         seg = edges[:, col].contiguous()
+        lay = seg_ops.segment_layout(seg, n)
+        again = seg_ops.segment_layout(seg, n)
+        check(bits_equal(torch, lay.perm, again.perm)
+              and bits_equal(torch, lay.offsets, again.offsets),
+              f"K7 {name}: two layout builds differ")
+        del again
+        if col == 1:
+            sid = seg[lay.perm.long()]
+            srt = seg_ops.segment_layout(sid, n, sorted=True)
+            check(bits_equal(torch, srt.offsets, lay.offsets),
+                  "K7 segment_offsets_train: the sorted ids' offsets differ")
+            marks = torch.arange(n + 1, dtype=torch.int32, device="cuda")
+            build_ms = cuda_ms(torch, lambda: seg_ops.segment_layout(seg, n), 5)
+            log(f"K7 layout build on ogb_products' dst (stable sort, int32 cast, offsets): "
+                f"{build_ms} ms")
+            rows.append(kernel_row(
+                {"train": launches}, "segment_offsets_train",
+                cuda_ms(torch, lambda: seg_ops.segment_offsets(sid, n), REPS),
+                cuda_ms(torch, lambda: segment_offsets_ref(sid, n), REPS),
+                cuda_ms(torch, lambda: torch.searchsorted(sid, marks), REPS),
+                0.0, e * 4 + (n + 1) * 4, e + n,
+                f"E={e} N={n} sorted ids (dst); the whole build {build_ms} ms",
+                "searchsorted of every segment id in the sorted ids"))
+            del sid, srt, marks
 
         def k7():
-            return seg_ops._segment_sum(data, seg, n, False, counter)
+            return seg_ops._sum_through(data, lay, counter)
 
         got = k7()
         check(bits_equal(torch, got, k7()), f"K7 {name}: two launches differ")
+        old = seg_ops.segment_sum(data, seg, n)
+        check(bits_equal(torch, got, old), f"K7 {name}: differs from the pre-change composition")
+        del old
+        old_ms = cuda_ms(torch, lambda: seg_ops.segment_sum(data, seg, n), 3)
+        log(f"K7 {name}: the pre-change composition (sort, sorted copy, the warp-per-segment "
+            f"kernel) {old_ms} ms")
+        torch.cuda.empty_cache()
         plain = segment_sum_ref(data, seg, n)
         keep = (seg >= 0) & (seg < n)
         idx = seg[keep].long()
@@ -3591,10 +3935,11 @@ def time_k7_train(torch, rows: list, launches: dict, edges, n: int, d: int):
         rows.append(kernel_row(
             {"train": launches}, name, cuda_ms(torch, k7, 5),
             cuda_ms(torch, lambda: segment_sum_ref(data, seg, n), 3), lib,
-            float(err.max()), e * (4 * d + 4) + n * d * 4, e * d,
-            f"E={e} D={d} N={n} sorted=False largest_segment={largest}",
+            float(err.max()), e * (4 * d + 4) + 4 * (n + 1) + n * d * 4, e * d,
+            f"E={e} D={d} N={n} through a layout of {'dst' if col else 'src'} "
+            f"largest_segment={largest}; pre-change composition {old_ms} ms",
             "index_add_ on the kept rows"))
-        del err
+        del err, lay
         torch.cuda.empty_cache()
 
 
@@ -3777,7 +4122,7 @@ def training_phase(torch, np, cap: Capture, smi: str) -> list:
                                 [{k: torch.as_tensor(v) for k, v in batch.items()}]
                                 * TRAIN_STEPS)
         launches = cap.counts()
-        info["launches"] = {k: launches[k] for k in ("segment_sum_edges",
+        info["launches"] = {k: launches[k] for k in ("segment_offsets", "segment_sum_edges",
                                                      "segment_sum_gather_bwd")}
         check(min(info["launches"].values()) > 0, f"{name}/{cell}: K7 not launched "
                                                   f"in training: {info['launches']}")
@@ -3811,8 +4156,14 @@ def training_phase(torch, np, cap: Capture, smi: str) -> list:
     log(f"gin-tu/ogb_products launches per run of {TRAIN_STEPS} steps "
         + json.dumps(runs[0][2]["launches"]))
     check(same, "gin-tu/ogb_products: two runs of the same steps differ")
-    check(train_launches["segment_sum_edges"] > 0 and train_launches["segment_sum_gather_bwd"] > 0,
-          "gin-tu/ogb_products: K7's training entries were not launched")
+    # A gin-tu step (5 layers, remat): one forward builds the layouts of
+    # src and dst; its 10 sums run twice (the forward and the recompute),
+    # its 10 gathers' backwards once, each through a layout, none sorting.
+    want = {"segment_offsets": 2, "segment_sum_edges": 20, "segment_sum_gather_bwd": 10}
+    got = {k: train_launches[k] for k in want}
+    check(got == {k: v * TRAIN_STEPS for k, v in want.items()},
+          f"gin-tu/ogb_products: K7 launches {got} in {TRAIN_STEPS} steps, expected "
+          f"{want} a step")
     edges = batch["edges"]
     del runs, p0, batch
     torch.cuda.empty_cache()
@@ -3873,8 +4224,9 @@ def run() -> int:
         multi_launches = multi_device_phase(torch, np, edges, main_result, main_cfg, smi)
     with phase("timing"):
         rows = time_kernels(torch, np, cap, main_launches, full_launches, multi_launches)
-    before_train = [k for k, v in KERNELS.items() if v[3] != "train"]
-    check(len(rows) == len(before_train), f"{len(rows)} kernel rows, expected {len(before_train)}")
+    timed = sorted(k for k, v in KERNELS.items() if v[3] not in ("train", "step"))
+    check(sorted(r["name"] for r in rows) == timed,
+          f"kernel rows {sorted(r['name'] for r in rows)}, expected {timed}")
     full_nodes = cap.calls["count_disks@full"][1]
     cap.calls.clear()
     torch.cuda.empty_cache()
@@ -3886,14 +4238,15 @@ def run() -> int:
     del main_result
     torch.cuda.empty_cache()
     with phase("dry-run cells"):
-        dry_run_phase(torch, np, cap, edges)
+        rows += dry_run_phase(torch, np, cap, edges)
     del edges
     torch.cuda.empty_cache()
     with phase("models"):
         models_phase(torch, np, cap, smi)
     with phase("training"):
         rows += training_phase(torch, np, cap, smi)
-    check(len(rows) == len(KERNELS), f"{len(rows)} kernel rows, expected {len(KERNELS)}")
+    check(sorted(r["name"] for r in rows) == sorted(KERNELS),
+          f"kernel rows {sorted(r['name'] for r in rows)}, expected {sorted(KERNELS)}")
     log(json.dumps({"kernels": rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -29,12 +29,14 @@ kernels, so there is no backend per kernel:
 
 ``layout`` hoists everything reusable out of the iteration loop: radii
 √mass are computed once, and attraction edges are sorted once into a
-directed source-sorted layout whose per-iteration sum is one
-``index_add_`` on the CPU and one launch of K7 on the card, which adds in
-the same order (so a layout on the card is the same bits from run to
-run). The grid backends carry (cell ids, cell-sorted order) through the
-loop and rebuild them every ``grid_rebuild`` iterations (iteration 0
-always rebuilds; 1 = every iteration). The loop is Python; with
+directed source-sorted layout with its sources' segment layout, whose
+per-iteration sum is one launch of K7's fused ``attraction_sum`` on the
+card (the terms formed as they are added) and its plain version, one
+``index_add_``, on the CPU, in the same order (so a layout on the card is
+the same bits from run to run). The grid backends carry (cell ids,
+cell-sorted order) through the loop and rebuild them every
+``grid_rebuild`` iterations (iteration 0 always rebuilds; 1 = every
+iteration). The loop is Python; with
 ``stop_tolerance`` > 0 it stops once the controller's global swing falls to
 ``stop_tolerance`` × global traction (after ``min_iterations``), leaving the
 remaining trace rows zero — frozen iterations do no work. That test reads
@@ -201,55 +203,47 @@ def _attraction(pos, edges, weights, n: int):
     Unsorted two-scatter form — the single-``step`` path.
 
     On the CPU two ``index_add_`` calls add, into each node, its u-terms in
-    edge order and then its v-terms. On the card ``[u; v]`` with
-    ``[f; −f]`` is sorted stably by id and summed by K7, which adds the
-    same terms in the same order: the same bits, every run."""
+    edge order and then its v-terms. On the card ``[f; −f]`` is summed by
+    K7 through the segment layout of ``[u; v]`` built for this call (a
+    stable sort by id), which adds the same terms in the same order: the
+    same bits, every run."""
     e = edges.long().clamp(0, n)
     u, v = e[:, 0], e[:, 1]
     pos_ext = torch.cat([pos, torch.zeros((1, 2), dtype=pos.dtype, device=pos.device)])
     f = weights[:, None] * (pos_ext[v] - pos_ext[u])  # force on u toward v
     if pos.device.type == "cuda":
-        return _edge_sum(torch.cat([f, -f]), torch.cat([u, v]), n, indices_are_sorted=False)
+        if f.dtype != torch.float32:
+            raise ValueError(f"the attraction sums in float32 on the card (K7), got {f.dtype}")
+        return segment_ops.segment_sum_edges(torch.cat([f, -f]),
+                                             torch.cat([u, v]).to(torch.int32), n)
     force = torch.zeros((n + 1, 2), dtype=pos.dtype, device=pos.device)
     force.index_add_(0, u, f)
     force.index_add_(0, v, -f)
     return force[:n]
 
 
-def _edge_sum(f, ids, n: int, indices_are_sorted: bool):
-    """The card's attraction sum: K7 adds each node's terms in row order
-    from +0 (ids ≥ n dropped), as the CPU's ``index_add_`` does."""
-    if f.dtype != torch.float32:
-        raise ValueError(f"the attraction sums in float32 on the card (K7), got {f.dtype}")
-    return segment_ops.segment_sum_edges(f, ids.to(torch.int32), n,
-                                         indices_are_sorted=indices_are_sorted)
-
-
-def _attraction_edge_layout(edges, weights):
-    """Directed source-sorted layout, built once per ``layout`` call: both
-    edge directions concatenated and stably sorted by source node, ids as
-    int32. Padded slots (trash endpoints == n) sort last and are dropped by
-    the sum."""
+def _attraction_edge_layout(edges, weights, n: int):
+    """Directed source-sorted layout, built once per ``layout`` call:
+    ``(dst, w, layout)``, both edge directions stably sorted by source node
+    (ids as int32), and the ``SegmentLayout`` of the sources clamped into
+    ``[0, n]`` (its offsets by K7's ``segment_offsets`` on the card).
+    Padded slots (trash endpoints == n) sort last and fall past
+    ``offsets[n]``."""
     u, v = edges[:, 0].to(torch.int32), edges[:, 1].to(torch.int32)
     src = torch.cat([u, v])
     dst = torch.cat([v, u])
     w2 = torch.cat([weights, weights])
     order = torch.argsort(src, stable=True)
-    return src[order], dst[order], w2[order]
+    layout = segment_ops.segment_layout(src[order].clamp(0, n), n, sorted=True)
+    return dst[order], w2[order], layout
 
 
-def _attraction_sorted(pos, src, dst, w, n: int):
-    """Σ over directed incident edges of w·(x_dst − x_src), summed over the
-    source ids (ids ≥ n land in a dropped row): one ``index_add_`` on the
-    CPU, K7 on the card (the ids are sorted, so no sort)."""
-    pos_ext = torch.cat([pos, torch.zeros((1, 2), dtype=pos.dtype, device=pos.device)])
-    s, d = src.clamp(0, n), dst.clamp(0, n)
-    f = w[:, None] * (pos_ext[d] - pos_ext[s])
-    if pos.device.type == "cuda":
-        return _edge_sum(f, s, n, indices_are_sorted=True)
-    out = torch.zeros((n + 1, 2), dtype=pos.dtype, device=pos.device)
-    out.index_add_(0, s, f)
-    return out[:n]
+def _attraction_sorted(pos, dst, w, layout):
+    """Σ over directed incident edges of w·(x_dst − x_src), node by node
+    through the sources' ``layout`` (dst ≥ n reads a zero row): K7's
+    ``attraction_sum`` on the card, its plain version (one ``index_add_``)
+    on the CPU."""
+    return segment_ops.attraction_sum(pos, dst, w, layout)
 
 
 def _pair_force(dpos, mi, mj, kr):
@@ -394,8 +388,9 @@ def step(state, edges, weights, mass, radii, cfg: FA2Config, n: int,
 
 
 def _layout_inputs(edges, weights, mass, n: int, cfg: FA2Config, pos0, device):
-    """``(mass, pos, radii, (src, dst, w2))`` on ``device`` in the layout's
-    type: initial positions, radii √mass and the source-sorted edges."""
+    """``(mass, pos, radii, (dst, w2, layout))`` on ``device`` in the
+    layout's type: initial positions, radii √mass and the source-sorted
+    edges with their sources' segment layout."""
     dtype = getattr(torch, cfg.dtype)
     edges = torch.as_tensor(edges, device=device)
     weights = torch.as_tensor(weights, device=device).to(dtype)
@@ -404,10 +399,10 @@ def _layout_inputs(edges, weights, mass, n: int, cfg: FA2Config, pos0, device):
         pos0 = initial_positions(edges, mass, n, cfg)
     pos = torch.as_tensor(pos0, device=device).to(dtype)
     radii = torch.sqrt(torch.clamp(mass, min=0.0))  # paper: radius ∝ √size
-    return mass, pos, radii, _attraction_edge_layout(edges, weights)
+    return mass, pos, radii, _attraction_edge_layout(edges, weights, n)
 
 
-def force_pass(mass, radii, src, dst, w2, n: int, cfg: FA2Config, mesh=None):
+def force_pass(mass, radii, dst, w2, src_layout, n: int, cfg: FA2Config, mesh=None):
     """``forces(pos, it)``: one iteration's full [n, 2] force array (gravity,
     attraction, repulsion), carrying the grid state (cell ids, cell-sorted
     order) between calls and rebuilding it every ``cfg.grid_rebuild``
@@ -418,9 +413,9 @@ def force_pass(mass, radii, src, dst, w2, n: int, cfg: FA2Config, mesh=None):
     iteration assembles the array, which is then the same on every rank:
     * gravity — on the owned rows;
     * attraction — the full-size sorted sum, owned rows kept: each node's
-      sum is the same chain of adds as in the single-rank run (K7 on the
-      card, ``index_add_`` on the CPU, both in row order), so the owned rows
-      are its bits. This work is replicated;
+      sum is the same chain of adds as in the single-rank run (K7's
+      ``attraction_sum`` on the card, ``index_add_`` on the CPU, both in row
+      order), so the owned rows are its bits. This work is replicated;
     * exact repulsion — the owned targets against all sources
       (``repulsion_rows``, kernel K2's row range);
     * grid repulsion — binning, the stable sort and the cell statistics
@@ -448,7 +443,7 @@ def force_pass(mass, radii, src, dst, w2, n: int, cfg: FA2Config, mesh=None):
         if grid_state and (cfg.grid_rebuild <= 1 or it % cfg.grid_rebuild == 0):
             state["cell"], state["order"] = grid_ops.bin_and_sort(p, cfg.grid_size)
         f = _gravity(p[rows], mass[rows], cfg)
-        f = f + _attraction_sorted(p, src, dst, w2, n)[rows]
+        f = f + _attraction_sorted(p, dst, w2, src_layout)[rows]
         f = f + _repulsion_forces(p, mass, radii, cfg, cell=state["cell"],
                                   order=state["order"], rows=owned, gather=gather)
         return f if gather is None else gather(f)
@@ -490,9 +485,8 @@ def layout(edges, weights, mass, n: int, cfg: FA2Config, pos0=None, device=None)
         "fa2.layout", n=n, iterations=cfg.iterations,
         repulsion=cfg.repulsion, adaptive=cfg.stop_tolerance > 0.0,
     ):
-        mass, pos, radii, (src, dst, w2) = _layout_inputs(
-            edges, weights, mass, n, cfg, pos0, device)
-        return _run(pos, mass, force_pass(mass, radii, src, dst, w2, n, cfg), cfg)
+        mass, pos, radii, att = _layout_inputs(edges, weights, mass, n, cfg, pos0, device)
+        return _run(pos, mass, force_pass(mass, radii, *att, n, cfg), cfg)
 
 
 # Node-partitioned multi-device layout (the reference's ``layout_sharded``):
@@ -560,6 +554,5 @@ def layout_sharded(edges, weights, mass, n: int, cfg: FA2Config, mesh, pos0=None
         "fa2.layout_sharded", n=n, iterations=cfg.iterations,
         repulsion=cfg.repulsion, devices=mesh.size,
     ):
-        mass, pos, radii, (src, dst, w2) = _layout_inputs(
-            edges, weights, mass, n, cfg, pos0, device)
-        return _run(pos, mass, force_pass(mass, radii, src, dst, w2, n, cfg, mesh), cfg)
+        mass, pos, radii, att = _layout_inputs(edges, weights, mass, n, cfg, pos0, device)
+        return _run(pos, mass, force_pass(mass, radii, *att, n, cfg, mesh), cfg)

@@ -43,14 +43,16 @@ KERNELS = ("merge_scatter", "repulsion_nbody", "count_scatter", "disk_accum",
 # first entry is counted under the library's name; its other entries apart:
 # K1's generic scatter_combine (merge_scatter), K2's and K6's row-range
 # entries repulsion_rows and near_field_rows (repulsion_nbody, near_field),
-# K3's small-disk entry count_disks (count_scatter), K7's per-edge entry
-# segment_sum_edges (segment_sum), K7's gather backward
-# segment_sum_gather_bwd (segment_sum: the GNN gathers' gradients) and K8's
-# keys-in entry cms_update_keys (cms_update; "cms_update" counts the hashed
-# entry).
+# K3's small-disk entry count_disks (count_scatter), K7's layout entries
+# (segment_sum; "segment_sum" counts the cell statistics): the layout
+# build segment_offsets, the per-edge sum segment_sum_edges, the GNN
+# gathers' gradients segment_sum_gather_bwd and FA2's fused attraction
+# attraction_sum, and K8's keys-in entry cms_update_keys (cms_update;
+# "cms_update" counts the hashed entry).
 LAUNCHES = dict.fromkeys(
     KERNELS + ("scatter_combine", "repulsion_rows", "near_field_rows", "count_disks",
-               "segment_sum_edges", "segment_sum_gather_bwd", "cms_update_keys"), 0)
+               "segment_offsets", "segment_sum_edges", "segment_sum_gather_bwd",
+               "attraction_sum", "cms_update_keys"), 0)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -6,14 +6,21 @@ compute → segment sum scatter(dst). Edges are padded with the trash id
 and the segment sum drops it.
 
 The segment sums go through ``kernels/segment``'s per-edge entry: kernel
-K7 on the card, after a stable sort by id, so every sum is added in row
-order and the card's forward pass is the same bits from run to run (an
-``index_add_`` there would add on float atomics); its plain version on the
-CPU. The row gathers go through ``kernels/segment.gather_rows``, whose
-backward sums the edge gradients into their rows through K7 as well, so a
-training step on the card is the same bits from run to run too. That is a
-choice of this port, not a kernel of the reference (whose sums are its
-compiler's).
+K7 on the card, so every sum is added in row order and the card's forward
+pass is the same bits from run to run (an ``index_add_`` there would add
+on float atomics); its plain version on the CPU. The row gathers go
+through ``kernels/segment.gather_rows``, whose backward sums the edge
+gradients into their rows through K7 as well, so a training step on the
+card is the same bits from run to run too. That is a choice of this port,
+not a kernel of the reference (whose sums are its compiler's).
+
+``forward`` builds one segment layout (``segment_ops.segment_layout``: a
+stable sort by id and the segment offsets) for each distinct (id array,
+row count) before the layer loop, and every sum and gather backward of
+the call, remat's recomputed layers included, reads its rows through
+those: a GIN or GAT forward builds 2, an MPNN's 4 (src and dst over the n
+nodes, and over ``h_ext``'s n + 1 rows), and no launch sorts or copies
+its data. A graph-level pool sums through a layout of its own.
 
 ``cfg.remat`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``), as the reference's
@@ -88,13 +95,14 @@ def param_specs(cfg: GNNConfig) -> dict:
     return specs
 
 
-def _gather(x, idx):
-    """``x[idx]`` with out-of-range ids clamped to the last row."""
-    return segment_ops.gather_rows(x, idx)
+def _gather(x, lay):
+    """``x[ids]`` of a layout's ids, out-of-range ids clamped to the last
+    row; its backward sums through ``lay``."""
+    return segment_ops.gather_rows(x, lay.ids, lay)
 
 
-def _segsum(data, seg, n: int):
-    return segment_ops.segment_sum_edges(data, seg.to(torch.int32), n)
+def _segsum(data, lay, n: int):
+    return segment_ops.segment_sum_edges(data, lay, n)
 
 
 def _gin_layer(h, lp, src, dst, n):
@@ -104,23 +112,23 @@ def _gin_layer(h, lp, src, dst, n):
     return z @ lp["w2"] + lp["b2"]
 
 
-def _gat_layer(h, lp, src, dst, n):
+def _gat_layer(h, lp, s2, d2, n):
+    """``s2``/``d2``: the layouts of both directions of every undirected
+    edge (sources, destinations)."""
     d = h.shape[-1]
     nh, dh = lp["a_src"].shape
     q = (h @ lp["w"].reshape(d, nh * dh)).reshape(n, nh, dh)
     es = torch.einsum("nhd,hd->nh", q, lp["a_src"])
     ed = torch.einsum("nhd,hd->nh", q, lp["a_dst"])
-    # Symmetrize: both directions of every undirected edge.
-    s2 = torch.cat([src, dst])
-    d2 = torch.cat([dst, src])
     logit = F.leaky_relu(_gather(es, s2) + _gather(ed, d2), 0.2)  # [2E, H]
     # Numerically stable edge softmax over incoming edges per dst; the max
     # is order-free, and ids ≥ n land in a dropped row. The softmax does not
     # depend on the shift, so its gradient through the max is 0: the max is
     # taken on detached logits, and no backward of "amax" runs.
-    keep = (d2 >= 0) & (d2 < n)
+    ids = d2.ids
+    keep = (ids >= 0) & (ids < n)
     mx = torch.full((n + 1, nh), -1e30, dtype=logit.dtype, device=logit.device)
-    mx.scatter_reduce_(0, torch.where(keep, d2, n).long()[:, None].expand(-1, nh),
+    mx.scatter_reduce_(0, torch.where(keep, ids, n).long()[:, None].expand(-1, nh),
                        logit.detach(), "amax", include_self=True)
     mx = mx[:n]
     ex = torch.exp(logit - _gather(mx, d2))
@@ -146,7 +154,11 @@ def forward(cfg: GNNConfig, params, batch):
     graph_ids [N] for graph_class. Returns [N, n_out] (or [B, n_out])."""
     feats, edges = batch["feats"], batch["edges"]
     n = feats.shape[0]
-    src, dst = edges[:, 0].long(), edges[:, 1].long()
+    src, dst = edges[:, 0], edges[:, 1]
+    if cfg.arch == "gat":  # both directions of every undirected edge
+        src, dst = torch.cat([src, dst]), torch.cat([dst, src])
+    # One layout per (id array, row count), shared by every layer.
+    src, dst = (segment_ops.segment_layout(ids, n) for ids in (src, dst))
 
     h = torch.tanh(feats.to(cfg.act_dtype) @ params["in_w"] + params["in_b"])
     layers = params["layers"]
@@ -160,7 +172,8 @@ def forward(cfg: GNNConfig, params, batch):
     if cfg.arch in ("meshgraphnet", "graphcast"):
         h_ext = torch.cat([h, torch.zeros((1, h.shape[1]), dtype=h.dtype, device=h.device)])
         # Ids above n read h_ext's zero row (gather_rows clamps them to it).
-        e_feat = torch.cat([_gather(h_ext, src), _gather(h_ext, dst)], dim=-1)
+        e_feat = torch.cat([_gather(h_ext, segment_ops.segment_layout(lay.ids, n + 1))
+                            for lay in (src, dst)], dim=-1)
         e_feat = F.relu(e_feat @ params["edge_in_w"] + params["edge_in_b"])
         for i in range(n_layers):
             lp = {k: v[i] for k, v in layers.items()}
@@ -173,7 +186,7 @@ def forward(cfg: GNNConfig, params, batch):
             h = layer_step(lambda h, lp=lp: h + layer(h, lp, src, dst, n), h)
 
     if cfg.task == "graph_class":
-        pooled = _segsum(h, batch["graph_ids"], batch["labels"].shape[0])
+        pooled = segment_ops.segment_sum_edges(h, batch["graph_ids"], batch["labels"].shape[0])
         return pooled @ params["out_w"] + params["out_b"]
     return h @ params["out_w"] + params["out_b"]
 

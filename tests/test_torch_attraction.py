@@ -1,9 +1,12 @@
-"""FA2's attraction sum in a fixed order. On the CPU both attraction forms
-keep their ``index_add_`` (bitwise the forms before the sum moved to
-kernel K7 on the card, kept here as the oracle); the card's form — the
-terms sorted stably by node id, then summed in row order — is run here
-through K7's plain version and must give the same bits, trash ids (== n)
-dropped. The card itself is held run to run by ``chip_smoke.py``.
+"""FA2's attraction sum in a fixed order. On the CPU the two-scatter form
+keeps its ``index_add_`` and the sorted form sums through the plain
+version of K7's fused ``attraction_sum`` (both bitwise the forms before
+the sum moved to kernel K7 on the card, kept here as the oracle); the
+card's forms — the terms sorted stably by node id, then summed in row
+order, or formed in the kernel through the source layout's offsets — are
+run here through K7's plain versions and must give the same bits, trash
+ids (== n) dropped. The card itself is held run to run by
+``chip_smoke.py``.
 """
 import numpy as np
 import pytest
@@ -67,9 +70,12 @@ def test_attraction_forms_keep_their_bits(n, e, seed):
     assert torch.equal(_bits(_card_order(terms2, ids2, n)), _bits(want2))
 
     wants, terms, ids = _old_sorted(pos, edges, w, n)
-    src, dst, w2 = fa2._attraction_edge_layout(edges, w)
-    assert src.dtype == torch.int32 and torch.equal(src.long(), ids)
-    gots = fa2._attraction_sorted(pos, src, dst, w2, n)
+    dst, w2, lay = fa2._attraction_edge_layout(edges, w, n)
+    assert dst.dtype == torch.int32 and lay.offsets.dtype == torch.int32 and lay.perm is None
+    # the offsets are the segment starts of the sorted (clamped) sources
+    want_off = np.searchsorted(ids.numpy(), np.arange(n + 1))
+    assert np.array_equal(lay.offsets.numpy(), want_off)
+    gots = fa2._attraction_sorted(pos, dst, w2, lay)
     assert torch.equal(_bits(gots), _bits(wants))
     assert torch.equal(_bits(_card_order(terms, ids, n)), _bits(wants))
     # the sorted form is K7's input as it stands: ids already ascending

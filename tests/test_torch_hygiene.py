@@ -206,10 +206,12 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     before = dict(build.LAUNCHES)
     # One counter per library, and one more for each library's other entry:
     # K1's generic scatter, K2's and K6's row ranges, K3's small-disk entry,
-    # K7's per-edge entry and its gather backward, K8's keys-in entry.
+    # K7's layout entries (the layout build, the per-edge sum, the gather
+    # backward, the fused attraction), K8's keys-in entry.
     extra = {"scatter_combine", "repulsion_rows", "near_field_rows", "count_disks",
-             "segment_sum_edges", "segment_sum_gather_bwd", "cms_update_keys"}
-    assert set(before) == set(build.KERNELS) | extra and len(before) == 15
+             "segment_offsets", "segment_sum_edges", "segment_sum_gather_bwd",
+             "attraction_sum", "cms_update_keys"}
+    assert set(before) == set(build.KERNELS) | extra and len(before) == 17
     i = torch.zeros(4, dtype=torch.int32)
     f = torch.zeros(4)
     p = torch.zeros(4, 2)
@@ -226,8 +228,12 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
     grid_ops.near_field_rows(p, f, i, 80.0, 2, 1, 2)
     seg_ops.segment_sum(p, i, 4)
     seg_ops.segment_sum_edges(p, i, 4)
+    lay = seg_ops.segment_layout(i, 4)
+    seg_ops.segment_sum_edges(p, lay, 4)
+    seg_ops.attraction_sum(p, i, f, seg_ops.segment_layout(i, 4, sorted=True))
     x = p.clone().requires_grad_(True)
     seg_ops.segment_sum_edges(seg_ops.gather_rows(x, i), i, 4).sum().backward()
+    seg_ops.segment_sum_edges(seg_ops.gather_rows(x, i, lay), lay, 4).sum().backward()
     cfg = cms_lib.CMSConfig(rows=2, cols=8)
     cms_ops.update(cms_lib.init_sketch(cfg), i, f, cfg)
     cms_ops.update_hashed(cms_lib.init_sketch(cfg), torch.zeros(2, 4, dtype=torch.int32), f)
@@ -245,6 +251,11 @@ def test_cpu_tensors_take_the_plain_versions_and_meta_tensors_raise():
         seg_ops.segment_sum(torch.zeros(4, 3, device="meta"), i.to("meta"), 4)
     with pytest.raises(ValueError, match="unsupported device"):
         seg_ops.segment_sum_edges(torch.zeros(4, 3, device="meta"), i.to("meta"), 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        seg_ops.segment_layout(i.to("meta"), 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        seg_ops.attraction_sum(torch.zeros(4, 2, device="meta"), i.to("meta"), m,
+                               seg_ops.segment_layout(i, 4, sorted=True))
     im = i.to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         merge_ops.merge_place(im, im, im, m, im, im, im, m, 4)
