@@ -160,6 +160,20 @@ Phases, each printing its wall seconds:
                ``python -m repro_torch.launch.train``
                killed after step 12 and resumed, bitwise an uninterrupted
                run.
+15. model mesh — ``build_step(..., mesh)`` on 2 ranks sharing the card
+               under gloo (``model_mesh_phase``): yi-6b ``train_4k`` at
+               full width, tensor parallel on (1, 2), at the depth its
+               estimate allows under 60 GB; granite-moe, expert and tensor
+               parallel, 2 layers; yi-6b at 2 layers, data parallel with
+               ZeRO-3 of d_model and ``compress_grads`` on (2, 1); SASRec
+               ``train_batch`` uncut with its item table split; gin-tu
+               ``full_graph_sm`` with its edges split, twice, bitwise; the
+               four ``bgv_*`` cells at their padded shapes and a grid
+               variant (K8, K2's and K6's row entries, K5, K7). Each against
+               its one-rank step on the card: the LMs and SASRec within
+               ``TRAIN_TOL``, gin-tu within ``MESH_GNN_TOL``, the
+               BigGraphVis cells bitwise; per rank: launches, step ms,
+               peak bytes, collective seconds.
 
 Every layout on the card (main path, full path, drills, resumed and
 sharded runs) is held bitwise run to run: FA2's attraction sums in a fixed
@@ -4176,6 +4190,468 @@ def training_phase(torch, np, cap: Capture, smi: str) -> list:
     return rows
 
 
+# ------------------------------------------------------------- phase 15
+# The model mesh: the training cells and the BigGraphVis cells on
+# MESH_RANKS ranks of one process each, sharing the card under gloo
+# (``launch.steps.build_step(..., mesh)``), each held against the same
+# cell's one-rank step on the card. The LMs run in float32 (the gate is
+# TRAIN_TOL["lm"], measured with float32 activations) at LM_LR, yi-6b at
+# the deepest depth whose estimate (``mesh_lm_estimate``: the two ranks
+# together, then rank 0's one-rank step beside the gathered parameters)
+# stays under MESH_BUDGET bytes. gin-tu runs MESH_GNN_CELL, twice from the
+# same parameters: on ogbn-products' counts a 2-rank step took 26.1–37.1 s
+# (30 all-reduces of a [2.45 M, 64] float32 partial a step through the
+# host, 53–70 s of collectives a 2-step run; H100 80GB HBM3, 700.00 W,
+# PERF.md §6), which puts the phase far past its 150 s aim even at
+# one step, so it runs gin-tu's ``full_graph_sm`` (Cora's counts).
+MESH_RANKS, MESH_BUDGET, MESH_TIMEOUT, MESH_STEPS = 2, 60e9, 900, 2
+MESH_GNN_CELL = "full_graph_sm"
+# gin-tu on 2 ranks against one, after MESH_STEPS steps: (loss, grad norm,
+# parameters of max|p|), about 3× the measured 2.76e-7, 3.93e-7 and
+# 1.92e-5 (in_w, 0.0026·lr; H100 80GB HBM3, 700.00 W, PERF.md §6).
+# Not TRAIN_TOL["gnn"], which was measured card against CPU on gin-tu's
+# molecule and gat-cora: here each node's message sum is two chains, one a
+# rank, and their sum, where one rank adds one chain; Cora-sized GIN
+# gradients (norm 1.5e4) carry that difference further.
+MESH_GNN_TOL = (1e-6, 1.5e-6, 6e-5)
+# (run, arch, mesh shape, rows × sequence, layers or None for the arch's,
+# compress_grads)
+MESH_LM_RUNS = (("yi-6b-tp", "yi-6b", (1, 2), (1, 4096), None, False),
+                ("granite-moe-ep-tp", "granite-moe-1b-a400m", (1, 2), (2, 4096), 2, False),
+                ("yi-6b-dp-zero-compress", "yi-6b", (2, 1), (2, 4096), 2, True))
+MESH_BGV_CELLS = (("detect_berkstan", None), ("detect_livejournal", None),
+                  ("layout_berkstan", "exact"), ("layout_livejournal", "exact"),
+                  ("layout_livejournal+grid", "grid"))
+MESH_COUNTERS = ("segment_offsets", "segment_sum_edges", "segment_sum_gather_bwd",
+                 "attraction_sum", "segment_sum", "cms_update_keys", "repulsion_rows",
+                 "repulsion_nbody", "near_field_rows", "near_field", "far_field")
+
+
+def _mesh_local_bytes(built, mesh) -> tuple:
+    """(sum over ranks of the parameters' block elements, the whole
+    parameters' elements) of a built step's specs."""
+    import math
+
+    from repro_torch.models.param import tree_leaves
+
+    total = split = 0
+    for spec, a in zip(tree_leaves(built.in_specs[0]), tree_leaves(built.abstract_args[0])):
+        n = math.prod(a.shape)
+        k = 1
+        for e in spec:
+            k *= mesh.extent(e if isinstance(e, tuple) else ((e,) if e else ()))
+        total += n
+        split += n // k * mesh.size
+    return split, total
+
+
+def mesh_lm_estimate(torch, cfg, rows: int, seq: int, shape) -> tuple:
+    """Device bytes of an LM train step on a (data, model) mesh of
+    ``shape`` sharing one card: ``(the ranks together, rank 0's one-rank
+    step beside the gathered parameters)``. A rank: its parameter blocks
+    with their gradients and float32 AdamW state (16 B an element), each
+    layer's saved input (remat), one layer's attention over its heads
+    (float32 scores and softmax), its MLP share, its vocab share of the
+    float32 logits with their gradient, and the whole parameters while they
+    are made and cut (4 B an element)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.mesh import ModelMesh
+    from repro_torch.launch.steps import build_step
+
+    arch = dataclasses.replace(get_config("yi-6b" if cfg.moe is None else
+                                          "granite-moe-1b-a400m"), model=cfg)
+    mesh = ModelMesh(("data", "model"), {"data": shape[0], "model": shape[1]}, 0,
+                     {"data": 0, "model": 0}, torch.device("cpu"), {})
+    built = build_step(arch, ShapeSpec("train_4k", "train", seq_len=seq, global_batch=rows), mesh)
+    split, total = _mesh_local_bytes(built, mesh)
+    d, m = shape
+    t = rows * seq // d
+    ff = cfg.d_ff if cfg.moe is None else int(cfg.moe.top_k * cfg.moe.capacity_factor
+                                             * cfg.moe.d_ff_expert)
+    act = (cfg.n_layers * t * cfg.d_model * 4 + rows // d * cfg.n_heads // m * seq * seq * 8
+           + 6 * t * ff // m * 4 + 4 * t * cfg.vocab_padded // m * 4)
+    ranks = split * 16 + d * m * act + d * m * total * 4
+    one = total * 16 + m * d * act + total * 4
+    return ranks, one
+
+
+def _flat_names(tree, prefix=""):
+    """The ``/``-joined paths of a nested dict's leaves."""
+    if isinstance(tree, dict):
+        return [n for k in tree for n in _flat_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def _tree_same(torch, a, b) -> bool:
+    from repro_torch.models.param import tree_leaves
+
+    return all(bits_equal(torch, x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _mesh_lm_setup(torch, run, depth):
+    """``(arch, cfg, shape spec, loss, params (whole, seeded), batches,
+    tcfg)`` of an LM run of MESH_LM_RUNS, the same on every rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import LMStream
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import TrainConfig
+
+    _, arch_name, _, (rows, seq), layers, compress = run
+    arch = get_config(arch_name)
+    cfg = dataclasses.replace(arch.model, n_layers=layers or depth, act_dtype=torch.float32)
+    arch = dataclasses.replace(arch, model=cfg)
+    spec = ShapeSpec("train_4k", "train", seq_len=seq, global_batch=rows)
+    stream = LMStream(cfg.vocab, rows, seq, seed=SEED)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in stream.batch_at(i).items()}
+               for i in range(MESH_STEPS)]
+    tcfg = TrainConfig(adamw=opt.AdamWConfig(lr=LM_LR, state_bits=arch.opt_state_bits),
+                       compress_grads=compress)
+    params = lm_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    return arch, cfg, spec, tfm.lm_loss, params, batches, tcfg
+
+
+def _mesh_other_setup(torch, name):
+    """SASRec's train_batch and gin-tu's MESH_GNN_CELL, as ``_mesh_lm_setup``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SASRecStream
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.models import sasrec as sas_lib
+    from repro_torch.models.param import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import TrainConfig
+
+    tcfg = TrainConfig(adamw=opt.AdamWConfig(lr=LR))
+    if name == "sasrec":
+        arch = get_config("sasrec")
+        cfg, spec = arch.model, arch.shapes["train_batch"]
+        stream = SASRecStream(cfg.n_items, spec.global_batch, cfg.seq_len, seed=SEED)
+        batches = [{k: torch.as_tensor(v, device="cuda") for k, v in stream.batch_at(i).items()}
+                   for i in range(MESH_STEPS)]
+        params = sasrec_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        return arch, cfg, spec, sas_lib.sasrec_loss, params, batches, tcfg
+    import numpy as np
+
+    arch, spec, cfg, host = gnn_cell_batch(np, "gin-tu", MESH_GNN_CELL)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED),
+                         gnn_lib.param_specs(cfg))
+    return arch, cfg, spec, gnn_lib.gnn_loss, params, [batch] * MESH_STEPS, tcfg
+
+
+class _CollectiveClock:
+    """Host seconds inside ``torch.distributed``'s all_reduce and
+    all_gather (gloo waits for the data), while installed."""
+
+    def __init__(self, dist):
+        self.dist, self.seconds, self.calls = dist, 0.0, 0
+        self.saved = {k: getattr(dist, k) for k in ("all_reduce", "all_gather")}
+        for k, fn in self.saved.items():
+            setattr(dist, k, self._timed(fn))
+
+    def _timed(self, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+        return call
+
+    def remove(self):
+        for k, fn in self.saved.items():
+            setattr(self.dist, k, fn)
+
+
+def _mesh_train_run(torch, mesh, setup, name: str, runs: int = 1) -> dict:
+    """A training run on ``mesh``: ``runs`` times from the same seeded
+    parameters, each rank on its blocks; every rank's launches, step ms,
+    peak bytes and collective seconds, and (rank 0) the gathered
+    parameters against the one-rank step on the card and the runs against
+    each other, bitwise."""
+    import functools as ft
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.sharding.params import gather_tree, shard_tree
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import make_train_step
+
+    arch, cfg, spec, loss, params, batches, tcfg = setup
+    built = build_step(dataclasses.replace(arch, opt_state_bits=tcfg.adamw.state_bits), spec, mesh)
+    p_specs, o_specs, b_specs = built.in_specs
+    step = make_train_step(ft.partial(loss, cfg, place=built.place), tcfg, mesh=built.place)
+    local_batches = [shard_tree(b, b_specs, mesh) for b in batches]
+    info = {"run": name, "rank": mesh.rank, "mesh": dict(mesh.shape),
+            "batch_axes": list(built.place.batch_axes), "runs": []}
+    finals = []
+    for k in range(runs):
+        lp = shard_tree(params, p_specs, mesh)
+        state = opt.init_opt_state(lp, tcfg.adamw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in build.LAUNCHES:
+            build.LAUNCHES[c] = 0
+        clock = _CollectiveClock(dist)
+        metrics, ms = [], []
+        try:
+            for b in local_batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lp, state, m = step(lp, state, b)
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            clock.remove()
+        info["runs"].append({
+            "losses": [x[0] for x in metrics], "grad_norms": [x[1] for x in metrics],
+            "step_ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "collective_s": clock.seconds, "collectives": clock.calls,
+            "launches": {c: build.LAUNCHES[c] for c in MESH_COUNTERS if build.LAUNCHES[c]}})
+        del state
+        finals.append(gather_tree(lp, p_specs, mesh) if mesh.rank == 0 else None)
+        if mesh.rank != 0:
+            gather_tree(lp, p_specs, mesh)
+        del lp
+        torch.cuda.empty_cache()
+    local_batches = setup = None
+    if mesh.rank != 0:
+        del params, batches
+    torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        if runs > 1:
+            info["ranks_run_to_run_bitwise"] = _tree_same(torch, finals[0], finals[1])
+        del finals[1:]
+        one = make_train_step(ft.partial(loss, cfg), tcfg)
+        p1, params = params, None  # the step updates it in place
+        st = opt.init_opt_state(p1, tcfg.adamw)
+        m1, t0 = [], time.perf_counter()
+        for b in batches:
+            p1, st, m = one(p1, st, b)
+            m1.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        info["one_rank_s"] = time.perf_counter() - t0
+        del st
+        mine = info["runs"][0]
+        info["one_rank_losses"] = [x[0] for x in m1]
+        info["loss_rel"] = max(abs(a / x[0] - 1) for a, x in zip(mine["losses"], m1))
+        info["grad_norm_rel"] = max(abs(a / x[1] - 1) for a, x in zip(mine["grad_norms"], m1))
+        info["param_max_rel"] = _max_rel(torch, finals[0], p1)
+        names = sorted(_flat_names(p1))
+        worst = max((float((x - y).abs().max()) / tcfg.adamw.lr, k) for k, x, y in zip(
+            names, tree_leaves(finals[0]), tree_leaves(p1)))
+        info["param_max_abs_over_lr"], info["worst_leaf"] = worst
+        del p1, finals
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return info
+
+
+def _mesh_bgv_inputs(torch, np, name: str, model):
+    """A BigGraphVis cell's step inputs at its padded shape, the same on
+    every rank: detect on a graph of the cell's real counts made on the
+    card (``_lj_graph``), layout on ``dry_run_phase``'s seeded supergraph
+    stand-ins."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.biggraphvis import BGVDryConfig
+    from repro_torch.kernels.grid import ops as grid_ops
+
+    arch = get_config("biggraphvis")
+    shape = arch.shapes[name.split("+")[0]]
+    n, e = shape.n_nodes, shape.n_edges
+    if shape.kind == "bgv_detect":
+        real = {"detect_berkstan": (685_230, 6_649_470),
+                "detect_livejournal": (LJ_NODES, LJ_EDGES)}[name]
+        ed = _padded(torch, _lj_graph(torch, *real), e, n)
+        com0 = torch.arange(n + 1, dtype=torch.int32, device="cuda")
+        deg0 = torch.zeros(n + 1, dtype=torch.int32, device="cuda")
+        return arch, shape, (com0, deg0, ed)
+    model = BGVDryConfig(layout_repulsion=model, layout_grid_size=GRID, layout_grid_window=WINDOW)
+    arch = dataclasses.replace(arch, model=model)
+    real_n, real_e = LAYOUT_REAL[shape.name]
+    rng = np.random.default_rng(SEED)
+    pos = rng.uniform(-1000, 1000, (n, 2)).astype(np.float32)
+    mass = rng.integers(1, 200, n).astype(np.float32)
+    ed = np.full((e, 2), n, np.int32)
+    ed[:real_e] = rng.integers(0, real_n, (real_e, 2))
+    w = rng.integers(1, 20, e).astype(np.float32)
+    args = [torch.as_tensor(x, device="cuda")
+            for x in (pos, np.zeros_like(pos), mass, np.sqrt(mass), ed, w)]
+    if model.layout_repulsion == "grid":
+        args += list(grid_ops.bin_and_sort(args[0], GRID))
+    return arch, shape, tuple(args)
+
+
+def _mesh_bgv_run(torch, np, mesh, name: str, model) -> dict:
+    """A BigGraphVis cell on ``mesh``: the rank's blocks through the sharded
+    step, the outputs gathered, and (rank 0) held bitwise against the
+    one-rank step on the card; launches, step ms and collective seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build
+    from repro_torch.launch.steps import build_step
+    from repro_torch.sharding.params import gather_tree, shard_tree
+
+    arch, shape, args = _mesh_bgv_inputs(torch, np, name, model)
+    built = build_step(arch, shape, mesh)
+    local = [shard_tree(a, s, mesh) for a, s in zip(args, built.in_specs)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in build.LAUNCHES:
+        build.LAUNCHES[c] = 0
+    clock = _CollectiveClock(dist)
+    try:
+        t0 = time.perf_counter()
+        outs = built.fn(*local)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        clock.remove()
+    info = {"run": name, "rank": mesh.rank, "step_ms": ms, "collective_s": clock.seconds,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {c: build.LAUNCHES[c] for c in MESH_COUNTERS if build.LAUNCHES[c]}}
+    if shape.kind == "bgv_layout":
+        outs = [gather_tree(o, built.in_specs[0], mesh) for o in outs]
+    if mesh.rank == 0:
+        one = build_step(arch, shape).fn(*args)
+        info["bitwise"] = _same(torch, outs, one)
+    del local, outs, args
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return info
+
+
+def mesh_rank(_stream_mesh, out_dir: str, depth: int) -> None:
+    """One rank of the model mesh phase (spawned by ``model_mesh_phase``):
+    every run of MESH_LM_RUNS, SASRec on (1, 2), gin-tu's MESH_GNN_CELL on
+    (2, 1) twice,
+    and MESH_BGV_CELLS on (1, 2); writes ``out_dir/rank{r}.json``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_model_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_model_mesh(shape, ("data", "model"), backend="gloo")
+        return meshes[shape]
+
+    out = []
+    for run in MESH_LM_RUNS:
+        out.append(_mesh_train_run(torch, mesh_of(run[2]), _mesh_lm_setup(torch, run, depth),
+                                   run[0]))
+    out.append(_mesh_train_run(torch, mesh_of((1, 2)), _mesh_other_setup(torch, "sasrec"),
+                               "sasrec-vocab"))
+    out.append(_mesh_train_run(torch, mesh_of((2, 1)), _mesh_other_setup(torch, "gin"),
+                               f"gin-tu-{MESH_GNN_CELL}-edges", runs=2))
+    for name, model in MESH_BGV_CELLS:
+        out.append(_mesh_bgv_run(torch, np, mesh_of((1, 2)), name, model))
+    with open(os.path.join(out_dir, f"rank{_stream_mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def model_mesh_phase(torch, np, smi: str) -> dict:
+    """The training mesh and the BigGraphVis cells on MESH_RANKS ranks
+    sharing the card under gloo (``mesh_rank``):
+
+    * yi-6b ``train_4k`` at full width on (1, 2), tensor parallel, at the
+      depth MESH_BUDGET allows, one 4,096-token row; granite-moe at full
+      width and 2 layers on (1, 2), experts and tensors parallel, 2 × 4,096
+      tokens; yi-6b at 2 layers on (2, 1), data parallel with d_model's
+      ZeRO-3 split and ``compress_grads``, 2 rows; float32, MESH_STEPS
+      steps each;
+    * SASRec ``train_batch`` uncut on (1, 2) (the item table split);
+    * gin-tu's MESH_GNN_CELL (``full_graph_sm``: ``ogb_products`` took
+      26–37 s a step here) on (2, 1) (the edges split), twice from the same
+      parameters;
+    * the four ``bgv_*`` cells at their padded shapes and a grid variant
+      of ``layout_livejournal`` on (1, 2).
+    Gates: every run's gathered parameters (outputs for the BigGraphVis
+    cells) against the same cell's one-rank step on the card: the LMs and
+    SASRec within TRAIN_TOL[family], gin-tu within MESH_GNN_TOL and its two
+    runs bitwise, the BigGraphVis cells bitwise; each run's kernels
+    launched on every rank. Prints each rank's launches, step ms, peak
+    bytes and collective seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import spawn_local
+
+    yi = get_config("yi-6b").model
+    rows, seq = MESH_LM_RUNS[0][3]
+    shape = MESH_LM_RUNS[0][2]
+    fits = [n for n in range(1, yi.n_layers + 1)
+            if max(mesh_lm_estimate(torch, dataclasses.replace(yi, n_layers=n), rows, seq,
+                                    shape)) <= MESH_BUDGET]
+    depth = max(fits)
+    est = mesh_lm_estimate(torch, dataclasses.replace(yi, n_layers=depth), rows, seq, shape)
+    log(f"model mesh: yi-6b on {shape} at {depth} of {yi.n_layers} layers; estimate "
+        f"{est[0]} bytes on the two ranks, {est[1]} for the one-rank step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_local(mesh_rank, MESH_RANKS, backend="gloo", init_file=str(Path(tmp) / "store"),
+                    args=(tmp, depth), timeout=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(MESH_RANKS)]
+    out = {"card": smi, "wall_s": wall, "yi_layers": depth, "runs": {}}
+    failed = []  # every gate is read before any fails the phase
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    for lead, *rest in zip(*ranks):
+        name = lead["run"]
+        out["runs"][name] = [lead, *rest]
+        log(f"model mesh {name} " + json.dumps([lead, *rest]))
+        for r in [lead, *rest]:
+            launches = r["launches"] if "launches" in r else r["runs"][0]["launches"]
+            want = _mesh_kernels(name)
+            gate(all(launches.get(k, 0) > 0 for k in want),
+                 f"{name}: rank {r['rank']} launched {launches}, expected {want}")
+        if name.startswith(("detect", "layout")):
+            gate(lead["bitwise"], f"{name}: 2 ranks differ from one")
+            continue
+        family = "lm" if name.startswith(("yi", "granite")) else (
+            "sasrec" if name.startswith("sasrec") else "gnn")
+        tol_loss, tol_gnorm, tol_p = MESH_GNN_TOL if family == "gnn" else TRAIN_TOL[family]
+        gate(lead["loss_rel"] <= tol_loss and lead["grad_norm_rel"] <= tol_gnorm,
+             f"{name}: loss or grad norm {lead['loss_rel']}, {lead['grad_norm_rel']} off "
+             "the one-rank step")
+        gate(lead["param_max_rel"] <= tol_p,
+             f"{name}: parameters {lead['param_max_rel']} of max|p| off the one-rank step")
+        if family == "gnn":
+            gate(lead["ranks_run_to_run_bitwise"], f"{name}: two runs differ")
+    check(not failed, "model mesh: " + "; ".join(failed))
+    log(f"model mesh: {wall:.3f} s for the spawned ranks ({smi})")
+    return out
+
+
+def _mesh_kernels(name: str) -> tuple:
+    """The counters a run of the phase must move on every rank."""
+    if name.startswith("gin"):
+        return ("segment_offsets", "segment_sum_edges", "segment_sum_gather_bwd")
+    if name.startswith("detect"):
+        return ("cms_update_keys",)
+    if name.endswith("+grid"):
+        return ("far_field", "near_field_rows", "segment_sum", "segment_offsets",
+                "segment_sum_edges")
+    if name.startswith("layout"):
+        return ("repulsion_rows", "segment_offsets", "segment_sum_edges")
+    return ()
+
+
 def run() -> int:
     import torch
 
@@ -4245,6 +4721,8 @@ def run() -> int:
         models_phase(torch, np, cap, smi)
     with phase("training"):
         rows += training_phase(torch, np, cap, smi)
+    with phase("model mesh"):
+        model_mesh_phase(torch, np, smi)
     check(sorted(r["name"] for r in rows) == sorted(KERNELS),
           f"kernel rows {sorted(r['name'] for r in rows)}, expected {sorted(KERNELS)}")
     log(json.dumps({"kernels": rows}))

@@ -1,4 +1,5 @@
-"""The streaming engine's multi-device mesh on ``torch.distributed``.
+"""The multi-device meshes on ``torch.distributed``: the streaming
+engine's one-axis ``StreamMesh`` and the model paths' named ``ModelMesh``.
 
 The reference builds a one-axis ``"data"`` mesh over the local devices and
 runs its sharded passes as ``shard_map`` bodies under one controller. The
@@ -20,6 +21,16 @@ several ranks share one card (torch 2.11's gloo takes CUDA tensors in
 ``all_gather`` and in ``all_reduce`` with SUM, MAX and MIN:
 ``tools/collective_probe.py``). On the CPU (``device="cpu"``) the backend
 is gloo.
+
+``ModelMesh`` is a rank's view of a named mesh (``("data", "model")``,
+``("pod", "data", "model")``): the axes and their extents, its coordinates
+(ranks laid out row-major over the axes, the first axis major, in the
+order of the reference's ``make_mesh`` devices) and one process group for
+every set of axes, holding the ranks that differ only along those axes
+(``groups[axes]``; ``collectives`` reduces and gathers over them).
+``make_model_mesh`` builds it over the process group, ``make_host_mesh`` is
+the (1, 1) mesh of one process, ``make_production_mesh`` the (16, 16) or
+(2, 16, 16) one.
 
 ``spawn_local`` runs a function on ``world`` ranks of this host with
 ``torch.multiprocessing`` and a ``file://`` store (no TCP port), under a
@@ -182,3 +193,140 @@ def spawn_local(fn, world: int, *, backend: str | None = None, device=None,
             if p.is_alive():
                 p.kill()
                 p.join()
+
+
+# ------------------------------------------------------------- named meshes
+
+
+@dataclass(frozen=True)
+class ModelMesh:
+    """One rank's view of a named mesh.
+
+    ``shape`` maps each axis name to its extent (in axis order), ``coords``
+    each to this rank's index along it; ``rank`` is the linear index,
+    row-major over ``axis_names``. ``groups`` maps a tuple of axis names (in
+    axis order, each of extent > 1) to the process group of the ranks that
+    share this rank's coordinates on every other axis; a set whose extent
+    is 1 has no group. ``size``, ``group`` (every rank) and ``backend`` let
+    a ``ModelMesh`` stand where a ``StreamMesh`` is taken."""
+
+    axis_names: tuple
+    shape: dict
+    rank: int
+    coords: dict
+    device: torch.device
+    groups: dict
+    backend: str = ""
+
+    @property
+    def size(self) -> int:
+        return _prod(self.shape.values())
+
+    @property
+    def group(self):
+        return self.groups.get(self.live_axes(self.axis_names))
+
+    def live_axes(self, axes) -> tuple:
+        """``axes`` (a name or names) in mesh order, keeping those on this
+        mesh of extent > 1."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        return tuple(a for a in self.axis_names if a in axes and self.shape[a] > 1)
+
+    def extent(self, axes) -> int:
+        return _prod(self.shape[a] for a in self.live_axes(axes))
+
+    def index(self, axes) -> int:
+        """This rank's block index along ``axes``, row-major in the order
+        given (the order of a spec entry)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        i = 0
+        for a in axes:
+            if a in self.shape:
+                i = i * self.shape[a] + self.coords[a]
+        return i
+
+
+def _prod(xs) -> int:
+    out = 1
+    for x in xs:
+        out *= x
+    return out
+
+
+def _axis_sets(names: tuple, sizes: tuple) -> list[tuple]:
+    """Every non-empty set of the axes of extent > 1, in a fixed order."""
+    live = [a for a, s in zip(names, sizes) if s > 1]
+    out = []
+    for bits in range(1, 1 << len(live)):
+        out.append(tuple(a for i, a in enumerate(live) if bits >> i & 1))
+    return out
+
+
+def mesh_coords(rank: int, names: tuple, sizes: tuple) -> dict:
+    """The coordinates of linear rank ``rank``, row-major over the axes."""
+    coords = {}
+    for a, s in zip(reversed(names), reversed(sizes)):
+        coords[a] = rank % s
+        rank //= s
+    return {a: coords[a] for a in names}
+
+
+def _groups(rank: int, names: tuple, sizes: tuple, world: int) -> dict:
+    """Every rank creates every group, in the same order (``new_group`` is
+    collective); each keeps the groups it belongs to."""
+    mine = mesh_coords(rank, names, sizes)
+    out = {}
+    for axes in _axis_sets(names, sizes):
+        others = [a for a in names if a not in axes]
+        buckets: dict = {}
+        for r in range(world):
+            c = mesh_coords(r, names, sizes)
+            buckets.setdefault(tuple(c[a] for a in others), []).append(r)
+        for key in sorted(buckets):
+            g = dist.new_group(buckets[key])
+            if key == tuple(mine[a] for a in others):
+                out[axes] = g
+    return out
+
+
+def make_model_mesh(shape, axes, *, backend: str | None = None, device=None) -> ModelMesh:
+    """This rank's ``ModelMesh`` of extents ``shape`` over axes ``axes``.
+
+    Uses an initialised process group, or initialises one from the
+    ``torch.distributed.run`` environment, as ``make_stream_mesh`` does
+    (``backend``/``device`` are its); a process with neither is a world of
+    one. Raises unless the product of ``shape`` is the world size."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"make_model_mesh: shape {shape} and axes {axes} do not pair up")
+    want = _prod(shape)
+    if not dist.is_initialized() and want == 1 and _env_int("WORLD_SIZE", 1) == 1:
+        return ModelMesh(axes, dict(zip(axes, shape)), 0, {a: 0 for a in axes},
+                         _mesh_device(device, 0), {})
+    stream = make_stream_mesh(backend=backend, device=device)
+    if stream.size != want:
+        raise ValueError(f"make_model_mesh: a {'x'.join(map(str, shape))} mesh needs {want} "
+                         f"ranks, the process group has {stream.size}")
+    groups = _groups(stream.rank, axes, shape, stream.size) if stream.size > 1 else {}
+    return ModelMesh(axes, dict(zip(axes, shape)), stream.rank,
+                     mesh_coords(stream.rank, axes, shape), stream.device, groups,
+                     stream.backend)
+
+
+def make_host_mesh(device=None) -> ModelMesh:
+    """The (1, 1) ``("data", "model")`` mesh of one process: the sharded
+    step functions on one device."""
+    return make_model_mesh((1, 1), ("data", "model"), device=device)
+
+
+def make_production_mesh(multi_pod: bool = False, *, backend: str | None = None,
+                         device=None) -> ModelMesh:
+    """(16, 16) ``("data", "model")``, or (2, 16, 16) ``("pod", "data",
+    "model")`` with ``multi_pod``: 256 or 512 ranks, one a card."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = dist.get_world_size() if dist.is_initialized() else _env_int("WORLD_SIZE", 1)
+    if world != _prod(shape):
+        raise ValueError(f"make_production_mesh: the {'x'.join(map(str, shape))} mesh needs "
+                         f"{_prod(shape)} ranks, this world has {world}")
+    return make_model_mesh(shape, axes, backend=backend, device=device)

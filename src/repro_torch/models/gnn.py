@@ -22,6 +22,18 @@ those: a GIN or GAT forward builds 2, an MPNN's 4 (src and dst over the n
 nodes, and over ``h_ext``'s n + 1 rows), and no launch sorts or copies
 its data. A graph-level pool sums through a layout of its own.
 
+On a ``ModelMesh`` (``forward``/``gnn_loss`` with a ``Placement``, profile
+"gnn") the parameters are replicated and the edges split contiguously
+over every axis (the reference's ``build_gnn_step`` edge placement):
+each rank builds the layouts of its own edges, sums its messages through
+K7 into full-size [N, D] partials, and one all-reduce over all ranks adds
+them (``reduce_from``); every gather of a node tensor onto its edges
+enters through ``copy_to``, and the edge MLPs' parameters (MeshGraphNet,
+GraphCast) too, so each rank ends with the whole gradient. The node-level
+MLPs, the loss and the pooled readout run on every rank. Node inputs held
+as blocks are gathered first. The result is within rounding of the
+one-rank forward (the partials add in another order), not its bits.
+
 ``cfg.remat`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``), as the reference's
 ``checkpoint(..., nothing_saveable)`` does: at ogbn-products' 61.9 M
@@ -105,14 +117,46 @@ def _segsum(data, lay, n: int):
     return segment_ops.segment_sum_edges(data, lay, n)
 
 
-def _gin_layer(h, lp, src, dst, n):
-    agg = _segsum(_gather(h, src), dst, n) + _segsum(_gather(h, dst), src, n)  # symmetrized
+def _gather_m(x, lay, mesh):
+    """``_gather`` onto the rank's edges: ``x`` (whole on every rank) enters
+    through ``copy_to``, so its gradient is summed over the ranks."""
+    if mesh is not None:
+        from repro_torch.sharding.collectives import copy_to
+
+        x = copy_to(x, mesh, mesh.axis_names)
+    return _gather(x, lay)
+
+
+def _segsum_m(data, lay, n: int, mesh):
+    """``_segsum`` of the rank's edges, the ranks' partials added
+    (``reduce_from``)."""
+    out = _segsum(data, lay, n)
+    if mesh is not None:
+        from repro_torch.sharding.collectives import reduce_from
+
+        out = reduce_from(out, mesh, mesh.axis_names)
+    return out
+
+
+def _edge_params(lp: dict, names, mesh) -> dict:
+    """Parameters used on the rank's edges: their gradients are summed over
+    the ranks."""
+    if mesh is None:
+        return lp
+    from repro_torch.sharding.collectives import copy_to
+
+    return {k: copy_to(v, mesh, mesh.axis_names) if k in names else v for k, v in lp.items()}
+
+
+def _gin_layer(h, lp, src, dst, n, mesh=None):
+    agg = (_segsum_m(_gather_m(h, src, mesh), dst, n, mesh)
+           + _segsum_m(_gather_m(h, dst, mesh), src, n, mesh))  # symmetrized
     z = (1.0 + lp["eps"]) * h + agg
     z = F.relu(z @ lp["w1"] + lp["b1"])
     return z @ lp["w2"] + lp["b2"]
 
 
-def _gat_layer(h, lp, s2, d2, n):
+def _gat_layer(h, lp, s2, d2, n, mesh=None):
     """``s2``/``d2``: the layouts of both directions of every undirected
     edge (sources, destinations)."""
     d = h.shape[-1]
@@ -120,7 +164,7 @@ def _gat_layer(h, lp, s2, d2, n):
     q = (h @ lp["w"].reshape(d, nh * dh)).reshape(n, nh, dh)
     es = torch.einsum("nhd,hd->nh", q, lp["a_src"])
     ed = torch.einsum("nhd,hd->nh", q, lp["a_dst"])
-    logit = F.leaky_relu(_gather(es, s2) + _gather(ed, d2), 0.2)  # [2E, H]
+    logit = F.leaky_relu(_gather_m(es, s2, mesh) + _gather_m(ed, d2, mesh), 0.2)  # [2E, H]
     # Numerically stable edge softmax over incoming edges per dst; the max
     # is order-free, and ids ≥ n land in a dropped row. The softmax does not
     # depend on the shift, so its gradient through the max is 0: the max is
@@ -131,27 +175,63 @@ def _gat_layer(h, lp, s2, d2, n):
     mx.scatter_reduce_(0, torch.where(keep, ids, n).long()[:, None].expand(-1, nh),
                        logit.detach(), "amax", include_self=True)
     mx = mx[:n]
-    ex = torch.exp(logit - _gather(mx, d2))
-    denom = _segsum(ex, d2, n) + 1e-9
-    alpha = ex / _gather(denom, d2)
-    msg = alpha[:, :, None] * _gather(q, s2)
-    out = _segsum(msg.reshape(-1, nh * dh), d2, n)
+    if mesh is not None:  # the max over every rank's incoming edges
+        from repro_torch.sharding.collectives import all_reduce_axes
+
+        mx = all_reduce_axes(mx.contiguous(), mesh, mesh.axis_names, "max")
+    ex = torch.exp(logit - _gather_m(mx, d2, mesh))
+    denom = _segsum_m(ex, d2, n, mesh) + 1e-9
+    alpha = ex / _gather_m(denom, d2, mesh)
+    msg = alpha[:, :, None] * _gather_m(q, s2, mesh)
+    out = _segsum_m(msg.reshape(-1, nh * dh), d2, n, mesh)
     return F.elu(out)
 
 
-def _mpnn_layer(h, e_feat, lp, src, dst, n):
-    z = torch.cat([e_feat, _gather(h, src), _gather(h, dst)], dim=-1)
+_EDGE_MLP = ("we1", "be1", "we2", "be2")
+
+
+def _mpnn_layer(h, e_feat, lp, src, dst, n, mesh=None):
+    lp = _edge_params(lp, _EDGE_MLP, mesh)
+    z = torch.cat([e_feat, _gather_m(h, src, mesh), _gather_m(h, dst, mesh)], dim=-1)
     e_new = F.relu(z @ lp["we1"] + lp["be1"]) @ lp["we2"] + lp["be2"]
     e_feat = e_feat + e_new
-    agg = _segsum(e_feat, dst, n) + _segsum(e_feat, src, n)
+    agg = _segsum_m(e_feat, dst, n, mesh) + _segsum_m(e_feat, src, n, mesh)
     z = torch.cat([h, agg], dim=-1)
     h_new = F.relu(z @ lp["wv1"] + lp["bv1"]) @ lp["wv2"] + lp["bv2"]
     return h + h_new, e_feat
 
 
-def forward(cfg: GNNConfig, params, batch):
+def local_edges(edges, spec, mesh):
+    """This rank's edges: its block where the edges are split over every
+    axis, else its contiguous share of the whole list."""
+    from repro_torch.sharding.rules import spec_axes
+
+    if set(spec_axes(spec or ())) >= set(mesh.live_axes(mesh.axis_names)):
+        return edges
+    return edges.tensor_split(mesh.size)[mesh.rank]
+
+
+def whole_nodes(batch: dict, place) -> dict:
+    """The batch with every input but the edges made whole (gathered from
+    the ranks' blocks) and the edges this rank's."""
+    from repro_torch.sharding.params import gather_tree
+
+    specs = place.batch_specs
+    out = {}
+    for k, v in batch.items():
+        if k == "edges":
+            out[k] = local_edges(v, specs.get(k), place.mesh)
+        else:
+            out[k] = gather_tree(v, specs.get(k) or (), place.mesh)
+    return out
+
+
+def forward(cfg: GNNConfig, params, batch, place=None):
     """batch: feats [N, d_feat], edges [E, 2] (trash id = N), plus
-    graph_ids [N] for graph_class. Returns [N, n_out] (or [B, n_out])."""
+    graph_ids [N] for graph_class. Returns [N, n_out] (or [B, n_out]).
+    With ``place`` the node inputs are whole and the edges this rank's
+    (``whole_nodes``); every rank returns the whole output."""
+    mesh = place.mesh if place is not None and place.mesh.size > 1 else None
     feats, edges = batch["feats"], batch["edges"]
     n = feats.shape[0]
     src, dst = edges[:, 0], edges[:, 1]
@@ -172,18 +252,19 @@ def forward(cfg: GNNConfig, params, batch):
     if cfg.arch in ("meshgraphnet", "graphcast"):
         h_ext = torch.cat([h, torch.zeros((1, h.shape[1]), dtype=h.dtype, device=h.device)])
         # Ids above n read h_ext's zero row (gather_rows clamps them to it).
-        e_feat = torch.cat([_gather(h_ext, segment_ops.segment_layout(lay.ids, n + 1))
+        e_feat = torch.cat([_gather_m(h_ext, segment_ops.segment_layout(lay.ids, n + 1), mesh)
                             for lay in (src, dst)], dim=-1)
-        e_feat = F.relu(e_feat @ params["edge_in_w"] + params["edge_in_b"])
+        ep = _edge_params(params, ("edge_in_w", "edge_in_b"), mesh)
+        e_feat = F.relu(e_feat @ ep["edge_in_w"] + ep["edge_in_b"])
         for i in range(n_layers):
             lp = {k: v[i] for k, v in layers.items()}
-            h, e_feat = layer_step(lambda h, e, lp=lp: _mpnn_layer(h, e, lp, src, dst, n),
-                                   h, e_feat)
+            h, e_feat = layer_step(
+                lambda h, e, lp=lp: _mpnn_layer(h, e, lp, src, dst, n, mesh), h, e_feat)
     else:
         layer = _gin_layer if cfg.arch == "gin" else _gat_layer
         for i in range(n_layers):
             lp = {k: v[i] for k, v in layers.items()}
-            h = layer_step(lambda h, lp=lp: h + layer(h, lp, src, dst, n), h)
+            h = layer_step(lambda h, lp=lp: h + layer(h, lp, src, dst, n, mesh), h)
 
     if cfg.task == "graph_class":
         pooled = segment_ops.segment_sum_edges(h, batch["graph_ids"], batch["labels"].shape[0])
@@ -191,10 +272,13 @@ def forward(cfg: GNNConfig, params, batch):
     return h @ params["out_w"] + params["out_b"]
 
 
-def gnn_loss(cfg: GNNConfig, params, batch):
+def gnn_loss(cfg: GNNConfig, params, batch, place=None):
     """Masked cross-entropy (``node_class``, ``graph_class``) or masked
-    squared error (``node_reg``)."""
-    out = forward(cfg, params, batch).to(torch.float32)
+    squared error (``node_reg``). With ``place`` every rank computes the
+    whole loss from its blocks of the batch (``whole_nodes``)."""
+    if place is not None:
+        batch = whole_nodes(batch, place)
+    out = forward(cfg, params, batch, place).to(torch.float32)
     labels, mask = batch["labels"], batch["mask"]
     if cfg.task == "node_reg":
         err = torch.square(out - labels) * mask[:, None]

@@ -7,8 +7,11 @@ reference's arithmetic step for step (its ``models/layers.py``):
 activations in ``act_dtype`` with float32 softmax and norm statistics, the
 same masks. Attention stays plain torch ops; the reference has no
 accelerator kernel there, and a fused attention call would pick its own
-numerics. The expert-parallel ``moe_mlp_shmap`` is a multi-device form and
-is not here.
+numerics.
+
+On a ``ModelMesh`` (``sharding.params.Placement``): ``vocab_lookup`` reads
+a vocab-parallel table, and ``moe_mlp_shmap`` is the reference's
+expert-parallel MoE, one rank's part of it.
 """
 from __future__ import annotations
 
@@ -185,4 +188,111 @@ def moe_mlp(x, router_w, w_gate, w_in, w_out, *, top_k: int, capacity: int,
         hs = F.silu(torch.einsum("td,df->tf", xf, sw_gate.to(x.dtype)))
         hs = hs * torch.einsum("td,df->tf", xf, sw_in.to(x.dtype))
         out = out + torch.einsum("tf,fd->td", hs, sw_out.to(x.dtype))
+    return out.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------- multi-device forms
+
+def vocab_lookup(table, ids, mesh, axis):
+    """``table[ids]`` of a table whose rows (vocab) are split over ``axis``
+    (None: whole): each rank reads the ids in its row range, zero for the
+    rest, and the partial rows are summed over ``axis`` (Megatron's
+    vocab-parallel embedding)."""
+    from repro_torch.sharding.collectives import reduce_from
+
+    if mesh is None or axis is None or mesh.extent(axis) == 1:
+        return table[ids]
+    v_loc = table.shape[0]
+    local = ids.long() - mesh.index(axis) * v_loc
+    inside = (local >= 0) & (local < v_loc)
+    rows = table[local.clamp(0, v_loc - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device))
+    return reduce_from(rows, mesh, axis)
+
+
+def moe_mlp_shmap(x, router_w, w_gate, w_in, w_out, *, top_k: int, capacity_local: int,
+                  mesh, expert_axis, token_axes) -> tuple:
+    """Expert-parallel MoE: one rank's part (the reference's shard_map body).
+
+    ``x`` [B_loc, S, D] is this rank's token shard (split over
+    ``token_axes``, the same on every rank of ``expert_axis``); ``router_w``
+    [D, E] whole; ``w_*`` this rank's block of E/M experts ([E_loc, D, F],
+    [E_loc, F, D]) along ``expert_axis`` (None: every expert here). Every
+    rank routes its own tokens (top-k of the whole router), ranks the
+    (token, choice) pairs its experts own by a stable cumulative count,
+    keeps ``capacity_local`` a local expert, and dispatches by the inverted
+    slot map (every buffer is [E_loc·C, D]). Each token's kept outputs are
+    added to it in choice order, from zero (deterministic on the card; the
+    reference's scatter-add leaves that order to its compiler), and one
+    all-reduce of [T_loc, D] over ``expert_axis`` sums the experts' blocks.
+    The load-balance aux takes the mean of ``load`` and ``imp`` over the
+    token shards (on the expert axis they are the same). Returns
+    ``(y [B_loc, S, D], aux)``.
+
+    Gradients: x and the gates enter the expert-split part through
+    ``copy_to`` and leave it through ``reduce_from`` (Megatron's f and g),
+    so every rank of ``expert_axis`` holds the whole gradient of x and of
+    the router; ``load``'s sum over the token shards passes its gradient
+    back summed (``sum_shards``), for a loss that each token shard adds its
+    share to."""
+    from repro_torch.sharding.collectives import (
+        all_reduce_axes,
+        copy_to,
+        reduce_from,
+        sum_shards,
+    )
+
+    e_loc = w_gate.shape[0]
+    e = router_w.shape[-1]
+    m = mesh.index(expert_axis) if expert_axis is not None else 0
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    logits = torch.einsum("td,de->te", xf, router_w.to(x.dtype)).to(torch.float32)
+    gates, choices = torch.topk(logits, top_k, dim=-1)
+    gates = torch.softmax(gates, dim=-1)
+
+    tok_idx = torch.arange(t, device=x.device).repeat_interleave(top_k)
+    exp_idx = choices.reshape(-1)
+    gate = gates.reshape(-1).to(x.dtype)
+
+    owned = (exp_idx >= m * e_loc) & (exp_idx < (m + 1) * e_loc)
+    local_e = torch.where(owned, exp_idx - m * e_loc, e_loc)
+    rank = _cumcount(torch.where(owned, local_e, e_loc + 1))
+    keep = owned & (rank < capacity_local)
+    n_slots = e_loc * capacity_local
+    slot = torch.where(keep, local_e * capacity_local + rank, n_slots)
+
+    # The inverted map: the token of every slot (t for an empty slot, whose
+    # row of the extended input is zero). Only the trash slot takes
+    # several writes, and it is dropped.
+    token_for_slot = torch.full((n_slots + 1,), t, dtype=torch.long, device=x.device)
+    token_for_slot[slot] = tok_idx
+    xe = copy_to(xf, mesh, expert_axis)
+    xf_ext = torch.cat([xe, torch.zeros((1, d), dtype=x.dtype, device=x.device)])
+    xs = xf_ext[token_for_slot[:-1]].reshape(e_loc, capacity_local, d)
+
+    h = F.silu(torch.einsum("ecd,edf->ecf", xs, w_gate.to(x.dtype)))
+    h = h * torch.einsum("ecd,edf->ecf", xs, w_in.to(x.dtype))
+    ys = torch.einsum("ecf,efd->ecd", h, w_out.to(x.dtype)).reshape(n_slots, d)
+
+    ge = copy_to(gate, mesh, expert_axis)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    contrib = torch.where(keep[:, None], ys[torch.clamp(slot, max=max(n_slots - 1, 0))], zero)
+    contrib = (contrib * ge[:, None]).reshape(t, top_k, d)
+    out = torch.zeros((t, d), dtype=x.dtype, device=x.device)
+    for j in range(top_k):
+        out = out + contrib[:, j]
+    out = reduce_from(out, mesh, expert_axis)
+
+    shards = mesh.extent(token_axes) if token_axes else 1
+    probs = torch.softmax(logits, dim=-1)
+    load = sum_shards(torch.mean(probs, dim=0), mesh, token_axes) / shards
+    counts = torch.zeros(e, dtype=torch.int32, device=x.device).index_add_(
+        0, exp_idx, torch.ones_like(exp_idx, dtype=torch.int32))
+    imp = counts.to(torch.float32) / (t * top_k)
+    if token_axes:
+        imp = all_reduce_axes(imp, mesh, token_axes, "sum") / shards
+    aux = e * torch.sum(load * imp)
     return out.reshape(b, s, d), aux

@@ -7,6 +7,12 @@ shape cell:
   retrieval_cand  → ``make_retrieval_step`` (1 user × C candidate dot scores)
   train_batch     → ``sasrec_loss`` (``train.make_train_step`` takes its
                     gradient)
+
+On a ``ModelMesh`` (``encode``/``sasrec_loss`` with a ``Placement``, profile
+"recsys") the item table's vocab dim is split over "model" and every
+lookup of it is vocab-parallel (``layers.vocab_lookup``); everything else
+is replicated, and the batch rows are split over the data axes, each rank's
+loss its rows' share of the global mean.
 """
 from __future__ import annotations
 
@@ -55,10 +61,19 @@ def param_specs(cfg: SASRecConfig) -> dict:
     }
 
 
-def encode(cfg: SASRecConfig, params, seq):
+def _items(cfg, params, ids, place):
+    """Rows of the item table for ``ids`` (vocab-parallel with ``place``)."""
+    table = params["item_embed"].to(cfg.act_dtype)
+    if place is None:
+        return table[ids]
+    split = place.tp(place.specs["item_embed"], 0)
+    return L.vocab_lookup(table, ids, place.mesh, place.tp_axis if split else None)
+
+
+def encode(cfg: SASRecConfig, params, seq, place=None):
     """seq [B, S] item ids (0 = pad) → user states [B, S, D]."""
     b, s = seq.shape
-    x = params["item_embed"].to(cfg.act_dtype)[seq] * (cfg.embed_dim ** 0.5)
+    x = _items(cfg, params, seq, place) * (cfg.embed_dim ** 0.5)
     x = x + params["pos_embed"].to(cfg.act_dtype)[None, :s]
     x = torch.where((seq > 0)[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
     positions = torch.arange(s, dtype=torch.int32, device=seq.device)[None].expand(b, s)
@@ -78,16 +93,20 @@ def encode(cfg: SASRecConfig, params, seq):
     return L.rms_norm(x, params["final_norm"])
 
 
-def sasrec_loss(cfg: SASRecConfig, params, batch):
+def sasrec_loss(cfg: SASRecConfig, params, batch, place=None):
     """Paper objective: BCE on (h_t · e_pos) vs (h_t · e_neg) per position."""
     seq, pos, neg = batch["seq"], batch["pos"], batch["neg"]  # [B, S] each
-    h = encode(cfg, params, seq)
-    te = params["item_embed"].to(h.dtype)
-    sp = torch.sum(h * te[pos], -1).to(torch.float32)
-    sn = torch.sum(h * te[neg], -1).to(torch.float32)
+    h = encode(cfg, params, seq, place)
+    sp = torch.sum(h * _items(cfg, params, pos, place).to(h.dtype), -1).to(torch.float32)
+    sn = torch.sum(h * _items(cfg, params, neg, place).to(h.dtype), -1).to(torch.float32)
     mask = (pos > 0).to(torch.float32)
     loss = -(F.logsigmoid(sp) + F.logsigmoid(-sn)) * mask
-    return torch.sum(loss) / torch.clamp(torch.sum(mask), min=1.0)
+    count = torch.sum(mask)
+    if place is not None:  # the rank's rows' share of the global mean
+        from repro_torch.sharding.collectives import all_reduce_axes
+
+        count = all_reduce_axes(count.detach().clone(), place.mesh, place.batch_axes)
+    return torch.sum(loss) / torch.clamp(count, min=1.0)
 
 
 def make_serve_step(cfg: SASRecConfig):

@@ -10,11 +10,13 @@ import torch
 from repro_torch.train.optimizer import _dq8, _q8
 
 
-def compress_decompress(g: torch.Tensor) -> torch.Tensor:
-    """Row-wise int8 round trip; non-float tensors pass through."""
+def compress_decompress(g: torch.Tensor, mesh=None, axes=()) -> torch.Tensor:
+    """Row-wise int8 round trip; non-float tensors pass through. With
+    ``mesh`` ``g`` is a block whose last dim is split over ``axes``: the
+    row maxima are taken over them."""
     if not g.is_floating_point():
         return g
-    q, s = _q8(g)
+    q, s = _q8(g, mesh, axes)
     return _dq8(q, s, g.shape).to(g.dtype)
 
 

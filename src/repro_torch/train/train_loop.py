@@ -7,6 +7,19 @@ Gradients come from ``torch.autograd.grad`` over the parameter leaves
 (sorted key order). The step sets ``requires_grad`` on the leaves for its
 own duration (a restored checkpoint's leaves have none) and updates them
 in place (``optimizer.apply_updates``).
+
+On a ``ModelMesh`` (``make_train_step(..., mesh=placement)``, the
+``sharding.params.Placement`` the loss was bound to) each rank's loss is its
+share of the global loss and its gradients are its blocks' parts. A leaf
+that is not split over the batch axes is summed over them (each rank's
+part comes from its rows: the mean of equal shards, taken exactly as a
+sum of the shares); a leaf split over them arrives summed through its
+gather's backward (ZeRO-3), and the tensor-parallel axis needs nothing
+(Megatron's f and g leave every rank of it the whole gradient of its
+block). ``compress_grads`` applies the int8 round trip to the *reduced*
+gradient, which is what the reference's numbers are: the wire payload of
+the all-reduce here is float32, not int8. The loss reported is the global
+one, the sum of the shares.
 """
 from __future__ import annotations
 
@@ -40,10 +53,35 @@ def _unflatten(like, leaves):
     return build(like)
 
 
-def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
+def _reduce_grads(grads, place) -> list:
+    """Every gradient summed over the batch axes that do not split its leaf
+    (those that do were summed by the gather's backward)."""
+    from repro_torch.sharding.collectives import all_reduce_axes
+    from repro_torch.sharding.rules import spec_axes
+
+    mesh = place.mesh
+    out = []
+    for g, spec in zip(grads, tree_leaves(place.specs), strict=True):
+        axes = tuple(a for a in mesh.live_axes(place.batch_axes) if a not in spec_axes(spec))
+        out.append(all_reduce_axes(g.contiguous(), mesh, axes) if axes else g)
+    return out
+
+
+def _compress(grads, place) -> list:
+    if place is None:
+        return [compress_decompress(g) for g in grads]
+    from repro_torch.sharding.rules import entry_axes
+
+    return [compress_decompress(g, place.mesh, place.mesh.live_axes(entry_axes(s[-1])) if s else ())
+            for g, s in zip(grads, tree_leaves(place.specs))]
+
+
+def make_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh=None):
     """``loss_fn(params, batch)`` → scalar. Returns ``train_step(params,
     state, batch)`` → ``(params, state, metrics)``, metrics ``loss`` and
-    ``grad_norm`` (0-d float32 tensors)."""
+    ``grad_norm`` (0-d float32 tensors). ``mesh``: None, or the
+    ``Placement`` the loss was bound to (the module docstring)."""
+    place = mesh
 
     def grads_of(params, leaves, batch):
         loss = loss_fn(params, batch)
@@ -80,10 +118,16 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
             for p in leaves:
                 p.requires_grad_(False)
 
+        if place is not None:
+            from repro_torch.sharding.collectives import all_reduce_axes
+
+            grads = _reduce_grads(grads, place)
+            loss = all_reduce_axes(loss.clone(), place.mesh, place.batch_axes)
         if tcfg.compress_grads:
-            grads = [compress_decompress(g) for g in grads]
+            grads = _compress(grads, place)
         params, state, metrics = opt.apply_updates(
-            params, _unflatten(params, grads), state, tcfg.adamw)
+            params, _unflatten(params, grads), state, tcfg.adamw,
+            *((place.mesh, place.specs) if place is not None else ()))
         metrics["loss"] = loss
         return params, state, metrics
 

@@ -71,7 +71,7 @@ def test_every_module_imports_without_jax_or_reference():
                  "repro_torch.train", "repro_torch.train.optimizer",
                  "repro_torch.train.compression", "repro_torch.train.train_loop",
                  "repro_torch.train.checkpoint", "repro_torch.train.fault_tolerance",
-                 "repro_torch.launch.train"):
+                 "repro_torch.launch.train", "repro_torch.sharding.params"):
         assert name in walked, name
 
 
@@ -83,6 +83,39 @@ def test_public_surface_covers_the_reference():
 
     assert set(repro.__all__) <= set(repro_torch.__all__)
     assert set(repro.resilience.__all__) <= set(repro_torch.resilience.__all__)
+
+
+def test_mesh_surface_covers_the_reference():
+    """``repro_torch.sharding`` and ``repro_torch.launch.mesh`` have at least
+    the reference's public names (its ``sharding`` package and
+    ``launch/mesh.py``), and the modules of the training mesh import
+    neither ``jax`` nor the reference (run with both blocked)."""
+    import importlib
+
+    import repro.launch.mesh
+    import repro.sharding
+    import repro_torch.launch.mesh
+    import repro_torch.sharding
+
+    want = {n for n in dir(repro.sharding) if not n.startswith("_")} - {"rules"}
+    assert want <= set(repro_torch.sharding.__all__), want - set(repro_torch.sharding.__all__)
+    want = {n for n in dir(repro.launch.mesh)
+            if not n.startswith("_") and n.startswith("make_")}
+    assert want <= set(dir(repro_torch.launch.mesh)), want
+    blocked = ("import sys\nsys.modules['jax'] = None\nsys.modules['repro'] = None\n"
+               "import importlib\n"
+               "for m in ('repro_torch.sharding', 'repro_torch.sharding.params', "
+               "'repro_torch.sharding.rules', 'repro_torch.sharding.collectives', "
+               "'repro_torch.launch.mesh', 'repro_torch.launch.steps', "
+               "'repro_torch.models.layers', 'repro_torch.train.train_loop'):\n"
+               "    importlib.import_module(m)\n"
+               "bad = [m for m, mod in sys.modules.items() if mod is not None"
+               " and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.')))]\n"
+               "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", blocked], capture_output=True, text=True,
+                         env=_env(), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert importlib.import_module("repro_torch.sharding").PROFILES == repro.sharding.PROFILES
 
 
 def test_registry_has_the_reference_keys():
