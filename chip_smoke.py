@@ -162,10 +162,14 @@ Phases, each printing its wall seconds:
                run.
 15. model mesh — ``build_step(..., mesh)`` on 2 ranks sharing the card
                under gloo (``model_mesh_phase``): yi-6b ``train_4k`` at
-               full width, tensor parallel on (1, 2), at the depth its
-               estimate allows under 60 GB; granite-moe, expert and tensor
-               parallel, 2 layers; yi-6b at 2 layers, data parallel with
-               ZeRO-3 of d_model and ``compress_grads`` on (2, 1); SASRec
+               full width, tensor and sequence parallel on (1, 2), at the
+               depth its estimate allows under 60 GB; granite-moe, expert
+               and tensor parallel, 2 layers; yi-6b at 2 layers, data
+               parallel with ZeRO-3 of d_model and ``compress_grads`` on
+               (2, 1); yi-6b at 2 layers with the sequence split and again
+               unsplit on (1, 2) (bitwise logged); yi-6b at 2 layers on
+               (2, 1) with 2 microbatches of 4 × 4,096 tokens and a ragged
+               loss mask (fault F3); SASRec
                ``train_batch`` uncut with its item table split; gin-tu
                ``full_graph_sm`` with its edges split, twice, bitwise; the
                four ``bgv_*`` cells at their padded shapes and a grid
@@ -174,6 +178,23 @@ Phases, each printing its wall seconds:
                ``TRAIN_TOL``, gin-tu within ``MESH_GNN_TOL``, the
                BigGraphVis cells bitwise; per rank: launches, step ms,
                peak bytes, collective seconds.
+16. serving mesh — the serving cells on 2 ranks sharing the card under
+               gloo (``serving_mesh_phase``), bfloat16 weights at the true
+               fan-in, each against its one-rank step run first on the
+               card: yi-6b ``decode_32k`` at full width and depth (8 rows ×
+               32,768 positions, 16 steps, slots on both halves of the
+               cache, one crossing the ranks' boundary, one inactive) and
+               gemma3-4b ``long_500k`` (12 layers, 1 row × 524,288
+               positions, 4 steps) on (1, 2), the KV cache split by
+               position (split-K attention); yi-6b ``prefill_32k`` (4
+               layers, 32,768 tokens) with the sequence split and again
+               unsplit (each rank's peak bytes both ways); SASRec
+               ``serve_p99`` on (1, 2) and (2, 1), ``retrieval_cand`` on
+               (1, 2), uncut. Gates: logits within ``SERVE_TOL``,
+               the cache bitwise where no step wrote and on layer 0's new
+               entries, two runs bitwise, SASRec within
+               ``TF_TOL["float32"]``; per rank: step ms, collective seconds
+               and calls, peak bytes beside the one-rank step's.
 
 Every layout on the card (main path, full path, drills, resumed and
 sharded runs) is held bitwise run to run: FA2's attraction sums in a fixed
@@ -384,7 +405,8 @@ def bits_equal(torch, a, b) -> bool:
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.is_floating_point():
-        a, b = a.view(torch.int32), b.view(torch.int32)
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.contiguous().view(bits), b.contiguous().view(bits)
     return torch.equal(a, b)
 
 
@@ -4215,10 +4237,19 @@ MESH_GNN_CELL = "full_graph_sm"
 # gradients (norm 1.5e4) carry that difference further.
 MESH_GNN_TOL = (1e-6, 1.5e-6, 6e-5)
 # (run, arch, mesh shape, rows × sequence, layers or None for the arch's,
-# compress_grads)
-MESH_LM_RUNS = (("yi-6b-tp", "yi-6b", (1, 2), (1, 4096), None, False),
-                ("granite-moe-ep-tp", "granite-moe-1b-a400m", (1, 2), (2, 4096), 2, False),
-                ("yi-6b-dp-zero-compress", "yi-6b", (2, 1), (2, 4096), 2, True))
+# compress_grads, microbatches, SP pair). The sequence divides over "model",
+# so the runs on (1, 2) split it (sequence parallelism, build_step's rule);
+# an SP pair runs a second time with ``seq_axis`` None, and the two are
+# compared bit for bit. The microbatched run (fault F3 on the card) takes a
+# ragged loss mask (MESH_MASK_KEEP of the positions), so that which rows
+# share a microbatch changes its loss.
+MESH_LM_RUNS = (("yi-6b-tp", "yi-6b", (1, 2), (1, 4096), None, False, 0, False),
+                ("granite-moe-ep-tp", "granite-moe-1b-a400m", (1, 2), (2, 4096), 2, False, 0,
+                 False),
+                ("yi-6b-dp-zero-compress", "yi-6b", (2, 1), (2, 4096), 2, True, 0, False),
+                ("yi-6b-sp-on-off", "yi-6b", (1, 2), (1, 4096), 2, False, 0, True),
+                ("yi-6b-dp-microbatch", "yi-6b", (2, 1), (4, 4096), 2, False, 2, False))
+MESH_MASK_KEEP = 0.6
 MESH_BGV_CELLS = (("detect_berkstan", None), ("detect_livejournal", None),
                   ("layout_berkstan", "exact"), ("layout_livejournal", "exact"),
                   ("layout_livejournal+grid", "grid"))
@@ -4292,6 +4323,8 @@ def _tree_same(torch, a, b) -> bool:
 def _mesh_lm_setup(torch, run, depth):
     """``(arch, cfg, shape spec, loss, params (whole, seeded), batches,
     tcfg)`` of an LM run of MESH_LM_RUNS, the same on every rank."""
+    import numpy as np
+
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import LMStream
@@ -4299,16 +4332,20 @@ def _mesh_lm_setup(torch, run, depth):
     from repro_torch.train import optimizer as opt
     from repro_torch.train.train_loop import TrainConfig
 
-    _, arch_name, _, (rows, seq), layers, compress = run
+    _, arch_name, _, (rows, seq), layers, compress, micro, _ = run
     arch = get_config(arch_name)
     cfg = dataclasses.replace(arch.model, n_layers=layers or depth, act_dtype=torch.float32)
     arch = dataclasses.replace(arch, model=cfg)
     spec = ShapeSpec("train_4k", "train", seq_len=seq, global_batch=rows)
     stream = LMStream(cfg.vocab, rows, seq, seed=SEED)
-    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in stream.batch_at(i).items()}
-               for i in range(MESH_STEPS)]
+    batches = [stream.batch_at(i) for i in range(MESH_STEPS)]
+    if micro:
+        rng = np.random.default_rng(SEED)
+        for b in batches:
+            b["loss_mask"] = b["loss_mask"] * (rng.random(b["loss_mask"].shape) < MESH_MASK_KEEP)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items()} for b in batches]
     tcfg = TrainConfig(adamw=opt.AdamWConfig(lr=LM_LR, state_bits=arch.opt_state_bits),
-                       compress_grads=compress)
+                       compress_grads=compress, microbatch=micro)
     params = lm_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     return arch, cfg, spec, tfm.lm_loss, params, batches, tcfg
 
@@ -4366,12 +4403,13 @@ class _CollectiveClock:
             setattr(self.dist, k, fn)
 
 
-def _mesh_train_run(torch, mesh, setup, name: str, runs: int = 1) -> dict:
+def _mesh_train_run(torch, mesh, setup, name: str, runs: int = 1, sp_pair: bool = False) -> dict:
     """A training run on ``mesh``: ``runs`` times from the same seeded
     parameters, each rank on its blocks; every rank's launches, step ms,
     peak bytes and collective seconds, and (rank 0) the gathered
     parameters against the one-rank step on the card and the runs against
-    each other, bitwise."""
+    each other, bitwise. ``sp_pair``: the second run with the sequence
+    unsplit (``seq_axis`` None)."""
     import functools as ft
 
     import torch.distributed as dist
@@ -4386,12 +4424,18 @@ def _mesh_train_run(torch, mesh, setup, name: str, runs: int = 1) -> dict:
     arch, cfg, spec, loss, params, batches, tcfg = setup
     built = build_step(dataclasses.replace(arch, opt_state_bits=tcfg.adamw.state_bits), spec, mesh)
     p_specs, o_specs, b_specs = built.in_specs
-    step = make_train_step(ft.partial(loss, cfg, place=built.place), tcfg, mesh=built.place)
+    places = [built.place] * runs
+    if sp_pair:
+        places = [built.place, dataclasses.replace(built.place, seq_axis=None)]
+        runs = 2
     local_batches = [shard_tree(b, b_specs, mesh) for b in batches]
     info = {"run": name, "rank": mesh.rank, "mesh": dict(mesh.shape),
-            "batch_axes": list(built.place.batch_axes), "runs": []}
+            "batch_axes": list(built.place.batch_axes), "runs": [],
+            "seq_axis": [p.seq_axis if p.sp else None for p in places],
+            "microbatch": tcfg.microbatch}
     finals = []
     for k in range(runs):
+        step = make_train_step(ft.partial(loss, cfg, place=places[k]), tcfg, mesh=places[k])
         lp = shard_tree(params, p_specs, mesh)
         state = opt.init_opt_state(lp, tcfg.adamw)
         torch.cuda.synchronize()
@@ -4426,8 +4470,10 @@ def _mesh_train_run(torch, mesh, setup, name: str, runs: int = 1) -> dict:
     torch.cuda.empty_cache()
     if mesh.rank == 0:
         if runs > 1:
-            info["ranks_run_to_run_bitwise"] = _tree_same(torch, finals[0], finals[1])
-        del finals[1:]
+            info["sp_on_off_bitwise" if sp_pair else "ranks_run_to_run_bitwise"] = _tree_same(
+                torch, finals[0], finals[1])
+        if not sp_pair:
+            del finals[1:]
         one = make_train_step(ft.partial(loss, cfg), tcfg)
         p1, params = params, None  # the step updates it in place
         st = opt.init_opt_state(p1, tcfg.adamw)
@@ -4443,6 +4489,12 @@ def _mesh_train_run(torch, mesh, setup, name: str, runs: int = 1) -> dict:
         info["loss_rel"] = max(abs(a / x[0] - 1) for a, x in zip(mine["losses"], m1))
         info["grad_norm_rel"] = max(abs(a / x[1] - 1) for a, x in zip(mine["grad_norms"], m1))
         info["param_max_rel"] = _max_rel(torch, finals[0], p1)
+        if sp_pair:
+            info["sp_off_param_max_rel"] = _max_rel(torch, finals[1], p1)
+            m_off = info["runs"][1]
+            info["sp_off_loss_rel"] = max(abs(a / x[0] - 1) for a, x in zip(m_off["losses"], m1))
+            info["sp_off_grad_norm_rel"] = max(abs(a / x[1] - 1)
+                                               for a, x in zip(m_off["grad_norms"], m1))
         names = sorted(_flat_names(p1))
         worst = max((float((x - y).abs().max()) / tcfg.adamw.lr, k) for k, x, y in zip(
             names, tree_leaves(finals[0]), tree_leaves(p1)))
@@ -4549,7 +4601,7 @@ def mesh_rank(_stream_mesh, out_dir: str, depth: int) -> None:
     out = []
     for run in MESH_LM_RUNS:
         out.append(_mesh_train_run(torch, mesh_of(run[2]), _mesh_lm_setup(torch, run, depth),
-                                   run[0]))
+                                   run[0], sp_pair=run[7]))
     out.append(_mesh_train_run(torch, mesh_of((1, 2)), _mesh_other_setup(torch, "sasrec"),
                                "sasrec-vocab"))
     out.append(_mesh_train_run(torch, mesh_of((2, 1)), _mesh_other_setup(torch, "gin"),
@@ -4564,12 +4616,14 @@ def model_mesh_phase(torch, np, smi: str) -> dict:
     """The training mesh and the BigGraphVis cells on MESH_RANKS ranks
     sharing the card under gloo (``mesh_rank``):
 
-    * yi-6b ``train_4k`` at full width on (1, 2), tensor parallel, at the
-      depth MESH_BUDGET allows, one 4,096-token row; granite-moe at full
-      width and 2 layers on (1, 2), experts and tensors parallel, 2 × 4,096
-      tokens; yi-6b at 2 layers on (2, 1), data parallel with d_model's
-      ZeRO-3 split and ``compress_grads``, 2 rows; float32, MESH_STEPS
-      steps each;
+    * yi-6b ``train_4k`` at full width on (1, 2), tensor and sequence
+      parallel, at the depth MESH_BUDGET allows, one 4,096-token row;
+      granite-moe at full width and 2 layers on (1, 2), experts and
+      tensors parallel, 2 × 4,096 tokens; yi-6b at 2 layers on (2, 1),
+      data parallel with d_model's ZeRO-3 split and ``compress_grads``, 2
+      rows; yi-6b at 2 layers on (1, 2) with the sequence split and again
+      unsplit; yi-6b at 2 layers on (2, 1) with 2 microbatches of 4 rows
+      and a ragged loss mask (fault F3); float32, MESH_STEPS steps each;
     * SASRec ``train_batch`` uncut on (1, 2) (the item table split);
     * gin-tu's MESH_GNN_CELL (``full_graph_sm``: ``ogb_products`` took
       26–37 s a step here) on (2, 1) (the edges split), twice from the same
@@ -4579,9 +4633,10 @@ def model_mesh_phase(torch, np, smi: str) -> dict:
     Gates: every run's gathered parameters (outputs for the BigGraphVis
     cells) against the same cell's one-rank step on the card: the LMs and
     SASRec within TRAIN_TOL[family], gin-tu within MESH_GNN_TOL and its two
-    runs bitwise, the BigGraphVis cells bitwise; each run's kernels
-    launched on every rank. Prints each rank's launches, step ms, peak
-    bytes and collective seconds."""
+    runs bitwise, the BigGraphVis cells bitwise, the SP pair's unsplit
+    run within TRAIN_TOL too (whether the two were bitwise is logged);
+    each run's kernels launched on every rank. Prints each rank's
+    launches, step ms, peak bytes and collective seconds."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_local
 
@@ -4633,6 +4688,11 @@ def model_mesh_phase(torch, np, smi: str) -> dict:
              f"{name}: parameters {lead['param_max_rel']} of max|p| off the one-rank step")
         if family == "gnn":
             gate(lead["ranks_run_to_run_bitwise"], f"{name}: two runs differ")
+        if "sp_on_off_bitwise" in lead:
+            gate(lead["sp_off_loss_rel"] <= tol_loss and lead["sp_off_grad_norm_rel"] <= tol_gnorm
+                 and lead["sp_off_param_max_rel"] <= tol_p,
+                 f"{name}: the run without sequence parallelism is off the one-rank step")
+            log(f"model mesh {name}: SP on and off bitwise: {lead['sp_on_off_bitwise']}")
     check(not failed, "model mesh: " + "; ".join(failed))
     log(f"model mesh: {wall:.3f} s for the spawned ranks ({smi})")
     return out
@@ -4650,6 +4710,499 @@ def _mesh_kernels(name: str) -> tuple:
     if name.startswith("layout"):
         return ("repulsion_rows", "segment_offsets", "segment_sum_edges")
     return ()
+
+
+# ------------------------------------------------------------- phase 16
+# The serving mesh: LM decode on the sequence-sharded KV cache, prefill
+# with sequence parallelism and SASRec's serve and retrieval on
+# SERVE_RANKS ranks of one process each, sharing the card under gloo, each
+# held against its one-rank step run first on the card in the parent
+# (``serving_mesh_phase``). Serving weights are bfloat16 (``build_lm_step``'s
+# rule), drawn at the true fan-in (``lm_params``, fault R6). A cache is
+# seeded layer by layer from SEED (``_seeded_cache_layer``), so a rank
+# makes its block of the same values without holding the whole cache.
+SERVE_RANKS, SERVE_TIMEOUT = 2, 900
+# 2 ranks against one, max abs of the bfloat16 logits and of the written
+# K/V (unit-scale entries): split-K sums each softmax in another order,
+# and from layer 1 on every input differs by that rounding. Sound readings
+# (H100 80GB HBM3, 700.00 W, PERF.md §5): yi-6b decode logits 0.258, K/V
+# 0.214; gemma3-4b 0.151, 0.113; the prefill 0.078, the same every run.
+# A wrong split-K on the yi-6b decode (``tools/serving_mesh_phase.py
+# --control``) read logits 3.79–4.28 and K/V 3.31 without the rescale,
+# logits 6.08–6.09 and K/V 6.13 with the last rank's partial dropped.
+SERVE_TOL = 0.3
+# (run, arch, layers or None for the arch's, rows, S_max, each slot's
+# length, active, steps). yi-6b ``decode_32k``: the rows cut from 128 to 8
+# (the cache alone would be 275 GB at 128; 17.2 GB at 8, 8.6 GB a rank);
+# lengths on both halves of the positions, the slot at 16,380 crossing the
+# ranks' boundary at 16,384 on its fifth step, the last slot inactive.
+# gemma3-4b ``long_500k``: 12 of 34 layers (global layers 5 and 11 among
+# them; 25.8 GB of cache, 12.9 GB a rank), the one row near the end, so
+# that rank 0's positions [0, 262,144) lie outside every local layer's
+# 1,024-position window.
+SERVE_DECODE_RUNS = (
+    ("yi-6b-decode_32k", "yi-6b", None, 8, 32768,
+     (96, 5000, 16380, 16384, 20000, 27000, 32000, 9000), (1, 1, 1, 1, 1, 1, 1, 0), 16),
+    ("gemma3-4b-long_500k", "gemma3-4b", 12, 1, 524288, (523_990,), (1,), 4),
+)
+# yi-6b ``prefill_32k``: 1 row of 32,768 tokens (cut from 32 rows), 4 of 32
+# layers; the sequence split over "model", then unsplit.
+SERVE_PREFILL = ("yi-6b-prefill_32k", "yi-6b", 4, 1, 32768)
+# SASRec uncut: (run, cell, mesh shape).
+SERVE_SAS = (("sasrec-serve_p99-1x2", "serve_p99", (1, 2)),
+             ("sasrec-serve_p99-2x1", "serve_p99", (2, 1)),
+             ("sasrec-retrieval_cand-1x2", "retrieval_cand", (1, 2)))
+
+
+def _serve_cfg(torch, arch_name: str, layers):
+    """``(arch, cfg)``: the arch at full width, ``layers`` deep (None: all),
+    its weights stored in the activation type (bfloat16)."""
+    from repro_torch.configs import get_config
+
+    arch = get_config(arch_name)
+    cfg = dataclasses.replace(arch.model, n_layers=layers or arch.model.n_layers)
+    cfg = dataclasses.replace(cfg, param_dtype=cfg.act_dtype)
+    return dataclasses.replace(arch, model=cfg), cfg
+
+
+def _seeded_cache_layer(torch, cfg, rows: int, s_max: int, layer: int, kv: int):
+    """Layer ``layer``'s whole K (kv 0) or V (kv 1) cache, [rows, S_max,
+    KV, hd] in the activation type, from a generator seeded by the layer:
+    unit normals, the scale of K/V at the true fan-in."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED * 7919 + 2 * layer + kv)
+    x = torch.randn((rows, s_max, cfg.n_kv_heads, cfg.head_dim), generator=gen, device="cuda")
+    return x.to(cfg.act_dtype)
+
+
+def _seed_cache(torch, cfg, rows: int, s_max: int, cache=None, block=None):
+    """The seeded cache, or (``block``: the slices of a rank's block) that
+    block written into ``cache`` in place."""
+    if cache is None:
+        n_rows = rows if block is None else len(range(rows)[block[1]])
+        n_pos = s_max if block is None else len(range(s_max)[block[2]])
+        shape = (cfg.n_layers, n_rows, n_pos, cfg.n_kv_heads, cfg.head_dim)
+        cache = {k: torch.empty(shape, dtype=cfg.act_dtype, device="cuda") for k in "kv"}
+    for i in range(cfg.n_layers):
+        for j, k in enumerate("kv"):
+            whole = _seeded_cache_layer(torch, cfg, rows, s_max, i, j)
+            cache[k][i] = whole if block is None else whole[block[1], block[2]]
+            del whole
+    return cache
+
+
+def _decode_tokens(np, cfg, rows: int, steps: int):
+    rng = np.random.default_rng(SEED)
+    return rng.integers(1, cfg.vocab, (steps, rows, 1)).astype(np.int64)
+
+
+def _written_window(torch, cache, lengths, steps: int, p0: int = 0):
+    """The cache at each slot's positions ``lengths[b] + t`` (t < steps),
+    [L, B, steps, KV, hd] per K and V, and [B, steps] bool: the positions
+    this block holds (positions start at ``p0``)."""
+    n_pos = cache["k"].shape[2]
+    pos = torch.as_tensor(lengths, device="cuda")[:, None] + torch.arange(steps, device="cuda")
+    mine = (pos >= p0) & (pos < p0 + n_pos)
+    idx = torch.where(mine, pos - p0, 0)
+    rows = torch.arange(idx.shape[0], device="cuda")[:, None]
+    return {k: v[:, rows, idx] for k, v in cache.items()}, mine
+
+
+def _decode_one(torch, np, run, out_dir: str) -> dict:
+    """A decode run of SERVE_DECODE_RUNS on one rank on the card: every
+    step's logits and the written window, saved (host) for the ranks."""
+    from repro_torch.models import transformer as tfm
+
+    name, arch_name, layers, rows, s_max, lengths, active, steps = run
+    _, cfg = _serve_cfg(torch, arch_name, layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    cache = _seed_cache(torch, cfg, rows, s_max)
+    step = tfm.make_decode_step(cfg)
+    toks = _decode_tokens(np, cfg, rows, steps)
+    cur = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+    act = torch.as_tensor(active, dtype=torch.bool, device="cuda")
+    logits, ms = [], []
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = step(params, cache, {"tokens": torch.as_tensor(toks[t], device="cuda"),
+                                          "cur_len": cur, "active": act})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(out.float().cpu())
+        cur = cur + act.to(torch.int32)
+    window, _ = _written_window(torch, cache, lengths, steps)
+    res = {"logits": torch.stack(logits), "window": {k: v.cpu() for k, v in window.items()}}
+    torch.save(res, os.path.join(out_dir, f"one-{name}.pt"))
+    info = {"step_ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "cache_bytes": sum(v.numel() * v.element_size() for v in cache.values())}
+    del params, cache, out, window
+    return info
+
+
+def _decode_rank(torch, np, mesh, run, out_dir: str) -> dict:
+    """A decode run on the rank's blocks (its positions of the cache), twice
+    from the seeded cache: logits against the one-rank run's vocab block,
+    the written window's owned entries (layer 0 bitwise, every layer within
+    the tolerance), the rest of the block bitwise the seed, the two runs
+    bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import build_step
+    from repro_torch.sharding.params import local_block, shard_tree
+    from repro_torch.sharding.rules import P
+
+    name, arch_name, layers, rows, s_max, lengths, active, steps = run
+    arch, cfg = _serve_cfg(torch, arch_name, layers)
+    tol = SERVE_TOL
+    built = build_step(arch, ShapeSpec("decode", "decode", seq_len=s_max, global_batch=rows), mesh)
+    p_specs, c_specs, b_specs = built.in_specs
+    whole = lm_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    params = shard_tree(whole, p_specs, mesh)
+    del whole
+    torch.cuda.empty_cache()
+    shape = (cfg.n_layers, rows, s_max, cfg.n_kv_heads, cfg.head_dim)
+    block = local_block(shape, c_specs["k"], mesh, mesh.coords)
+    p0 = block[2].start or 0
+    r0 = block[1].start or 0
+    n_rows = len(range(rows)[block[1]])
+    one = torch.load(os.path.join(out_dir, f"one-{name}.pt"))
+    v_blk = local_block(one["logits"].shape[1:], built.out_specs[0], mesh, mesh.coords)
+    want = one["logits"][(slice(None),) + v_blk]
+    toks = _decode_tokens(np, cfg, rows, steps)
+    rows_spec = P(b_specs["tokens"][0])
+    lens = lengths[r0:r0 + n_rows]
+    info = {"run": name, "rank": mesh.rank, "mesh": dict(mesh.shape), "layers": cfg.n_layers,
+            "rows": rows, "s_max": s_max, "block": [p0, p0 + len(range(s_max)[block[2]])],
+            "runs": []}
+    outs = []
+    cache = None
+    for k in range(2):
+        cache = _seed_cache(torch, cfg, rows, s_max, cache, block)
+        cur = torch.as_tensor(lengths, dtype=torch.int32, device="cuda")
+        act = torch.as_tensor(active, dtype=torch.bool, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        clock = _CollectiveClock(dist)
+        logits, ms = [], []
+        try:
+            for t in range(steps):
+                batch = shard_tree({"tokens": torch.as_tensor(toks[t], device="cuda"),
+                                    "cur_len": cur, "active": act},
+                                   {"tokens": b_specs["tokens"], "cur_len": rows_spec,
+                                    "active": rows_spec}, mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, cache = built.fn(params, cache, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(out.float().cpu())
+                cur = cur + act.to(torch.int32)
+        finally:
+            clock.remove()
+        window, mine = _written_window(torch, cache, lens, steps, p0)
+        outs.append((torch.stack(logits), {k: v.cpu() for k, v in window.items()}, mine.cpu()))
+        info["runs"].append({"step_ms": ms, "collective_s": clock.seconds,
+                             "collectives": clock.calls,
+                             "peak_bytes": torch.cuda.max_memory_allocated()})
+        if k == 0:  # every entry the steps did not write is the seed's
+            written = torch.zeros(cache["k"].shape[1:3], dtype=torch.bool, device="cuda")
+            pos = torch.as_tensor(lens, device="cuda")[:, None] + torch.arange(steps,
+                                                                                device="cuda")
+            a = torch.as_tensor(active[r0:r0 + n_rows], dtype=torch.bool, device="cuda")
+            for b in range(n_rows):
+                p = pos[b][(pos[b] >= p0) & (pos[b] < p0 + written.shape[1])] - p0
+                if bool(a[b]):
+                    written[b, p] = True
+            same = True
+            for i in range(cfg.n_layers):
+                for j, key in enumerate("kv"):
+                    seed = _seeded_cache_layer(torch, cfg, rows, s_max, i, j)[block[1], block[2]]
+                    same &= bits_equal(torch, cache[key][i][~written], seed[~written])
+                    del seed
+            info["untouched_bitwise"] = bool(same)
+    logits, window, mine = outs[0]
+    info["max_abs_logits_vs_one"] = float((logits - want).abs().max())
+    one_w = {k: v[:, r0:r0 + n_rows] for k, v in one["window"].items()}
+    sel = mine[None, :, :, None, None].expand_as(window["k"])
+    diffs = {k: (window[k].float() - one_w[k].float()).abs()[sel] for k in "kv"}
+    info["window_max_abs_vs_one"] = max(float(d.max()) if d.numel() else 0.0
+                                        for d in diffs.values())
+    info["window_entries"] = int(sum(d.numel() for d in diffs.values()))
+    info["window_not_bitwise"] = int(sum(int((d != 0).sum()) for d in diffs.values()))
+    sel0 = mine[:, :, None, None].expand_as(window["k"][0])
+    info["layer0_bitwise"] = all(bits_equal(torch, window[k][0][sel0], one_w[k][0][sel0])
+                                 for k in "kv")
+    info["run_to_run_bitwise"] = bits_equal(torch, outs[0][0], outs[1][0]) and all(
+        bits_equal(torch, outs[0][1][k], outs[1][1][k]) for k in "kv")
+    info["finite"] = bool(torch.isfinite(logits).all())
+    info["tol"] = tol
+    del params, cache, outs, one
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return info
+
+
+def _prefill_one(torch, np, out_dir: str) -> dict:
+    from repro_torch.models import transformer as tfm
+
+    name, arch_name, layers, rows, seq = SERVE_PREFILL
+    _, cfg = _serve_cfg(torch, arch_name, layers)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    toks = torch.as_tensor(_decode_tokens(np, cfg, rows, seq)[:, :, 0].T, device="cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = tfm.make_prefill(cfg)(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    info = {"ms": (time.perf_counter() - t0) * 1e3, "peak_bytes": torch.cuda.max_memory_allocated()}
+    torch.save(logits.cpu(), os.path.join(out_dir, f"one-{name}.pt"))
+    del params, logits
+    return info
+
+
+def _prefill_rank(torch, np, mesh, out_dir: str) -> dict:
+    """The prefill on the rank's blocks with the sequence split, then again
+    unsplit (``seq_axis`` None: what sequence parallelism saves is the
+    peak's difference); each logits block against the one-rank
+    prefill's."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.steps import build_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.sharding.params import local_block, shard_tree
+
+    name, arch_name, layers, rows, seq = SERVE_PREFILL
+    arch, cfg = _serve_cfg(torch, arch_name, layers)
+    built = build_step(arch, ShapeSpec("prefill", "prefill", seq_len=seq, global_batch=rows), mesh)
+    p_specs, b_specs = built.in_specs
+    whole = lm_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    params = shard_tree(whole, p_specs, mesh)
+    del whole
+    toks = torch.as_tensor(_decode_tokens(np, cfg, rows, seq)[:, :, 0].T, device="cuda")
+    batch = shard_tree({"tokens": toks}, b_specs, mesh)
+    unsplit = tfm.make_prefill(cfg, dataclasses.replace(built.place, seq_axis=None))
+    info = {"run": name, "rank": mesh.rank, "mesh": dict(mesh.shape), "layers": cfg.n_layers,
+            "tokens": rows * seq, "sp": built.place.sp, "tol": SERVE_TOL}
+    outs = []
+    for key, fn in (("", built.fn), ("sp_off_", unsplit)):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        clock = _CollectiveClock(dist)
+        try:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits = fn(params, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            clock.remove()
+        info.update({key + "ms": ms, key + "collective_s": clock.seconds,
+                     key + "collectives": clock.calls,
+                     key + "peak_bytes": torch.cuda.max_memory_allocated()})
+        outs.append(logits.cpu())
+        del logits
+    one = torch.load(os.path.join(out_dir, f"one-{name}.pt"), mmap=True)
+    want = one[local_block(one.shape, built.out_specs, mesh, mesh.coords)].to("cuda")
+    for key, logits in zip(("", "sp_off_"), outs):
+        logits = logits.to("cuda")
+        info[key + "max_abs_logits_vs_one"] = float((logits.float() - want.float()).abs().max())
+        info[key + "finite"] = bool(torch.isfinite(logits).all())
+    info["bitwise_vs_one"] = bits_equal(torch, outs[0], want.cpu())
+    info["sp_on_off_bitwise"] = bits_equal(torch, outs[0], outs[1])
+    del params, outs, want, one, logits
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return info
+
+
+def _sas_setup(torch, np, cell: str):
+    """``(arch, shape, batch)`` of a SASRec serving cell, uncut, seeded."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SASRecStream
+
+    arch = get_config("sasrec")
+    cfg, shape = arch.model, arch.shapes[cell]
+    seq = SASRecStream(cfg.n_items, shape.global_batch, cfg.seq_len, seed=SEED).batch_at(0)["seq"]
+    batch = {"seq": torch.as_tensor(seq, device="cuda")}
+    if shape.kind == "retrieval":
+        rng = np.random.default_rng(SEED)
+        batch["candidates"] = torch.as_tensor(
+            rng.integers(1, cfg.n_items, shape.n_candidates).astype(np.int32), device="cuda")
+    return arch, shape, batch
+
+
+def _sas_one(torch, np, run, out_dir: str) -> dict:
+    from repro_torch.models import sasrec as sas_lib
+
+    _, cell, _ = run
+    path = os.path.join(out_dir, f"one-{cell}.pt")
+    if os.path.exists(path):  # another mesh's run of the same cell
+        return {}
+    arch, shape, batch = _sas_setup(torch, np, cell)
+    params = sasrec_params(arch.model, torch.Generator(device="cuda").manual_seed(SEED))
+    fn = (sas_lib.make_serve_step if shape.kind == "serve" else
+          sas_lib.make_retrieval_step)(arch.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(params, batch)
+    torch.cuda.synchronize()
+    info = {"ms": (time.perf_counter() - t0) * 1e3}
+    torch.save(out.cpu(), path)
+    return info
+
+
+def _sas_rank(torch, np, mesh, run, out_dir: str) -> dict:
+    """A SASRec serving cell on the rank's blocks, twice: its scores block
+    against the one-rank step's, and the two runs bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.steps import build_step
+    from repro_torch.sharding.params import local_block, shard_tree
+
+    name, cell, _ = run
+    arch, shape, batch = _sas_setup(torch, np, cell)
+    built = build_step(arch, shape, mesh)
+    p_specs, b_specs = built.in_specs
+    params = shard_tree(sasrec_params(arch.model, torch.Generator(device="cuda").manual_seed(SEED)),
+                        p_specs, mesh)
+    local = shard_tree(batch, b_specs, mesh)
+    outs, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock = _CollectiveClock(dist)
+    try:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(built.fn(params, local))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        clock.remove()
+    peak = torch.cuda.max_memory_allocated()
+    one = torch.load(os.path.join(out_dir, f"one-{cell}.pt"), mmap=True)
+    want = one[local_block(one.shape, built.out_specs, mesh, mesh.coords)].to("cuda")
+    info = {"run": name, "rank": mesh.rank, "mesh": dict(mesh.shape), "ms": ms,
+            "collective_s": clock.seconds, "collectives": clock.calls, "peak_bytes": peak,
+            "max_abs_vs_one": float((outs[0] - want).abs().max()),
+            "run_to_run_bitwise": bits_equal(torch, outs[0], outs[1]),
+            "tol": TF_TOL["float32"]}
+    del params, outs, want, one
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return info
+
+
+def serve_mesh_rank(_stream_mesh, out_dir: str) -> None:
+    """One rank of the serving mesh phase (spawned by
+    ``serving_mesh_phase``): SERVE_DECODE_RUNS and SERVE_PREFILL on (1, 2),
+    SERVE_SAS on their meshes; writes ``out_dir/rank{r}.json``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_model_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_model_mesh(shape, ("data", "model"), backend="gloo")
+        return meshes[shape]
+
+    out = [_decode_rank(torch, np, mesh_of((1, 2)), run, out_dir) for run in SERVE_DECODE_RUNS]
+    out.append(_prefill_rank(torch, np, mesh_of((1, 2)), out_dir))
+    out += [_sas_rank(torch, np, mesh_of(run[2]), run, out_dir) for run in SERVE_SAS]
+    with open(os.path.join(out_dir, f"rank{_stream_mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def serving_mesh_phase(torch, np, smi: str) -> dict:
+    """LM serving and SASRec on SERVE_RANKS ranks sharing the card under
+    gloo (``serve_mesh_rank``), each run's one-rank counterpart first, on
+    the card in this process (its outputs saved on the host, its memory
+    freed):
+
+    * yi-6b ``decode_32k`` (full width and depth, 8 rows × 32,768
+      positions, 16 steps) and gemma3-4b ``long_500k`` (12 layers, 1 row ×
+      524,288 positions, 4 steps) on (1, 2), the cache split by position;
+    * yi-6b ``prefill_32k`` (4 layers, 32,768 tokens) on (1, 2), the
+      sequence split;
+    * SASRec ``serve_p99`` on (1, 2) and (2, 1), ``retrieval_cand`` on (1, 2).
+    Gates: decode logits within SERVE_TOL of the one-rank decode, the
+    cache entries the steps did not write bitwise the seed, layer 0's
+    written entries bitwise the one-rank cache's and every written entry
+    within SERVE_TOL (split-K rounds the later layers' inputs otherwise),
+    two runs bitwise; the prefill's logits within SERVE_TOL, with the
+    sequence split and unsplit (whether the two were bitwise is logged);
+    SASRec within TF_TOL["float32"], two runs bitwise. Prints each rank's
+    step ms, collective seconds and calls, and peak bytes beside the
+    one-rank step's (the prefill's with and without sequence
+    parallelism)."""
+    from repro_torch.launch.mesh import spawn_local
+
+    out = {"card": smi, "one": {}, "runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for run in SERVE_DECODE_RUNS:
+            out["one"][run[0]] = _decode_one(torch, np, run, tmp)
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["one"][SERVE_PREFILL[0]] = _prefill_one(torch, np, tmp)
+        for run in SERVE_SAS:
+            out["one"][run[0]] = _sas_one(torch, np, run, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["one_rank_s"] = time.perf_counter() - t0
+        log("serving mesh one-rank " + json.dumps(out["one"]))
+        t0 = time.perf_counter()
+        spawn_local(serve_mesh_rank, SERVE_RANKS, backend="gloo",
+                    init_file=str(Path(tmp) / "store"), args=(tmp,), timeout=SERVE_TIMEOUT)
+        out["ranks_s"] = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(SERVE_RANKS)]
+    failed = []
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    for infos in zip(*ranks):
+        name = infos[0]["run"]
+        out["runs"][name] = list(infos)
+        log(f"serving mesh {name} " + json.dumps(list(infos)))
+        for r in infos:
+            who = f"{name} rank {r['rank']}"
+            if "max_abs_vs_one" in r:  # SASRec
+                gate(r["max_abs_vs_one"] <= r["tol"] and r["run_to_run_bitwise"],
+                     f"{who}: scores {r['max_abs_vs_one']} off the one-rank step, or two "
+                     "runs differ")
+                continue
+            gate(r["finite"] and r["max_abs_logits_vs_one"] <= r["tol"],
+                 f"{who}: logits {r['max_abs_logits_vs_one']} off the one-rank step")
+            if "window_max_abs_vs_one" in r:  # decode
+                gate(r["untouched_bitwise"] and r["layer0_bitwise"],
+                     f"{who}: the cache changed where no step wrote, or layer 0's new K/V "
+                     "differ from the one-rank cache's")
+                gate(r["window_max_abs_vs_one"] <= r["tol"],
+                     f"{who}: written K/V {r['window_max_abs_vs_one']} off the one-rank cache")
+                gate(r["run_to_run_bitwise"], f"{who}: two runs differ")
+            else:
+                gate(r["sp"], f"{who}: the sequence was not split")
+                gate(r["sp_off_finite"] and r["sp_off_max_abs_logits_vs_one"] <= r["tol"],
+                     f"{who}: unsplit logits {r['sp_off_max_abs_logits_vs_one']} off the "
+                     "one-rank step")
+    check(not failed, "serving mesh: " + "; ".join(failed))
+    log(f"serving mesh: {out['one_rank_s']:.3f} s one-rank, {out['ranks_s']:.3f} s for the "
+        f"spawned ranks ({smi})")
+    return out
 
 
 def run() -> int:
@@ -4723,6 +5276,8 @@ def run() -> int:
         rows += training_phase(torch, np, cap, smi)
     with phase("model mesh"):
         model_mesh_phase(torch, np, smi)
+    with phase("serving mesh"):
+        serving_mesh_phase(torch, np, smi)
     check(sorted(r["name"] for r in rows) == sorted(KERNELS),
           f"kernel rows {sorted(r['name'] for r in rows)}, expected {sorted(KERNELS)}")
     log(json.dumps({"kernels": rows}))

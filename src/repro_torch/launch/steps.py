@@ -24,10 +24,19 @@ leaf (``sharding.rules.spec_for`` over the arch's profile, the reference's
 * ``bgv_layout`` — node rows split over every axis: each rank computes
   the forces on its rows (K2's and K6's row entries), one all-gather
   assembles them (``fa2.force_pass``'s split); bitwise the one-rank step.
-Returned tensors are the rank's blocks of the outputs, as the inputs
-(a train step's parameters and state are its inputs, updated in place).
-Prefill, decode, serve and retrieval with a mesh raise: they are the
-serving half of ROADMAP item 15f. ``mesh=None`` is one device.
+* ``prefill`` and ``decode`` (LMs, "tp") — the mesh forward without the
+  loss, and the decode step on the reference's sequence-sharded KV cache
+  (``P(None, bdim, "model", None, None)``: split-K attention across the
+  "model" ranks);
+* ``serve`` and ``retrieval`` (SASRec, "recsys") — the scores against the
+  rank's block of the item table; the candidates and their scores split
+  over every axis.
+Train and prefill split the residual stream's sequence over "model" where
+it divides (``Placement.seq_axis``, the reference's rule). Returned
+tensors are the rank's blocks of the outputs, as the inputs (a train
+step's parameters and state are its inputs, updated in place); a serving
+step's ``out_specs`` holds their specs, the reference's ``out_shardings``.
+``mesh=None`` is one device.
 """
 from __future__ import annotations
 
@@ -54,7 +63,8 @@ class BuiltStep:
     abstract_args: tuple  # ``meta`` tensors (nested dicts for parameters), whole shapes
     meta: dict  # roofline metadata (trip counts, model flops, ...)
     in_specs: tuple | None = None  # the spec of every input leaf (mesh only)
-    place: Placement | None = None  # the model path's placement (training cells)
+    place: Placement | None = None  # the model path's placement (model cells)
+    out_specs: object = None  # the spec of every output leaf (serving cells, mesh only)
 
 
 def _check_mesh(mesh) -> None:
@@ -62,14 +72,6 @@ def _check_mesh(mesh) -> None:
                                  and hasattr(mesh, "coords")):
         raise ValueError(f"build_step: mesh must be None or a launch.mesh.ModelMesh, got "
                          f"{type(mesh).__name__}")
-
-
-def _serving_mesh(mesh, kind: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"build_step: a {kind} cell on a mesh is the serving half of ROADMAP item "
-            "15f (LM prefill/decode with a head-sharded KV cache, SASRec serve and "
-            "retrieval, sequence parallelism), not ported yet; pass mesh=None")
 
 
 def _specs(shardings):
@@ -127,9 +129,17 @@ def _flat(tree):
     return [tuple(tree)]
 
 
+def _seq_axis(mesh, shape: ShapeSpec):
+    """"model" for train and prefill where the sequence divides over it
+    (the reference's sequence-parallel rule, ``steps.py:125``), else None."""
+    if shape.kind in ("train", "prefill") and shape.seq_len % mesh.shape.get("model", 1) == 0:
+        return "model"
+    return None
+
+
 def _train_step(loss_fn, aparams, abstract_batch, info, acfg: opt.AdamWConfig,
                 microbatch: int = 0, mesh=None, specs=None, profile: str = "",
-                batch_specs=None, batch_axes=()) -> BuiltStep:
+                batch_specs=None, batch_axes=(), seq_axis=None) -> BuiltStep:
     tcfg = TrainConfig(adamw=acfg, microbatch=microbatch)
     aopt = opt.abstract_opt_state(aparams, acfg)
     abstract = (aparams, aopt, abstract_batch)
@@ -139,9 +149,20 @@ def _train_step(loss_fn, aparams, abstract_batch, info, acfg: opt.AdamWConfig,
     o_axes = opt.opt_logical_axes(logical_axes(specs), acfg)
     o_specs = _specs(shardings_for_axes(aopt, o_axes, profile, mesh))
     _check_state_specs(p_specs, o_specs, acfg)
-    place = Placement(mesh, p_specs, tuple(batch_axes or ()), batch_specs=batch_specs)
+    place = Placement(mesh, p_specs, tuple(batch_axes or ()), batch_specs=batch_specs,
+                      seq_axis=seq_axis)
     fn = make_train_step(functools.partial(loss_fn, place=place), tcfg, mesh=place)
     return BuiltStep(fn, abstract, info, (p_specs, o_specs, batch_specs), place)
+
+
+def _serve_place(arch: ArchConfig, shape: ShapeSpec, specs, mesh, abstract_batch,
+                 seq_axis=None):
+    """``(placement, parameter specs, batch specs, bdim)`` of a serving cell."""
+    p_specs = _specs(params_shardings(specs, arch.profile, mesh))
+    bdim = _shard_batch_dim(mesh, shape.global_batch)
+    b_specs = _batch_specs(mesh, abstract_batch, bdim)
+    return (Placement(mesh, p_specs, tuple(bdim or ()), batch_specs=b_specs,
+                      seq_axis=seq_axis), p_specs, b_specs, bdim)
 
 
 # ------------------------------------------------------------------ LM cells
@@ -172,8 +193,6 @@ def _lm_flops_meta(cfg: tfm.LMConfig, shape: ShapeSpec) -> dict:
 
 def build_lm_step(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> BuiltStep:
     _check_mesh(mesh)
-    if shape.kind != "train":
-        _serving_mesh(mesh, shape.kind)
     cfg = arch.model
     if shape.kind == "train" and arch.train_param_dtype is not None:
         cfg = replace(cfg, param_dtype=arch.train_param_dtype)
@@ -190,11 +209,28 @@ def build_lm_step(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> BuiltStep:
         return _train_step(functools.partial(tfm.lm_loss, cfg), aparams, abstract_batch, info,
                            opt.AdamWConfig(state_bits=arch.opt_state_bits),
                            arch.microbatch_train, mesh, specs, arch.profile,
-                           _batch_specs(mesh, abstract_batch, bdim) if mesh else None, bdim)
+                           _batch_specs(mesh, abstract_batch, bdim) if mesh else None, bdim,
+                           _seq_axis(mesh, shape) if mesh else None)
+    acache = (tfm.abstract_kv_cache(cfg, shape.global_batch, shape.seq_len)
+              if shape.kind == "decode" else None)
+    if mesh is None:
+        if shape.kind == "prefill":
+            return BuiltStep(tfm.make_prefill(cfg), (aparams, abstract_batch), info)
+        return BuiltStep(tfm.make_decode_step(cfg), (aparams, acache, abstract_batch), info)
+    place, p_specs, b_specs, bdim = _serve_place(arch, shape, specs, mesh, abstract_batch,
+                                                 _seq_axis(mesh, shape))
+    logits = filter_spec(P(bdim, None, "model" if place.tp(p_specs["unembed"], 1) else None),
+                         mesh)
     if shape.kind == "prefill":
-        return BuiltStep(tfm.make_prefill(cfg), (aparams, abstract_batch), info)
-    acache = tfm.abstract_kv_cache(cfg, shape.global_batch, shape.seq_len)
-    return BuiltStep(tfm.make_decode_step(cfg), (aparams, acache, abstract_batch), info)
+        return BuiltStep(tfm.make_prefill(cfg, place), (aparams, abstract_batch), info,
+                         (p_specs, b_specs), place, logits)
+    if shape.seq_len % mesh.extent("model"):
+        raise ValueError(f"build_step: the cache's {shape.seq_len} positions do not split "
+                         f"over \"model\" ({mesh.extent('model')})")
+    c_spec = filter_spec(P(None, bdim, "model", None, None), mesh)
+    c_specs = {k: c_spec for k in acache}
+    return BuiltStep(tfm.make_decode_step(cfg, place), (aparams, acache, abstract_batch), info,
+                     (p_specs, c_specs, b_specs), place, (logits, c_specs))
 
 
 # ----------------------------------------------------------------- GNN cells
@@ -250,8 +286,6 @@ def build_gnn_step(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> BuiltStep:
 
 def build_recsys_step(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> BuiltStep:
     _check_mesh(mesh)
-    if shape.kind != "train":
-        _serving_mesh(mesh, shape.kind)
     cfg: sas_lib.SASRecConfig = arch.model
     specs = sas_lib.param_specs(cfg)
     aparams = abstract_params(specs)
@@ -270,9 +304,24 @@ def build_recsys_step(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> BuiltSte
                            _batch_specs(mesh, abstract_batch, bdim) if mesh else None, bdim)
     if shape.kind == "serve":
         info["model_flops"] = float(enc_flops + b * 2 * d * v)
-        return BuiltStep(sas_lib.make_serve_step(cfg), (aparams, abstract_batch), info)
+        if mesh is None:
+            return BuiltStep(sas_lib.make_serve_step(cfg), (aparams, abstract_batch), info)
+        place, p_specs, b_specs, bdim = _serve_place(arch, shape, specs, mesh, abstract_batch)
+        scores = filter_spec(P(bdim, "model" if place.tp(p_specs["item_embed"], 0) else None),
+                             mesh)
+        return BuiltStep(sas_lib.make_serve_step(cfg, place), (aparams, abstract_batch), info,
+                         (p_specs, b_specs), place, scores)
     info["model_flops"] = float(enc_flops + 2 * d * shape.n_candidates)
-    return BuiltStep(sas_lib.make_retrieval_step(cfg), (aparams, abstract_batch), info)
+    if mesh is None:
+        return BuiltStep(sas_lib.make_retrieval_step(cfg), (aparams, abstract_batch), info)
+    if shape.n_candidates % mesh.size:
+        raise ValueError(f"build_step: {shape.n_candidates} candidates do not split over "
+                         f"{mesh.size} ranks")
+    place, p_specs, b_specs, _ = _serve_place(arch, shape, specs, mesh, abstract_batch)
+    every = filter_spec(P(tuple(mesh.axis_names)), mesh)
+    b_specs["candidates"] = every
+    return BuiltStep(sas_lib.make_retrieval_step(cfg, place), (aparams, abstract_batch), info,
+                     (p_specs, b_specs), place, every)
 
 
 # ----------------------------------------------------------------- BGV cells

@@ -10,8 +10,10 @@ accelerator kernel there, and a fused attention call would pick its own
 numerics.
 
 On a ``ModelMesh`` (``sharding.params.Placement``): ``vocab_lookup`` reads
-a vocab-parallel table, and ``moe_mlp_shmap`` is the reference's
-expert-parallel MoE, one rank's part of it.
+a vocab-parallel table, ``moe_mlp_shmap`` is the reference's
+expert-parallel MoE, one rank's part of it, and ``attend_partial`` with
+``combine_partials`` is attention over a key range split across ranks
+(split-K decoding over a sequence-sharded KV cache).
 """
 from __future__ import annotations
 
@@ -109,6 +111,62 @@ def gqa_attention(q, k, v, q_positions, kv_positions, *, causal: bool = True,
     return out.reshape(b, sq, h, hd)
 
 
+def attend_partial(q, k, v, q_positions, kv_positions, *, window: int | None = None,
+                   kv_valid_len=None):
+    """Causal attention over one rank's range of key positions,
+    unnormalised.
+
+    q [B, Sq, H, hd]; k, v [B, Skv, KV, hd] (grouped, KV dividing H), the
+    rank's slots; ``q_positions`` [B, Sq] and ``kv_positions`` [B, Skv]
+    the global positions; the mask is ``gqa_attention``'s (causal, banded,
+    and ``kv_valid_len`` [B] live positions, here compared with the global
+    key position). The scores are formed as ``gqa_attention`` forms them
+    (a product in the activation dtype, then float32 × scale). Returns
+    ``(m, l, o)``, all float32: the running max [B, Sq, H], the exp-sum
+    [B, Sq, H] and the unnormalised output [B, Sq, H, hd]. A row whose
+    whole range is masked gives m = finfo.min and exact zeros in l and
+    o, so it adds nothing in ``combine_partials``."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = hd ** -0.5
+    diff = q_positions[:, :, None] - kv_positions[:, None, :]
+    m = diff >= 0
+    if window is not None:
+        m &= diff < window
+    if kv_valid_len is not None:
+        m &= (kv_positions < kv_valid_len[:, None])[:, None, :]
+    mask = m[:, None, None, :, :]
+    qg = q.reshape(b, sq, kv, g, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg, k).to(torch.float32) * scale
+    logits = torch.where(mask, logits, _NEG)
+    top = logits.amax(dim=-1)  # [b, kv, g, q]
+    p = torch.where(mask, torch.exp(logits - top[..., None]),
+                    torch.zeros((), dtype=torch.float32, device=q.device))
+    lsum = p.sum(dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.to(torch.float32)).reshape(b, sq, h, hd)
+    return (top.permute(0, 3, 1, 2).reshape(b, sq, h),
+            lsum.permute(0, 3, 1, 2).reshape(b, sq, h), o)
+
+
+def combine_partials(m, l, o, mesh, axis, dtype):
+    """Every rank's ``attend_partial`` over ``axis`` made one attention
+    output: a max all-reduce of ``m``, each rank's ``o`` and ``l`` rescaled
+    by ``exp(m_rank − m)``, one sum all-reduce of both (packed into one
+    float32 tensor: gloo sums it on any device), then ``o / l`` cast to
+    ``dtype``. The sums run in another order than one softmax over every
+    position, so the result is within rounding of ``gqa_attention``, not
+    bitwise. Every row needs a live position on some rank (a decode step's
+    own position always is)."""
+    from repro_torch.sharding.collectives import all_reduce_axes
+
+    top = all_reduce_axes(m.clone(), mesh, axis, "max")
+    r = torch.exp(m - top)
+    packed = torch.cat([o * r[..., None], (l * r)[..., None]], dim=-1)
+    packed = all_reduce_axes(packed, mesh, axis, "sum")
+    return (packed[..., :-1] / packed[..., -1:]).to(dtype)
+
+
 # ----------------------------------------------------------------------- MLP
 
 def glu_mlp(x, wi, wg, wo):
@@ -193,22 +251,28 @@ def moe_mlp(x, router_w, w_gate, w_in, w_out, *, top_k: int, capacity: int,
 
 # ---------------------------------------------------------- multi-device forms
 
-def vocab_lookup(table, ids, mesh, axis):
+def vocab_lookup(table, ids, mesh, axis, seq_axis=None):
     """``table[ids]`` of a table whose rows (vocab) are split over ``axis``
     (None: whole): each rank reads the ids in its row range, zero for the
     rest, and the partial rows are summed over ``axis`` (Megatron's
-    vocab-parallel embedding)."""
-    from repro_torch.sharding.collectives import reduce_from
+    vocab-parallel embedding). With ``seq_axis`` (sequence parallelism,
+    ids [B, S]; the same axis as ``axis`` where both are split) the rows
+    leave through ``scatter_seq``: the sum, then this rank's slice of the
+    sequence."""
+    from repro_torch.sharding.collectives import reduce_from, scatter_seq
 
-    if mesh is None or axis is None or mesh.extent(axis) == 1:
-        return table[ids]
+    split = mesh is not None and axis is not None and mesh.extent(axis) > 1
+    sp = mesh is not None and seq_axis is not None and mesh.extent(seq_axis) > 1
+    if not split:
+        rows = table[ids]
+        return scatter_seq(rows, mesh, seq_axis, 1, reduce=False) if sp else rows
     v_loc = table.shape[0]
     local = ids.long() - mesh.index(axis) * v_loc
     inside = (local >= 0) & (local < v_loc)
     rows = table[local.clamp(0, v_loc - 1)]
     rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                             device=rows.device))
-    return reduce_from(rows, mesh, axis)
+    return scatter_seq(rows, mesh, seq_axis, 1) if sp else reduce_from(rows, mesh, axis)
 
 
 def moe_mlp_shmap(x, router_w, w_gate, w_in, w_out, *, top_k: int, capacity_local: int,

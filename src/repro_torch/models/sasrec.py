@@ -12,7 +12,9 @@ On a ``ModelMesh`` (``encode``/``sasrec_loss`` with a ``Placement``, profile
 "recsys") the item table's vocab dim is split over "model" and every
 lookup of it is vocab-parallel (``layers.vocab_lookup``); everything else
 is replicated, and the batch rows are split over the data axes, each rank's
-loss its rows' share of the global mean.
+loss its rows' share of the global mean. ``make_serve_step`` and
+``make_retrieval_step`` take the same placement and return the rank's
+block of the scores.
 """
 from __future__ import annotations
 
@@ -109,23 +111,46 @@ def sasrec_loss(cfg: SASRecConfig, params, batch, place=None):
     return torch.sum(loss) / torch.clamp(count, min=1.0)
 
 
-def make_serve_step(cfg: SASRecConfig):
-    """seq [B, S] → scores [B, n_items] for the next interaction."""
+def make_serve_step(cfg: SASRecConfig, place=None):
+    """seq [B, S] → scores [B, n_items] for the next interaction. With
+    ``place`` the rank's rows of seq, and its block of the scores, [B_loc,
+    V/M]: the user states against its block of the item table, no
+    collective (the reference's scores constraint)."""
 
     def serve_step(params, batch):
-        h = encode(cfg, params, batch["seq"])[:, -1]  # [B, D]
+        h = encode(cfg, params, batch["seq"], place)[:, -1]  # [B, D]
         return torch.einsum("bd,vd->bv", h, params["item_embed"].to(h.dtype))
 
     return serve_step
 
 
-def make_retrieval_step(cfg: SASRecConfig):
+def make_retrieval_step(cfg: SASRecConfig, place=None):
     """One user sequence × [C] candidate ids → [C] scores (one batched
-    product, not a loop)."""
+    product, not a loop). With ``place`` the candidates, and the scores,
+    are split over every mesh axis (the reference's placement): each rank
+    gathers its data shard's candidates over "model", scores those whose
+    rows its block of the item table holds (zero for the rest), and the sum
+    over "model" (one non-zero term each: exact) gives every rank the
+    shard's scores, of which it keeps its slice."""
 
     def retrieval_step(params, batch):
-        h = encode(cfg, params, batch["seq"])[:, -1]  # [1, D]
-        cand = params["item_embed"].to(h.dtype)[batch["candidates"]]  # [C, D]
-        return torch.einsum("bd,cd->bc", h, cand)[0]
+        h = encode(cfg, params, batch["seq"], place)[:, -1]  # [1, D]
+        table = params["item_embed"].to(h.dtype)
+        ids = batch["candidates"]
+        if place is None or not place.tp(place.specs["item_embed"], 0):
+            return torch.einsum("bd,cd->bc", h, table[ids])[0]
+        from repro_torch.sharding.collectives import all_gather_axes, all_reduce_axes
+
+        mesh, tp = place.mesh, place.tp_axis
+        ids = all_gather_axes(ids, mesh, tp, 0)
+        v_loc = table.shape[0]
+        local = ids.long() - mesh.index(tp) * v_loc
+        inside = (local >= 0) & (local < v_loc)
+        scores = torch.einsum("bd,cd->bc", h, table[local.clamp(0, v_loc - 1)])[0]
+        scores = torch.where(inside, scores, torch.zeros((), dtype=scores.dtype,
+                                                         device=scores.device))
+        scores = all_reduce_axes(scores, mesh, tp, "sum")
+        c = scores.shape[0] // mesh.extent(tp)
+        return scores[mesh.index(tp) * c:(mesh.index(tp) + 1) * c].contiguous()
 
     return retrieval_step

@@ -29,12 +29,26 @@ weight (Megatron TP, ZeRO-3 of d_model):
   attending with its heads' groups; their weights take ``copy_to``;
 * MoE layers run ``layers.moe_mlp_shmap``, the capacity from the local
   token count.
-Activations stay replicated over "model": the reference's
-sequence-parallel activation constraints place memory and change no
-arithmetic, and sequence parallelism waits for the serving slice. Each
-rank's loss is its rows' share of the global mean (summed over the batch
-axes by the train step), so a step on D ranks computes the reference's
-sharded step.
+With ``Placement.seq_axis`` (sequence parallelism, train and prefill where
+the sequence divides over "model", the reference's rule) the residual
+stream between blocks is this rank's slice of the sequence, [B, S/M, D]
+(remat keeps only that): each block gathers it (``gather_seq``) before its
+norm and leaves through ``scatter_seq`` (the sum over "model" of a split
+product, then the slice; the slice alone of a whole result, as the MoE's
+and the unsplit heads'); the lookup leaves through ``scatter_seq``, and the
+final norm and the unembedding see the whole sequence, so the logits are
+[B, S, V/M]. The norms run on the gathered rows, before Megatron's f as
+on the replicated path: on the slice, a norm scale's gradient would be M
+partial sums added across ranks, which rounds otherwise than one sum; and
+the residual branch is the rank's slice of the gathered rows (``_skip``),
+so that its gradient and the norm's add up in the replicated path's order.
+So every product and norm sees the replicated path's operands and
+gradients, and the two agree bitwise on the CPU. Each rank's loss is its
+rows' share of the global mean (summed over the batch axes by the train
+step), so a step on D ranks computes the reference's sharded step.
+Prefill and decode run on a mesh too (``make_prefill``,
+``make_decode_step``: split-K attention over the reference's
+sequence-sharded KV cache).
 
 The decode step differs from the reference's in one way, a repair: it
 takes each slot's own length (``cur_len`` [B]) and an optional ``active``
@@ -46,6 +60,7 @@ different lengths corrupt each other (fault R5). With a scalar
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -198,10 +213,43 @@ def _window(cfg: LMConfig, layer_idx: int):
     return 2**30 if _is_global_layer(cfg, layer_idx) else cfg.sliding_window
 
 
+def _exit(y, partial: bool, place):
+    """A block's output back onto the residual stream: the partial results
+    of the "model" ranks summed (``partial``), and with sequence
+    parallelism this rank's slice of the sequence kept."""
+    from repro_torch.sharding.collectives import reduce_from, scatter_seq
+
+    if place.sp:
+        return scatter_seq(y, place.mesh, place.seq_axis, 1, reduce=partial)
+    return reduce_from(y, place.mesh, place.tp_axis) if partial else y
+
+
+def _enter(x, place):
+    """The residual stream made whole along the sequence before a block's
+    norm (sequence parallelism; else ``x``)."""
+    from repro_torch.sharding.collectives import gather_seq
+
+    return gather_seq(x, place.mesh, place.seq_axis, 1) if place.sp else x
+
+
+def _skip(x, xf, place):
+    """The residual branch of a block whose norm read ``xf = _enter(x)``:
+    with sequence parallelism this rank's slice of ``xf`` (the same
+    values as ``x``), taken after the norm, so that the gradients of the
+    branch and of the norm add up in the replicated path's order (the
+    branch's first); else ``x``."""
+    if not place.sp:
+        return x
+    n = x.shape[1]
+    return xf.narrow(1, place.mesh.index(place.seq_axis) * n, n)
+
+
 def _layer_tp(cfg: LMConfig, x, lp, layer_idx: int, positions, capacity, place):
     """One block on a rank's parameter blocks (the module docstring's
-    rules); train and prefill."""
-    from repro_torch.sharding.collectives import copy_to, reduce_from
+    rules); train and prefill. With sequence parallelism ``x`` is this
+    rank's slice of the sequence, gathered before each norm and scattered
+    after each block."""
+    from repro_torch.sharding.collectives import copy_to
 
     mesh, tp, ls = place.mesh, place.tp_axis, place.specs
 
@@ -211,7 +259,9 @@ def _layer_tp(cfg: LMConfig, x, lp, layer_idx: int, positions, capacity, place):
     heads_tp = place.tp(ls["wq"], 1)
     if heads_tp != place.tp(ls["wo"], 0):
         raise NotImplementedError("wq and wo split their heads differently")
-    rms = L.rms_norm(x, w("attn_norm"))
+    xf = _enter(x, place)
+    rms = L.rms_norm(xf, w("attn_norm"))
+    x = _skip(x, xf, place)
     xa = copy_to(rms, mesh, tp) if heads_tp else rms
     wk, wv = w("wk"), w("wv")
     if heads_tp:
@@ -230,33 +280,44 @@ def _layer_tp(cfg: LMConfig, x, lp, layer_idx: int, positions, capacity, place):
     out = L.gqa_attention(q, k_att, v_att, positions, positions, causal=True,
                           window=_window(cfg, layer_idx), q_chunk=cfg.q_chunk)
     y = torch.einsum("bshk,hkd->bsd", out, w("wo"))
-    x = x + (reduce_from(y, mesh, tp) if heads_tp else y)
+    x = x + _exit(y, heads_tp, place)
+    xf = _enter(x, place)
+    rms = L.rms_norm(xf, w("mlp_norm"))
+    x = _skip(x, xf, place)
+    y, partial, aux = _mlp_tp(cfg, rms, lp, capacity, place, w)
+    return x + _exit(y, partial, place), aux
 
-    rms = L.rms_norm(x, w("mlp_norm"))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+def _mlp_tp(cfg: LMConfig, rms, lp, capacity, place, w):
+    """The MLP (or MoE) of a block on a rank's blocks: ``(y, partial,
+    aux)``, ``partial`` when ``y`` still has to be summed over "model"."""
+    mesh, tp, ls = place.mesh, place.tp_axis, place.specs
     if cfg.moe is None:
-        y = _glu_tp(rms, w("wi"), w("wg"), w("wo_mlp"), place.tp(ls["wi"], 1), mesh, tp)
-    else:
-        m = cfg.moe
-        expert_tp = place.tp(ls["we_g"], 0)
-        y, aux = L.moe_mlp_shmap(
-            rms, place.use(lp["router"], ls["router"], whole=True), w("we_g"), w("we_i"),
-            w("we_o"), top_k=m.top_k, capacity_local=capacity, mesh=mesh,
-            expert_axis=tp if expert_tp else None, token_axes=place.batch_axes)
-        if m.n_shared:
-            y = y + _glu_tp(rms, w("ws_i"), w("ws_g"), w("ws_o"), place.tp(ls["ws_g"], 1),
-                            mesh, tp)
-    return x + y, aux
+        split = place.tp(ls["wi"], 1)
+        return _glu_tp(rms, w("wi"), w("wg"), w("wo_mlp"), split, mesh, tp), split, \
+            torch.zeros((), dtype=torch.float32, device=rms.device)
+    m = cfg.moe
+    expert_tp = place.tp(ls["we_g"], 0)
+    y, aux = L.moe_mlp_shmap(
+        rms, place.use(lp["router"], ls["router"], whole=True), w("we_g"), w("we_i"),
+        w("we_o"), top_k=m.top_k, capacity_local=capacity, mesh=mesh,
+        expert_axis=tp if expert_tp else None, token_axes=place.batch_axes)
+    if m.n_shared:
+        y = y + _glu_tp(rms, w("ws_i"), w("ws_g"), w("ws_o"), place.tp(ls["ws_g"], 1),
+                        mesh, tp, whole=True)
+    return y, False, aux
 
 
-def _glu_tp(x, wi, wg, wo, split: bool, mesh, tp):
+def _glu_tp(x, wi, wg, wo, split: bool, mesh, tp, whole: bool = False):
     """SwiGLU with its hidden dim split over ``tp`` (column, then row
-    parallel) or whole."""
+    parallel: the partial results, summed over ``tp`` with ``whole``) or
+    whole."""
     from repro_torch.sharding.collectives import copy_to, reduce_from
 
     if not split:
         return L.glu_mlp(x, wi, wg, wo)
-    return reduce_from(L.glu_mlp(copy_to(x, mesh, tp), wi, wg, wo), mesh, tp)
+    y = L.glu_mlp(copy_to(x, mesh, tp), wi, wg, wo)
+    return reduce_from(y, mesh, tp) if whole else y
 
 
 def _layer_place(place, specs_layers):
@@ -291,7 +352,8 @@ def forward(cfg: LMConfig, params, tokens, positions, place=None):
         sp = place.specs
         emb = place.use(params["embed"], sp["embed"]).to(cfg.act_dtype)
         x = L.vocab_lookup(emb, tokens, place.mesh,
-                           place.tp_axis if place.tp(sp["embed"], 0) else None)
+                           place.tp_axis if place.tp(sp["embed"], 0) else None,
+                           place.seq_axis if place.sp else None)
         lplace = _layer_place(place, sp["layers"])
     capacity = _moe_capacity(cfg, tokens.shape[0] * tokens.shape[1])
     # Cast once, before the loop (the reference casts before its scan), and
@@ -314,7 +376,7 @@ def forward(cfg: LMConfig, params, tokens, positions, place=None):
         return torch.einsum("bsd,dv->bsv", x, params["unembed"].to(x.dtype)), aux
     from repro_torch.sharding.collectives import copy_to
 
-    x = L.rms_norm(x, place.use(params["final_norm"], sp["final_norm"]))
+    x = L.rms_norm(_enter(x, place), place.use(params["final_norm"], sp["final_norm"]))
     if place.tp(sp["unembed"], 1):
         x = copy_to(x, place.mesh, place.tp_axis)
     un = place.use(params["unembed"], sp["unembed"])
@@ -376,37 +438,55 @@ def lm_loss(cfg: LMConfig, params, batch, place=None):
     return loss + 0.01 * aux
 
 
-def make_prefill(cfg: LMConfig):
-    """tokens [B, S] → logits (inference prefill, no loss)."""
+def make_prefill(cfg: LMConfig, place=None):
+    """tokens [B, S] → logits (inference prefill, no loss). With ``place``
+    the rank's part of the mesh forward (sequence parallelism where
+    ``place.seq_axis`` splits it): its rows of tokens, and it returns its
+    block of the logits, [B_loc, S, V/M] (the reference's logits
+    constraint)."""
 
     def prefill(params, batch):
         tokens = batch["tokens"]
         b, s = tokens.shape
         params_c = cast_floats(params, cfg.act_dtype)
-        logits, _ = forward(cfg, params_c, tokens, _positions(b, s, tokens.device))
+        logits, _ = forward(cfg, params_c, tokens, _positions(b, s, tokens.device), place)
         return logits
 
     return prefill
 
 
-def make_decode_step(cfg: LMConfig):
+def _slot_lengths(batch, b: int, dev):
+    """(cur_len [B] int32, active [B] bool) of a decode batch."""
+    cur_len = torch.as_tensor(batch["cur_len"], dtype=torch.int32, device=dev)
+    cur_len = cur_len.expand(b) if cur_len.dim() == 0 else cur_len
+    active = batch.get("active")
+    if active is None:
+        active = torch.ones(b, dtype=torch.bool, device=dev)
+    return cur_len, active
+
+
+def make_decode_step(cfg: LMConfig, place=None):
     """One new token against an [L, B, S_max, KV, hd] KV cache.
 
     ``batch``: ``tokens`` [B, 1]; ``cur_len``, a scalar (every slot at one
     length) or [B] int32 (each slot's own); ``active`` [B] bool, optional
     (default: every slot), the slots whose K/V are written. Each slot
     needs ``cur_len + 1 ≤ S_max``. Returns ``(logits [B, 1, vocab_padded],
-    cache)``; the cache is updated in place."""
+    cache)``; the cache is updated in place.
+
+    With ``place`` (``_decode_tp``) the rank holds its block of the cache,
+    [L, B/data, S_max/M, KV, hd] — the reference's placement, its
+    sequence dim split over "model" —, its rows of the batch (``cur_len``
+    and ``active`` per slot as its rows, or a scalar), and returns its
+    block of the logits, [B_loc, 1, V/M], and of the cache."""
+    if place is not None:
+        return functools.partial(_decode_tp, cfg, place)
 
     def decode_step(params, cache, batch):
         tokens = batch["tokens"]
         b, s = tokens.shape
         dev = tokens.device
-        cur_len = torch.as_tensor(batch["cur_len"], dtype=torch.int32, device=dev)
-        cur_len = cur_len.expand(b) if cur_len.dim() == 0 else cur_len
-        active = batch.get("active")
-        if active is None:
-            active = torch.ones(b, dtype=torch.bool, device=dev)
+        cur_len, active = _slot_lengths(batch, b, dev)
         s_max = cache["k"].shape[2]
         positions = cur_len[:, None] + torch.arange(s, dtype=torch.int32, device=dev)
         kv_positions = _positions(b, s_max, dev)
@@ -425,11 +505,91 @@ def make_decode_step(cfg: LMConfig):
     return decode_step
 
 
-def init_kv_cache(cfg: LMConfig, batch: int, s_max: int, device) -> dict:
-    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+def _decode_tp(cfg: LMConfig, place, params, cache, batch):
+    """The rank's part of a decode step on the sequence-sharded cache.
+
+    Rank r of "model" (M ranks) holds positions ``[r·S_loc, (r+1)·S_loc)``
+    of its batch rows' slots. A layer: q from the rank's heads (column
+    parallel), k and v whole (no profile splits "kv_heads"); only the rank
+    that owns position ``cur_len[b] + j`` writes slot b's new K/V there
+    (active slots only, as on one rank); q gathered over "model" along
+    heads ([B_loc, 1, H, hd]: small); ``attend_partial`` over the rank's
+    positions, ``combine_partials`` over "model" (split-K: within rounding
+    of one rank's softmax, not bitwise); the rank's heads kept, then
+    ``wo`` row parallel and the sum over "model". The MLP or MoE as in
+    training, the MoE's capacity from the rank's tokens."""
+    from repro_torch.sharding.collectives import all_gather_axes
+
+    mesh, tp = place.mesh, place.tp_axis
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    dev = tokens.device
+    cur_len, active = _slot_lengths(batch, b, dev)
+    ks, vs = cache["k"], cache["v"]
+    s_loc = ks.shape[2]
+    r0 = mesh.index(tp) * s_loc
+    positions = cur_len[:, None] + torch.arange(s, dtype=torch.int32, device=dev)
+    kv_positions = r0 + _positions(b, s_loc, dev)
+    valid = cur_len + s
+    rows = torch.arange(b, device=dev)
+    sp = place.specs
+    params_c = cast_floats(params, cfg.act_dtype)
+    emb = place.use(params_c["embed"], sp["embed"])
+    x = L.vocab_lookup(emb, tokens, mesh, tp if place.tp(sp["embed"], 0) else None)
+    lplace = _layer_place(place, sp["layers"])
+    ls = lplace.specs
+    heads_tp = lplace.tp(ls["wq"], 1)
+    if heads_tp != lplace.tp(ls["wo"], 0):
+        raise NotImplementedError("wq and wo split their heads differently")
+    capacity = _moe_capacity(cfg, b * s)
+    layers = {k: v.unbind(0) for k, v in params_c["layers"].items()}
+    for i in range(cfg.n_layers):
+        lp = _layer_params(layers, i)
+
+        def w(name):
+            return lplace.use(lp[name], ls[name]).to(x.dtype)
+
+        rms = L.rms_norm(x, w("attn_norm"))
+        q = L.rope(torch.einsum("bsd,dhk->bshk", rms, w("wq")), positions, cfg.rope_theta)
+        k = L.rope(torch.einsum("bsd,dhk->bshk", rms, w("wk")), positions, cfg.rope_theta)
+        v = torch.einsum("bsd,dhk->bshk", rms, w("wv"))
+        ck, cv = ks[i], vs[i]
+        for j in range(s):
+            loc = positions[:, j] - r0
+            own = (active & (loc >= 0) & (loc < s_loc))[:, None, None]
+            at = (rows, torch.where(own[:, 0, 0], loc.long(), 0))
+            ck[at] = torch.where(own, k[:, j].to(ck.dtype), ck[at])
+            cv[at] = torch.where(own, v[:, j].to(cv.dtype), cv[at])
+        qa = all_gather_axes(q, mesh, tp, 2) if heads_tp else q
+        m, lsum, o = L.attend_partial(qa, ck.to(x.dtype), cv.to(x.dtype), positions,
+                                      kv_positions, window=_window(cfg, i), kv_valid_len=valid)
+        out = L.combine_partials(m, lsum, o, mesh, tp, x.dtype)
+        if heads_tp:
+            h_loc = q.shape[2]
+            out = out[:, :, mesh.index(tp) * h_loc:(mesh.index(tp) + 1) * h_loc]
+        x = x + _exit(torch.einsum("bshk,hkd->bsd", out, w("wo")), heads_tp, lplace)
+        y, partial, _ = _mlp_tp(cfg, L.rms_norm(x, w("mlp_norm")), lp, capacity, lplace, w)
+        x = x + _exit(y, partial, lplace)
+    x = L.rms_norm(x, place.use(params_c["final_norm"], sp["final_norm"]))
+    un = place.use(params_c["unembed"], sp["unembed"])
+    return torch.einsum("bsd,dv->bsv", x, un.to(x.dtype)), cache
+
+
+def init_kv_cache(cfg: LMConfig, batch: int, s_max: int, device, place=None) -> dict:
+    """The zero cache, [L, batch, s_max, KV, hd]; with ``place`` the rank's
+    block of it (batch over ``place.batch_axes``, positions over "model")."""
+    b, s = batch, s_max
+    if place is not None:
+        mesh = place.mesh
+        for n, axes, what in ((b, place.batch_axes, "batch"), (s, place.tp_axis, "positions")):
+            if n % mesh.extent(axes):
+                raise ValueError(f"init_kv_cache: {n} {what} do not split over "
+                                 f"{mesh.live_axes(axes)} ({mesh.extent(axes)})")
+        b, s = b // mesh.extent(place.batch_axes), s // mesh.extent(place.tp_axis)
+    shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.act_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.act_dtype, device=device)}
 
 
-def abstract_kv_cache(cfg: LMConfig, batch: int, s_max: int) -> dict:
-    return init_kv_cache(cfg, batch, s_max, "meta")
+def abstract_kv_cache(cfg: LMConfig, batch: int, s_max: int, place=None) -> dict:
+    return init_kv_cache(cfg, batch, s_max, "meta", place)

@@ -12,7 +12,8 @@
 * ``collectives`` — a tiled all-gather in rank order and all-reduces (sum,
   max, min), on the tensor's own device; the same over named mesh axes, and
   the autograd Functions of the model paths (``gather_param``, ``copy_to``,
-  ``reduce_from``, ``sum_shards``).
+  ``reduce_from``, ``sum_shards``, and sequence parallelism's
+  ``gather_seq`` and ``scatter_seq``).
 """
 from repro_torch.sharding.collectives import (
     all_gather_axes,
@@ -23,7 +24,9 @@ from repro_torch.sharding.collectives import (
     barrier,
     copy_to,
     gather_param,
+    gather_seq,
     reduce_from,
+    scatter_seq,
     sum_shards,
 )
 from repro_torch.sharding.params import Placement, gather_tree, local_block, shard_tree
@@ -61,12 +64,14 @@ __all__ = [
     "copy_to",
     "filter_spec",
     "gather_param",
+    "gather_seq",
     "gather_tree",
     "linear_axis_index",
     "local_block",
     "params_shardings",
     "reduce_from",
     "row_chunk_spec",
+    "scatter_seq",
     "shard_tree",
     "shardings_for_axes",
     "spec_for",

@@ -23,7 +23,12 @@ the mesh drop out, and an empty set is the identity):
   all-reduce backward: Megatron's f) and ``reduce_from`` (all-reduce
   forward, identity backward: Megatron's g), and ``sum_shards``
   (all-reduce forward and backward: a sum of per-rank terms of a loss that
-  is itself summed over those ranks).
+  is itself summed over those ranks);
+* the sequence-parallel pair: ``gather_seq`` (all-gather forward; backward,
+  this rank's slice of a gradient that is whole on every rank) and
+  ``scatter_seq`` (all-reduce and this rank's slice forward — a
+  reduce-scatter —, or the slice alone of an input already whole;
+  backward, the all-gather).
 
 A reduce-scatter is an all-reduce and a slice.
 
@@ -212,3 +217,58 @@ def sum_shards(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if mesh is None or not mesh.live_axes(axes):
         return x
     return _SumShards.apply(x, mesh, tuple(mesh.live_axes(axes)))
+
+
+# ------------------------------------------------------- sequence parallelism
+
+
+def _slice(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    k = mesh.extent(axes)
+    size = x.shape[dim] // k
+    return x.narrow(dim, mesh.index(axes) * size, size).contiguous()
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return all_gather_axes(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.mesh, ctx.axes, ctx.dim), None, None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, reduce):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        if reduce:
+            x = all_reduce_axes(x.contiguous().clone(), mesh, axes, "sum")
+        return _slice(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_axes(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim), None, None, None, None
+
+
+def gather_seq(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+    """Sequence parallelism's entry: every rank's block along ``dim``
+    concatenated over ``axis`` (an all-gather). The rows gathered feed work
+    that every rank of ``axis`` does alike (a norm, then Megatron's f for
+    the split products, whose all-reduce makes the gradient whole), so the
+    backward keeps this rank's slice of it."""
+    if mesh is None or not mesh.live_axes(axis):
+        return x
+    return _GatherSeq.apply(x, mesh, tuple(mesh.live_axes(axis)), dim)
+
+
+def scatter_seq(x: torch.Tensor, mesh, axis, dim: int, reduce: bool = True) -> torch.Tensor:
+    """Sequence parallelism's exit: with ``reduce``, the ranks' partial
+    results of ``axis`` summed and this rank's slice along ``dim`` kept (a
+    reduce-scatter: Megatron's g, then the split); without, the slice of a
+    result every rank holds whole. Backward: the slices' gradients
+    all-gathered, whole on every rank."""
+    if mesh is None or not mesh.live_axes(axis):
+        return x
+    return _ScatterSeq.apply(x, mesh, tuple(mesh.live_axes(axis)), dim, bool(reduce))

@@ -83,16 +83,25 @@ def gather_tree(tree, specs_tree, mesh):
 class Placement:
     """A model path on a mesh: ``specs`` (each parameter's spec, as
     ``params``), ``batch_axes`` (the mesh axes the batch was split over;
-    the per-rank losses sum over them) and ``batch_specs`` (each batch
-    input's spec). A weight dim sharded over ``tp_axis`` (the profiles'
-    "model") is used as a tensor-parallel shard; a dim sharded over any
-    other axes is gathered before use."""
+    the per-rank losses sum over them), ``batch_specs`` (each batch
+    input's spec) and ``seq_axis`` (None, or "model": the residual stream's
+    sequence dim split over it between blocks — sequence parallelism; the
+    step builders set it by the reference's rule, not the user). A weight
+    dim sharded over ``tp_axis`` (the profiles' "model") is used as a
+    tensor-parallel shard; a dim sharded over any other axes is gathered
+    before use."""
 
     mesh: object
     specs: dict
     batch_axes: tuple = ()
     batch_specs: dict = field(default_factory=dict)
+    seq_axis: str | None = None
     tp_axis = "model"
+
+    @property
+    def sp(self) -> bool:
+        """Is the sequence split (``seq_axis`` set, of extent > 1)?"""
+        return self.seq_axis is not None and self.mesh.extent(self.seq_axis) > 1
 
     def tp(self, spec, dim: int) -> bool:
         """Is dim ``dim`` of a weight of ``spec`` a tensor-parallel shard?"""

@@ -19,7 +19,8 @@ gather's backward (ZeRO-3), and the tensor-parallel axis needs nothing
 block). ``compress_grads`` applies the int8 round trip to the *reduced*
 gradient, which is what the reference's numbers are: the wire payload of
 the all-reduce here is float32, not int8. The loss reported is the global
-one, the sum of the shares.
+one, the sum of the shares. Microbatch i is the same global rows on any
+mesh (``_microbatches``), each rank holding its block of them.
 """
 from __future__ import annotations
 
@@ -76,6 +77,58 @@ def _compress(grads, place) -> list:
             for g, s in zip(grads, tree_leaves(place.specs))]
 
 
+def _microbatches(batch: dict, n: int, place):
+    """``part(i)``: microbatch i of ``n``, the reference's split of the
+    *global* batch (``x.reshape(n, B // n, ...)``): global rows ``[i·B/n,
+    (i+1)·B/n)``. With a placement each rank holds its block of those rows
+    along the batch axes (the block the reference's sharding of the
+    reshaped batch gives it): the inputs split over the batch axes are
+    gathered whole once (tokens and masks: small), and every microbatch is
+    cut from them. Splitting each rank's own rows instead would group
+    other rows into each microbatch, and a microbatch's masked mean and its
+    MoE routing depend on which rows share it (fault F3)."""
+    if place is None or not place.mesh.live_axes(place.batch_axes):
+        def part(i):
+            return {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
+                    for k, v in batch.items()}
+        return part
+
+    from repro_torch.sharding.collectives import all_gather_axes
+    from repro_torch.sharding.rules import entry_axes
+
+    mesh = place.mesh
+    d = mesh.extent(place.batch_axes)
+    split = set()
+    for k, v in batch.items():
+        spec = place.batch_specs.get(k, ())
+        axes = mesh.live_axes(entry_axes(spec[0])) if len(spec) else ()
+        rows = v.shape[0] * (d if axes else 1)
+        if rows % (n * d if axes else n):
+            raise NotImplementedError(
+                f"microbatching: input {k!r} has {rows} rows, which do not split into "
+                f"{n} microbatches of {d if axes else 1} equal blocks (one a batch shard); "
+                "the reference splits the global batch into microbatches and each over the "
+                "batch shards")
+        if axes:
+            split.add(k)
+    whole = {k: all_gather_axes(v, mesh, place.batch_axes, 0) if k in split else v
+             for k, v in batch.items()}
+    j = mesh.index(place.batch_axes)
+
+    def part(i):
+        out = {}
+        for k, v in whole.items():
+            b = v.shape[0] // n
+            if k in split:
+                per = b // d
+                out[k] = v[i * b + j * per:i * b + (j + 1) * per]
+            else:
+                out[k] = v[i * b:(i + 1) * b]
+        return out
+
+    return part
+
+
 def make_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh=None):
     """``loss_fn(params, batch)`` → scalar. Returns ``train_step(params,
     state, batch)`` → ``(params, state, metrics)``, metrics ``loss`` and
@@ -96,17 +149,14 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh=None):
         try:
             if tcfg.microbatch and tcfg.microbatch > 1:
                 n = tcfg.microbatch
-
-                def part(x, i):
-                    b = x.shape[0] // n
-                    return x[i * b:(i + 1) * b]
+                part = _microbatches(batch, n, place)
 
                 # Accumulate in the parameter dtype, from zeros, and the
                 # loss in float32, as the reference's scan does.
                 loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
                 grads = [torch.zeros_like(p, requires_grad=False) for p in leaves]
                 for i in range(n):
-                    li, gi = grads_of(params, leaves, {k: part(v, i) for k, v in batch.items()})
+                    li, gi = grads_of(params, leaves, part(i))
                     loss = loss + li
                     grads = [a + g for a, g in zip(grads, gi)]
                     del gi

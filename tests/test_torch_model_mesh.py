@@ -395,12 +395,56 @@ def test_every_training_and_bgv_cell_builds_on_a_mesh(name, cell):
                     assert n % mesh.extent(rules.entry_axes(e)) == 0
 
 
-@pytest.mark.parametrize("name,cell", [("yi-6b", "prefill_32k"), ("yi-6b", "decode_32k"),
-                                       ("sasrec", "serve_p99"), ("sasrec", "retrieval_cand")])
-def test_serving_cells_on_a_mesh_raise_naming_the_roadmap(name, cell):
-    arch = get_config(name)
-    with pytest.raises(NotImplementedError, match="15f"):
-        build_step(arch, arch.shapes[cell], _FAKE[(2, 2)])
+def _serving_cells():
+    return [(a.name, s.name) for a, s in all_cells()
+            if not s.skip and s.kind in ("prefill", "decode", "serve", "retrieval")]
+
+
+def _spec_tree(tree):
+    """A tree of the reference's ``NamedSharding``s or the port's specs as
+    one list of normalised entries a leaf, in sorted key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _spec_tree(tree[k])]
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, rules.P):
+        return [x for t in tree for x in _spec_tree(t)]
+    spec = getattr(tree, "spec", tree)
+    return [tuple(_entries(spec, len(spec)))]
+
+
+def _padded(entries, n):
+    return tuple(list(entries) + [None] * (n - len(entries)))
+
+
+@pytest.mark.parametrize("name,cell", _serving_cells())
+def test_every_serving_cell_builds_on_a_mesh(name, cell):
+    """Every prefill, decode, serve and retrieval cell builds on the (1, 2)
+    and (2, 2) meshes with ``in_specs`` and ``out_specs`` equal to the
+    reference's ``in_shardings`` and ``out_shardings`` entry for entry,
+    every split dim dividing; ``mesh=None`` builds as before."""
+    from jax.sharding import AbstractMesh as JMesh
+
+    from repro.launch import steps as jsteps
+
+    arch, jarch = get_config(name), JREGISTRY[name]()
+    for shape, mesh in _FAKE.items():
+        built = build_step(arch, arch.shapes[cell], mesh)
+        want = jsteps.build_step(jarch, jarch.shapes[cell], JMesh(shape, ("data", "model")))
+        assert built.in_specs is not None and len(built.in_specs) == len(built.abstract_args)
+        for got, ref, args in ((built.in_specs, want.in_shardings, built.abstract_args),
+                               (built.out_specs, want.out_shardings, None)):
+            g, w = _spec_tree(got), _spec_tree(ref)
+            assert len(g) == len(w), (g, w)
+            for a, b in zip(g, w):
+                n = max(len(a), len(b))
+                assert _padded(a, n) == _padded(b, n), (cell, shape, a, b)
+        args = [a for t in built.abstract_args for a in _leaves(t)]
+        assert len(args) == len(_spec_tree(built.in_specs))
+        for spec, a in zip(_spec_tree(built.in_specs), args):
+            for e, n in zip(spec, a.shape):  # every split dim divides
+                assert n % mesh.extent(rules.entry_axes(e)) == 0, (cell, spec, a.shape)
+        one = build_step(arch, arch.shapes[cell])
+        assert built.meta == one.meta and one.in_specs is None and one.out_specs is None
+        assert one.place is None and built.place.mesh is mesh
 
 
 def test_meshes_of_the_wrong_size_raise():

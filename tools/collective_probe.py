@@ -5,8 +5,8 @@ several ranks share one card.
 Spawns ``--world`` ranks (default 2 and 4) on ``cuda:0`` under the gloo
 backend with a ``file://`` store and, for each collective the multi-device
 paths use (all-gather of a tensor list, all-reduce SUM, MAX and MIN), runs
-it once on CUDA tensors of int32, int64 and float32, checks the result
-against the same collective on host tensors, and times ``--reps`` calls at
+it once on CUDA tensors of int32, int64, float32 and bfloat16, checks the
+result against the same collective on host tensors, and times ``--reps`` calls at
 two sizes: a SCoDA block's exchange (2,048 rows × 2 int32 from each rank)
 and a per-chunk all-reduce of node state (685,231 int32). Prints one JSON
 line per world size with the card's name and power limit.
@@ -36,7 +36,7 @@ def _worker(rank, world, init_file, reps, out_dir):
     res = {"rank": rank, "accepts_cuda": {}, "ms": {}}
     ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
            "min": dist.ReduceOp.MIN}
-    for dtype in (torch.int32, torch.int64, torch.float32):
+    for dtype in (torch.int32, torch.int64, torch.float32, torch.bfloat16):
         x = (torch.arange(10, dtype=torch.float64) * (rank + 1)).to(dtype)
         parts = [torch.empty_like(x) for _ in range(world)]
         want = [torch.empty_like(x) for _ in range(world)]
