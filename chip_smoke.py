@@ -160,7 +160,21 @@ Phases, each printing its wall seconds:
                ``python -m repro_torch.launch.train``
                killed after step 12 and resumed, bitwise an uninterrupted
                run.
-15. model mesh — ``build_step(..., mesh)`` on 2 ranks sharing the card
+15. dry run  — the dry run (``repro_torch.launch.dryrun``,
+               ``dry_run_smoke_phase``): (a) each kernel entry with an
+               abstract rule (K2's, K7's and K8's) launched once and called
+               once on fake CUDA tensors of the same inputs, the outputs'
+               shapes, dtypes and strides equal; (b) each one-card run of
+               the training phase (yi-6b, granite-moe with both states,
+               SASRec, gin-tu) predicted by one dry step of the same
+               configuration and batch on fake CUDA tensors — the bytes on
+               the card before the run, less its parameters and batch, plus
+               the dry step's peak — within 20 % of
+               ``max_memory_allocated``; (c) the CLI on two cells
+               (``layout_livejournal`` single, gin-tu ``full_graph_sm``
+               multi) on fake CUDA and on fake CPU tensors, the records
+               equal but for ``trace_s``.
+16. model mesh — ``build_step(..., mesh)`` on 2 ranks sharing the card
                under gloo (``model_mesh_phase``): yi-6b ``train_4k`` at
                full width, tensor and sequence parallel on (1, 2), at the
                depth its estimate allows under 60 GB; granite-moe, expert
@@ -178,7 +192,7 @@ Phases, each printing its wall seconds:
                ``TRAIN_TOL``, gin-tu within ``MESH_GNN_TOL``, the
                BigGraphVis cells bitwise; per rank: launches, step ms,
                peak bytes, collective seconds.
-16. serving mesh — the serving cells on 2 ranks sharing the card under
+17. serving mesh — the serving cells on 2 ranks sharing the card under
                gloo (``serving_mesh_phase``), bfloat16 weights at the true
                fan-in, each against its one-rank step run first on the
                card: yi-6b ``decode_32k`` at full width and depth (8 rows ×
@@ -212,6 +226,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -283,10 +298,10 @@ LM_CPU_TOL, SAS_TOL, GNN_TOL = 2e-5, 1e-5, 1e-5
 # outside the tensor cores (a fused multiply-add counts as two operations).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-# Per pair: dx, dy (2); dx²+dy² (3); max ε² (1); sqrt (1); eff: d−ri−rj (2,
-# radii only) and max ε (1); mi·mj (1); eff·d (1); divide (1); f += mag·dx,
-# mag·dy (4). kr·mi is hoisted per node.
-K2_OPS_PER_PAIR = {True: 17, False: 15}
+# The bounds of K2's, K7's and K8's rows come from the cost functions
+# beside their wrappers (``repulsion_cost``, ``segment_offsets_cost``, ...),
+# which the dry run's abstract rules use too; ``bytes_ops`` puts one in
+# ``kernel_row``'s order.
 # Per node i and axis: |f_kernel − f_plain| ≤ K2_TOL · Σ_j |f_ij|. Both
 # compute d², d and eff with the same roundings (near contact eff cancels,
 # so the kernel keeps them exact); the kernel's approximate reciprocal
@@ -2047,6 +2062,12 @@ def bbox_pixels(torch, cx, cy, r, live, h, w) -> int:
     return int((span(cx, w) * span(cy, h))[live].sum())
 
 
+def bytes_ops(cost) -> tuple:
+    """A cost function's (operations, bytes) as ``kernel_row``'s (bytes,
+    operations)."""
+    return cost[1], cost[0]
+
+
 def kernel_row(by_path, name, ms, plain_ms, lib_ms, err, bytes_, ops, shape,
                library=NO_LIBRARY) -> dict:
     """One row of the ``kernels`` line; ``launches`` from ``by_path`` (each
@@ -2156,7 +2177,7 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches, multi_la
     row("repulsion_nbody",
         cuda_ms(torch, lambda: k2(p, m, kr, radii=radii), REPS),
         cuda_ms(torch, lambda: repulsion_chunked(p, m, kr, radii=radii), 2),
-        None, err, n2 * 24, K2_OPS_PER_PAIR[radii is not None] * n2 * n2,
+        None, err, *bytes_ops(rep_ops.repulsion_cost(n2, radii is not None)),
         f"n={n2} radii={radii is not None}")
     # K2's row entry on rank 1's half of the same input: bitwise the full
     # launch's rows. It reads every source once and writes its rows.
@@ -2167,8 +2188,8 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches, multi_la
     row("repulsion_rows",
         cuda_ms(torch, lambda: rep_ops.repulsion_rows(p, m, i0, nl, kr, radii=radii), REPS),
         cuda_ms(torch, lambda: repulsion_chunked_rows(p, m, i0, nl, kr, radii=radii), 2),
-        None, float((fr2 - fr[i0:i0 + nl]).abs().max()), n2 * 16 + nl * 8,
-        K2_OPS_PER_PAIR[radii is not None] * nl * n2,
+        None, float((fr2 - fr[i0:i0 + nl]).abs().max()),
+        *bytes_ops(rep_ops.repulsion_rows_cost(n2, nl, radii is not None)),
         f"n={n2} rows [{i0}, {i0 + nl}) radii={radii is not None}")
 
     # K3's raw entry on one edge chunk of each path, its disk entry on each
@@ -2371,14 +2392,16 @@ def time_grid_kernels(torch, np, cap: Capture, row):
         cuda_ms(torch, lambda: cms_ops.update_hashed(sketch, h, wv), REPS),
         cuda_ms(torch, lambda: cms_update_ref(sketch, h, wv), REPS),
         cuda_ms(torch, lambda: lib8.index_put_((r8, b8), w8, accumulate=True), REPS),
-        0.0, rows8 * n8 * 4 + n8 * 4 + 2 * sketch.numel() * 4, int(kept.sum()), shape,
+        0.0, *bytes_ops(cms_ops.update_hashed_cost(n8, rows8, sketch.shape[1], int(kept.sum()))),
+        shape,
         "index_put_ (accumulate) on the kept slots")
     k8 = cap.fn("cms_update")
     row("cms_update_keys",
         cuda_ms(torch, lambda: k8(sketch, keys, weights, cfg), REPS),
         cuda_ms(torch, lambda: cms_update_ref(sketch, cms_ops.hashed_buckets(keys, cfg), wv),
                 REPS),
-        None, 0.0, n8 * 8 + 2 * sketch.numel() * 4, int(kept.sum()), shape)
+        None, 0.0, *bytes_ops(cms_ops.update_cost(n8, rows8, sketch.shape[1], int(kept.sum()))),
+        shape)
 
 
 def time_k7(torch, cap: Capture, row, key: str, name: str):
@@ -2386,6 +2409,7 @@ def time_k7(torch, cap: Capture, row, key: str, name: str):
     CPU and run to run, within its bound of the card's plain version. The
     library yardstick is index_add_ on the kept rows (filtered outside the
     timed span)."""
+    from repro_torch.kernels.segment import ops as seg_ops
     from repro_torch.kernels.segment.ref import segment_sum_ref
 
     _, (data, seg, n_seg), kw = cap.calls[key]
@@ -2401,7 +2425,7 @@ def time_k7(torch, cap: Capture, row, key: str, name: str):
         cuda_ms(torch, lambda: k7(data, seg, n_seg, **kw), REPS),
         cuda_ms(torch, lambda: segment_sum_ref(data, seg, n_seg), REPS),
         cuda_ms(torch, lambda: out7.index_add_(0, idx7, data7), REPS),
-        0.0, e * (4 * d + 4) + n_seg * d * 4, e * d,
+        0.0, *bytes_ops(seg_ops.segment_sum_cost(e, d, n_seg)),
         f"E={e} D={d} N={n_seg} sorted={kw.get('indices_are_sorted', False)} "
         f"largest_segment={largest}",
         "index_add_ on the kept rows")
@@ -2439,7 +2463,7 @@ def time_offsets(torch, cap: Capture, row, tag: str, name: str):
         cuda_ms(torch, lambda: seg_ops.segment_offsets(sid, n), REPS),
         cuda_ms(torch, lambda: segment_offsets_ref(sid, n), REPS),
         cuda_ms(torch, lambda: torch.searchsorted(sid, marks), REPS),
-        0.0, e * 4 + (n + 1) * 4, e + n,
+        0.0, *bytes_ops(seg_ops.segment_offsets_cost(e, n)),
         f"E={e} N={n} sorted={kw.get('sorted', False)}; the whole layout build {build_ms} ms",
         "searchsorted of every segment id in the sorted ids")
 
@@ -2450,6 +2474,7 @@ def time_attraction(torch, cap: Capture, row, tag: str, name: str):
     (``attraction_old``) and run to run; timed beside that composition (the
     earlier time), the plain version and ``index_add_`` of the materialised
     kept terms (materialised outside the timed span)."""
+    from repro_torch.kernels.segment import ops as seg_ops
     from repro_torch.kernels.segment.ref import attraction_sum_ref
 
     _, (pos, dst, w, lay), _ = cap.calls["attraction_sum" + tag]
@@ -2474,7 +2499,7 @@ def time_attraction(torch, cap: Capture, row, tag: str, name: str):
         cuda_ms(torch, lambda: k(pos, dst, w, lay), REPS),
         cuda_ms(torch, lambda: attraction_sum_ref(pos, dst, w, offsets), REPS),
         cuda_ms(torch, lambda: out.index_add_(0, idx, terms), REPS),
-        0.0, kept * 8 + 20 * n, 6 * kept,
+        0.0, *bytes_ops(seg_ops.attraction_sum_cost(n, kept)),
         f"E={e} rows, {kept} kept, N={n} largest_segment={largest}; pre-change composition "
         f"{old_ms} ms", "index_add_ of the materialised kept terms")
 
@@ -3353,7 +3378,7 @@ def time_edges_step(torch, cap: Capture, launches: dict) -> dict:
         cuda_ms(torch, lambda: seg_ops.segment_sum_edges(data, lay, n), REPS),
         cuda_ms(torch, lambda: segment_sum_layout_ref(data, lay.perm, lay.offsets), REPS),
         cuda_ms(torch, lambda: out.index_add_(0, idx, data_k), REPS),
-        0.0, e * (4 * d + 4) + 4 * (n + 1) + 4 * n * d, e * d,
+        0.0, *bytes_ops(seg_ops.sum_through_cost(e, d, n)),
         f"E={e} D={d} N={n} kept={idx.numel()} largest_segment={largest}; layout build "
         f"{build_ms} ms; pre-change composition {old_ms} ms", "index_add_ on the kept rows")
 
@@ -3932,7 +3957,7 @@ def time_k7_train(torch, rows: list, launches: dict, edges, n: int, d: int):
                 cuda_ms(torch, lambda: seg_ops.segment_offsets(sid, n), REPS),
                 cuda_ms(torch, lambda: segment_offsets_ref(sid, n), REPS),
                 cuda_ms(torch, lambda: torch.searchsorted(sid, marks), REPS),
-                0.0, e * 4 + (n + 1) * 4, e + n,
+                0.0, *bytes_ops(seg_ops.segment_offsets_cost(e, n)),
                 f"E={e} N={n} sorted ids (dst); the whole build {build_ms} ms",
                 "searchsorted of every segment id in the sorted ids"))
             del sid, srt, marks
@@ -3971,7 +3996,7 @@ def time_k7_train(torch, rows: list, launches: dict, edges, n: int, d: int):
         rows.append(kernel_row(
             {"train": launches}, name, cuda_ms(torch, k7, 5),
             cuda_ms(torch, lambda: segment_sum_ref(data, seg, n), 3), lib,
-            float(err.max()), e * (4 * d + 4) + 4 * (n + 1) + n * d * 4, e * d,
+            float(err.max()), *bytes_ops(seg_ops.sum_through_cost(e, d, n)),
             f"E={e} D={d} N={n} through a layout of {'dst' if col else 'src'} "
             f"largest_segment={largest}; pre-change composition {old_ms} ms",
             "index_add_ on the kept rows"))
@@ -4068,13 +4093,22 @@ def training_phase(torch, np, cap: Capture, smi: str) -> list:
                 for i in range(TRAIN_STEPS)]
 
     def full_run(name, cfg, loss_fn, params, batches, est, tokens, bits=32, microbatch=0,
-                 lr=LR):
+                 lr=LR, kind="lm"):
         log(f"{name}: estimate {est} bytes ({est / 1e9:.1f} GB) of device memory")
+        # An earlier run's tensors held only by reference cycles (the remat
+        # checkpoints' frames) would otherwise be freed at some point of
+        # this run, and count in its peak until then.
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        recipe = {"name": name, "loss_fn": loss_fn, "params": _shapes(params),
+                  "batch": _shapes(batches[0]), "bits": bits, "microbatch": microbatch,
+                  "lr": lr, "before": before, "estimate": est, "kind": kind}
         params, state, info = train_run(torch, loss_fn, params, batches, bits, microbatch, lr)
         info["lr"] = lr
         info["peak_bytes"] = torch.cuda.max_memory_allocated()
+        TRAIN_RUNS.append(recipe | {"peak": info["peak_bytes"]})
         info["estimate_bytes"] = est
         info["tokens_per_step"] = tokens
         info["tokens_per_s"] = [tokens / ms * 1e3 for ms in info["step_ms"]]
@@ -4136,7 +4170,7 @@ def training_phase(torch, np, cap: Capture, smi: str) -> list:
     est = p_sas * 16 + sb * scfg.seq_len * (scfg.seq_len * 12 + scfg.embed_dim * 4 * 24)
     sparams, sstate, out["sasrec"] = full_run(
         "sasrec train_batch", scfg, functools.partial(sas_lib.sasrec_loss, scfg), sparams,
-        batches, est, sb * scfg.seq_len)
+        batches, est, sb * scfg.seq_len, kind="sasrec")
     del sparams, sstate, batches
     torch.cuda.empty_cache()
     host = sasrec_params(scfg, torch.Generator().manual_seed(SEED))
@@ -4182,7 +4216,8 @@ def training_phase(torch, np, cap: Capture, smi: str) -> list:
     for k in range(2):
         cap.reset()
         p, st, info = full_run(f"gin-tu/ogb_products run {k + 1}", gcfg, loss_fn,
-                               _tree_to(p0, "cuda"), [batch] * TRAIN_STEPS, est, shape.n_nodes)
+                               _tree_to(p0, "cuda"), [batch] * TRAIN_STEPS, est, shape.n_nodes,
+                               kind="gnn")
         runs.append((p, st, info, cap.counts()))
         info["launches"] = {c: v for c, v in runs[-1][3].items() if v}
     train_launches = runs[0][3]
@@ -4213,6 +4248,225 @@ def training_phase(torch, np, cap: Capture, smi: str) -> list:
 
 
 # ------------------------------------------------------------- phase 15
+# The dry run (``repro_torch.launch.dryrun``, ``launch/op_analysis.py``):
+# each kernel entry's abstract rule against its launch, the training runs'
+# peaks predicted by a dry step on fake CUDA tensors, and the CLI on fake
+# CUDA against fake CPU tensors. A predicted peak is what was allocated
+# before the run, less the run's parameters and batch, plus the dry step's
+# peak of live bytes (its parameters, optimizer state and batch included);
+# the gate holds it within DRY_PEAK_TOL of ``max_memory_allocated``. The
+# training phase's one-card runs (``full_run``) leave their recipes in
+# TRAIN_RUNS; a second run of the same configuration (gin-tu's run 2) is
+# not predicted again.
+DRY_PEAK_TOL = 0.2
+DRY_CLI_CELLS = (("biggraphvis", "layout_livejournal", "single"),
+                 ("gin-tu", "full_graph_sm", "multi"))
+DRY_CLI_TIMEOUT = 120
+TRAIN_RUNS: list = []
+
+
+def _shapes(tree):
+    from repro_torch.models.param import tree_map
+
+    return tree_map(lambda t: (tuple(t.shape), t.dtype), tree)
+
+
+def _shape_bytes(torch, tree) -> int:
+    from repro_torch.models.param import tree_leaves
+
+    return sum(math.prod(sh) * torch.empty((), dtype=dt).element_size()
+               for sh, dt in tree_leaves(tree))
+
+
+def rule_entries(torch, dev):
+    """Every kernel entry with an abstract rule, called on small seeded
+    inputs on ``dev``: (entry, inputs, call on a dict of inputs)."""
+    from repro_torch.core import cms as cms_lib
+    from repro_torch.kernels.cms import ops as cms_ops
+    from repro_torch.kernels.repulsion import ops as rep_ops
+    from repro_torch.kernels.segment import ops as seg_ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    n, e = 3000, 20000
+    t = {"pos": torch.randn((n, 2), generator=g, device=dev) * 10,
+         "mass": torch.rand(n, generator=g, device=dev) + 1,
+         "radii": torch.rand(n, generator=g, device=dev),
+         "src": torch.sort(torch.randint(0, n + 1, (e,), generator=g, device=dev,
+                                         dtype=torch.int32)).values,
+         "dst": torch.randint(0, n + 1, (e,), generator=g, device=dev, dtype=torch.int32),
+         "w": torch.rand(e, generator=g, device=dev),
+         "data": torch.randn((e, 5), generator=g, device=dev),
+         "keys": torch.randint(-1, 500, (e,), generator=g, device=dev, dtype=torch.int32)}
+    cfg = cms_lib.CMSConfig(rows=4, cols=337)
+
+    def gather_bwd(x, idx):
+        x = x.detach().requires_grad_(True)
+        seg_ops.gather_rows(x, idx).sum().backward()
+        return x.grad
+
+    return t, {
+        "repulsion_nbody": lambda t: rep_ops.repulsion(t["pos"], t["mass"], 1.5,
+                                                       radii=t["radii"]),
+        "repulsion_rows": lambda t: rep_ops.repulsion_rows(t["pos"], t["mass"], 1000, 1500, 1.5,
+                                                           radii=t["radii"]),
+        "segment_offsets": lambda t: seg_ops.segment_offsets(t["src"], n),
+        "segment_sum": lambda t: seg_ops.segment_sum(t["data"], t["dst"], n),
+        "attraction_sum": lambda t: seg_ops.attraction_sum(
+            t["pos"], t["dst"], t["w"], seg_ops.segment_layout(t["src"], n, sorted=True)),
+        "segment_sum_edges": lambda t: seg_ops.segment_sum_edges(t["data"], t["dst"], n),
+        "segment_sum_gather_bwd": lambda t: gather_bwd(t["pos"], t["dst"]),
+        "cms_update_keys": lambda t: cms_ops.update(
+            torch.zeros((4, 337), device=t["w"].device), t["keys"], t["w"], cfg),
+        "cms_update": lambda t: cms_ops.update_hashed(
+            torch.zeros((4, 337), device=t["w"].device), cms_ops.hashed_buckets(t["keys"], cfg),
+            t["w"]),
+    }
+
+
+def rule_checks(torch) -> None:
+    """Gate (a): each rule's output (shape, dtype, strides) that of one real
+    launch at the same shapes; the fake call launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import build
+
+    inputs, entries = rule_entries(torch, "cuda")
+    for name, fn in entries.items():
+        before = dict(build.LAUNCHES)
+        real = fn(inputs)
+        torch.cuda.synchronize()
+        check(build.LAUNCHES[name] == before[name] + 1, f"{name}: the real call did not launch")
+        mode = FakeTensorMode()
+        before = dict(build.LAUNCHES)
+        with mode:
+            fake = fn({k: mode.from_tensor(v) for k, v in inputs.items()})
+        check(build.LAUNCHES == before, f"{name}: the abstract rule launched a kernel")
+        got = (tuple(fake.shape), fake.dtype, fake.stride(), fake.device)
+        want = (tuple(real.shape), real.dtype, real.stride(), real.device)
+        log(f"dry run rule {name}: fake {got}, launch {want}")
+        check(got == want, f"{name}: the abstract rule gives {got}, the launch {want}")
+
+
+def predicted_peak(run) -> tuple:
+    """A training run's predicted peak bytes (the phase's comment), the dry
+    step's ``OpStats`` and its seconds: one step of ``make_train_step`` at
+    the run's configuration on fake CUDA tensors of its parameters' and
+    batch's shapes. Runs in a worker process of its own."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models.param import tree_map
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+
+    tcfg = TrainConfig(adamw=opt.AdamWConfig(lr=run["lr"], state_bits=run["bits"]),
+                       microbatch=run["microbatch"])
+
+    def make():
+        params = tree_map(lambda sd: torch.empty(sd[0], dtype=sd[1], device="cuda"),
+                          run["params"])
+        batch = tree_map(lambda sd: torch.empty(sd[0], dtype=sd[1], device="cuda"),
+                         run["batch"])
+        return params, opt.init_opt_state(params, tcfg.adamw), batch
+
+    stats, seconds = dryrun.trace(make_train_step(run["loss_fn"], tcfg), make)
+    other = run["before"] - _shape_bytes(torch, run["params"]) - _shape_bytes(torch, run["batch"])
+    return other + stats.peak_bytes, stats, seconds
+
+
+def dry_cli(env, out_dir):
+    """Start the dry run's CLI on DRY_CLI_CELLS, on fake CUDA tensors (the
+    default) and on fake CPU tensors, each device its own directory."""
+    procs = []
+    for arch, shape, mesh in DRY_CLI_CELLS:
+        for dev in ("cuda", "cpu"):
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                   shape, "--mesh", mesh, "--out", str(Path(out_dir) / dev), "--force"]
+            # Niced: the phase waits on the peak predictions first.
+            procs.append(subprocess.Popen(cmd + (["--device", "cpu"] if dev == "cpu" else []),
+                                          env=env, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True,
+                                          preexec_fn=lambda: os.nice(10)))
+    return procs
+
+
+def dry_run_smoke_phase(torch, np, smi: str) -> dict:
+    """The ``dry run`` phase: gates (a) ``rule_checks``, (b) every training
+    run's peak predicted within DRY_PEAK_TOL, (c) the CLI's records on fake
+    CUDA and fake CPU tensors equal but for ``trace_s``."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    out = {"card": smi}
+    runs = [run for run in TRAIN_RUNS if "run 2" not in run["name"]]
+    check(bool(runs), "dry run: the training phase left no run to predict")
+    # The workers (spawned: this process holds the card) unpickle the
+    # recipes' loss functions, so they need the port on their path.
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    saved = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = env["PYTHONPATH"]
+    # The LMs' dry steps (tens of seconds each) in worker processes, the
+    # others (a few seconds) here while the workers run.
+    heavy = [run for run in runs if run["kind"] == "lm"]
+    with (tempfile.TemporaryDirectory() as tmp,
+          ProcessPoolExecutor(max(1, len(heavy)),
+                              mp_context=multiprocessing.get_context("spawn")) as pool):
+        t0 = time.perf_counter()
+        futures = {run["name"]: pool.submit(predicted_peak, run) for run in heavy}
+        procs = dry_cli(env, tmp)
+        try:
+            rule_checks(torch)
+            results = {run["name"]: predicted_peak(run)
+                       for run in runs if run["kind"] != "lm"}
+            log(f"dry run: rules and the in-process predictions done at "
+                f"{time.perf_counter() - t0:.3f} s")
+            for run in runs:
+                pred, stats, seconds = (results[run["name"]] if run["name"] in results
+                                        else futures[run["name"]].result())
+                rec = {"predicted_bytes": pred, "measured_bytes": run["peak"],
+                       "relative": pred / run["peak"] - 1,
+                       "dry_step_peak_bytes": stats.peak_bytes,
+                       "allocated_before": run["before"], "trace_s": seconds,
+                       "kernels": stats.kernels}
+                if run["kind"] == "lm":
+                    rec["lm_train_estimate"] = run["estimate"]
+                out[run["name"]] = rec
+                log(f"dry run {run['name']} (at {time.perf_counter() - t0:.3f} s): "
+                    + json.dumps(rec))
+            for run in runs:  # every prediction printed first, then the gate
+                rel = out[run["name"]]["relative"]
+                check(abs(rel) <= DRY_PEAK_TOL,
+                      f"{run['name']}: predicted peak {out[run['name']]['predicted_bytes']} "
+                      f"bytes, measured {run['peak']} ({rel:+.3f}; limit {DRY_PEAK_TOL})")
+            for p in procs:
+                log_text, _ = p.communicate(timeout=DRY_CLI_TIMEOUT)
+                check(p.returncode == 0, f"dry run CLI {p.args}: exit {p.returncode}\n"
+                                         + log_text[-3000:])
+            log(f"dry run: the CLI runs done at {time.perf_counter() - t0:.3f} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            if saved is None:
+                os.environ.pop("PYTHONPATH")
+            else:
+                os.environ["PYTHONPATH"] = saved
+        for arch, shape, mesh in DRY_CLI_CELLS:
+            name = f"{arch}__{shape}__{mesh}.json"
+            recs = []
+            for dev in ("cuda", "cpu"):
+                rec = json.loads((Path(tmp) / dev / name).read_text())
+                out[f"{name} trace_s {dev}"] = rec.pop("trace_s")
+                recs.append(rec)
+            log(f"dry run CLI {name}: " + json.dumps(recs[0]))
+            check(recs[0]["status"] == "ok", f"{name}: {recs[0].get('error')}")
+            check(recs[0] == recs[1], f"{name}: fake CUDA and fake CPU records differ")
+    log("dry run " + json.dumps({k: v for k, v in out.items() if k != "card"}, default=str))
+    return out
+
+
+# ------------------------------------------------------------- phase 16
 # The model mesh: the training cells and the BigGraphVis cells on
 # MESH_RANKS ranks of one process each, sharing the card under gloo
 # (``launch.steps.build_step(..., mesh)``), each held against the same
@@ -4712,7 +4966,7 @@ def _mesh_kernels(name: str) -> tuple:
     return ()
 
 
-# ------------------------------------------------------------- phase 16
+# ------------------------------------------------------------- phase 17
 # The serving mesh: LM decode on the sequence-sharded KV cache, prefill
 # with sequence parallelism and SASRec's serve and retrieval on
 # SERVE_RANKS ranks of one process each, sharing the card under gloo, each
@@ -5274,6 +5528,8 @@ def run() -> int:
         models_phase(torch, np, cap, smi)
     with phase("training"):
         rows += training_phase(torch, np, cap, smi)
+    with phase("dry run"):
+        dry_run_smoke_phase(torch, np, smi)
     with phase("model mesh"):
         model_mesh_phase(torch, np, smi)
     with phase("serving mesh"):

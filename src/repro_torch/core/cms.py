@@ -57,9 +57,12 @@ def update(sketch, keys, weights, cfg: CMSConfig):
     Returns a new sketch.
 
     A CUDA sketch goes through kernel K8, which hashes the keys itself
-    (``kernels.cms.ops.update``); a CPU sketch through the plain
-    ``index_put_`` below; any other device raises."""
-    if sketch.device.type != "cpu":
+    (``kernels.cms.ops.update``), as does a fake one (a dry run: K8's
+    abstract rule); a CPU sketch through the plain ``index_put_`` below;
+    any other device raises."""
+    from repro_torch.kernels import build
+
+    if sketch.device.type != "cpu" or build.is_fake(sketch):
         from repro_torch.kernels.cms import ops  # ops imports this module
 
         return ops.update(sketch, keys, weights, cfg)

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
 from repro_torch.kernels.grid import ops as grid_ops
 from repro_torch.kernels.repulsion import ops as repulsion_ops
 from repro_torch.kernels.segment import ops as segment_ops
@@ -206,12 +207,12 @@ def _attraction(pos, edges, weights, n: int):
     edge order and then its v-terms. On the card ``[f; −f]`` is summed by
     K7 through the segment layout of ``[u; v]`` built for this call (a
     stable sort by id), which adds the same terms in the same order: the
-    same bits, every run."""
+    same bits, every run. A fake ``pos`` (a dry run) takes the card's form."""
     e = edges.long().clamp(0, n)
     u, v = e[:, 0], e[:, 1]
     pos_ext = torch.cat([pos, torch.zeros((1, 2), dtype=pos.dtype, device=pos.device)])
     f = weights[:, None] * (pos_ext[v] - pos_ext[u])  # force on u toward v
-    if pos.device.type == "cuda":
+    if build.on_card(pos):
         if f.dtype != torch.float32:
             raise ValueError(f"the attraction sums in float32 on the card (K7), got {f.dtype}")
         return segment_ops.segment_sum_edges(torch.cat([f, -f]),

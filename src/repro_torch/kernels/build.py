@@ -16,6 +16,17 @@ a reuse adds nothing.
 Every C entry point launches on the stream it is given, allocates nothing,
 and returns ``cudaGetLastError()``; ``check`` raises on a non-zero code, so
 a refused launch never passes silently.
+
+Every wrapper picks its form with ``route``: the kernel for a CUDA tensor,
+the plain PyTorch version for a CPU tensor, and for a fake tensor
+(``torch._subclasses.fake_tensor``, the dry run's), whatever device it
+names, the entry's *abstract rule*: the wrapper's own allocations (output
+and scratch, so their shapes, dtypes, strides and bytes are the kernel's)
+with the launch left out, and the launch's operations and bytes handed to
+``rule``, which tells every observer in ``RULE_OBSERVERS``. A rule is not
+a launch: ``LAUNCHES`` counts the card's launches only. ``on_card``
+is the same test for callers that pick between a kernel's form and a
+plain one.
 """
 from __future__ import annotations
 
@@ -53,6 +64,12 @@ LAUNCHES = dict.fromkeys(
     KERNELS + ("scatter_combine", "repulsion_rows", "near_field_rows", "count_disks",
                "segment_offsets", "segment_sum_edges", "segment_sum_gather_bwd",
                "attraction_sum", "cms_update_keys"), 0)
+# Callables ``observer(entry, operations, nbytes)`` told of each abstract
+# rule call (the dry run's analysis registers one).
+RULE_OBSERVERS: list = []
+# The H100 SXM's SM count: a rule sizes K2's scratch with it where no card
+# is present to ask.
+H100_SMS = 132
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -166,3 +183,50 @@ def require(t: torch.Tensor, what: str, dtype: torch.dtype, device: torch.device
         raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: must be contiguous")
+
+
+def is_fake(t) -> bool:
+    """True for a fake tensor (``FakeTensorMode``), whatever device it names."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
+def on_card(t) -> bool:
+    """A CUDA tensor, or a fake one: the path a kernel runs on (a dry run
+    traces the card's path on fake tensors of either device)."""
+    return t.device.type == "cuda" or is_fake(t)
+
+
+def route(t, what: str) -> str:
+    """The form of a kernel entry for input ``t``: "rule" for a fake tensor
+    (whatever its device), "plain" for a CPU tensor, "cuda" for a CUDA
+    tensor; raises on any other device."""
+    if is_fake(t):
+        return "rule"
+    if t.device.type == "cpu":
+        return "plain"
+    if t.device.type == "cuda":
+        return "cuda"
+    raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def rule(entry: str, out, operations: int, nbytes: int):
+    """Tell every observer of one abstract rule call of ``entry`` (its
+    launch's operations and bytes) and return ``out``."""
+    for observe in RULE_OBSERVERS:
+        observe(entry, int(operations), int(nbytes))
+    return out
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of ``device``'s card; ``H100_SMS`` where no card is
+    present (a dry run on the CPU)."""
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return H100_SMS
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -13,11 +13,15 @@ n sources (the sharded layout's owned rows): the kernel's row-range entry
 on the card, with the slices of the whole n and a ``[S, nl, 2]`` scratch,
 so its rows are bitwise those of the full launch; on the CPU the rows of
 the same plain version ``repulsion`` takes.
+
+A fake tensor takes the abstract rule (``build.route``): the output and
+the scratch the card's call allocates, sized for the card's SM count
+(132, the H100's, where no card is present), and ``repulsion_cost`` /
+``repulsion_rows_cost`` of the launch.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -41,6 +45,23 @@ NODES_PER_BLOCK = 256
 SOURCE_TILE = 256
 BLOCKS_PER_SM = 8  # enough resident blocks to hide the per-pair latency
 MAX_SLICES = 16  # scratch ≤ 16 · n · 8 bytes
+# Operations per pair: dx, dy (2); dx²+dy² (3); max ε² (1); sqrt (1); eff:
+# d−ri−rj (2, radii only) and max ε (1); mi·mj (1); eff·d (1); divide (1);
+# f += mag·dx, mag·dy (4). kr·mi is hoisted per node.
+OPS_PER_PAIR = {True: 17, False: 15}
+
+
+def repulsion_cost(n: int, radii: bool) -> tuple[int, int]:
+    """(operations, bytes) of one ``repulsion`` launch over n nodes: every
+    pair's arithmetic; pos, mass (and radii) read and the forces written
+    once."""
+    return OPS_PER_PAIR[radii] * n * n, n * (20 + 4 * radii)
+
+
+def repulsion_rows_cost(n: int, nl: int, radii: bool) -> tuple[int, int]:
+    """(operations, bytes) of one ``repulsion_rows`` launch: its nl rows
+    against all n sources; every source read once, its rows written."""
+    return OPS_PER_PAIR[radii] * nl * n, n * (12 + 4 * radii) + nl * 8
 
 
 def source_slices(n: int, sms: int) -> int:
@@ -62,11 +83,6 @@ def slice_bounds(n: int, slices: int) -> list[tuple[int, int]]:
              min(n, (s + 1) * tiles // slices * SOURCE_TILE)) for s in range(slices)]
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def repulsion(pos, mass, kr: float, radii=None):
     """FA2 repulsion forces. pos [n,2], mass [n] (radii [n] or None) → [n,2].
 
@@ -74,20 +90,21 @@ def repulsion(pos, mass, kr: float, radii=None):
     """
     dev = pos.device
     n = pos.shape[0]
-    if dev.type == "cpu":
+    form = build.route(pos, "repulsion")
+    if form == "plain":
         if n <= 2048:
             return repulsion_ref(pos, mass, kr, radii=radii)
         return repulsion_chunked(pos, mass, kr, radii=radii)
-    if dev.type != "cuda":
-        raise ValueError(f"repulsion: unsupported device {dev}")
     build.require(pos, "pos", torch.float32, dev, (n, 2))
     build.require(mass, "mass", torch.float32, dev, (n,))
     if radii is not None:
         build.require(radii, "radii", torch.float32, dev, (n,))
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    slices = source_slices(n, _sm_count(dev.index if dev.index is not None
-                                        else torch.cuda.current_device()))
+    slices = source_slices(n, build.sm_count(dev))
     scratch = torch.empty((slices, n, 2), dtype=torch.float32, device=dev) if slices > 1 else None
+    if form == "rule":
+        del scratch
+        return build.rule("repulsion_nbody", out, *repulsion_cost(n, radii is not None))
     fn = build.entry("repulsion_nbody", _ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(
@@ -110,21 +127,22 @@ def repulsion_rows(pos, mass, i0: int, nl: int, kr: float, radii=None):
     n = pos.shape[0]
     if not 0 <= i0 <= n - nl or nl < 0:
         raise ValueError(f"repulsion_rows: rows [{i0}, {i0 + nl}) outside [0, {n})")
-    if dev.type == "cpu":
+    form = build.route(pos, "repulsion_rows")
+    if form == "plain":
         if n <= 2048:
             return repulsion_ref(pos, mass, kr, radii=radii)[i0:i0 + nl]
         return repulsion_chunked_rows(pos, mass, i0, nl, kr, radii=radii)
-    if dev.type != "cuda":
-        raise ValueError(f"repulsion_rows: unsupported device {dev}")
     build.require(pos, "pos", torch.float32, dev, (n, 2))
     build.require(mass, "mass", torch.float32, dev, (n,))
     if radii is not None:
         build.require(radii, "radii", torch.float32, dev, (n,))
     out = torch.empty((nl, 2), dtype=torch.float32, device=dev)
-    slices = source_slices(n, _sm_count(dev.index if dev.index is not None
-                                        else torch.cuda.current_device()))
+    slices = source_slices(n, build.sm_count(dev))
     scratch = (torch.empty((slices, nl, 2), dtype=torch.float32, device=dev)
                if slices > 1 else None)
+    if form == "rule":
+        del scratch
+        return build.rule("repulsion_rows", out, *repulsion_rows_cost(n, nl, radii is not None))
     fn = build.entry("repulsion_nbody", _ROWS_ARGTYPES, "repulsion_nbody_rows")
     with torch.cuda.device(dev):
         code = fn(

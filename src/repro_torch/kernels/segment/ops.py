@@ -27,6 +27,12 @@ transpose of the reference's segment sum, plain torch), and the gather's
 backward sums the edge gradients into their rows through K7. Autograd's
 own backward for ``x[idx]`` would add on float atomics; this one keeps a
 training step on the card the same bits from run to run.
+
+A fake tensor takes each entry's abstract rule (``build.route``): the
+allocations of the card's call (output, and ``segment_sum``'s sorted copy)
+with the launch left out, and its ``*_cost`` (operations, bytes). A rule
+cannot read the offsets, so ``attraction_sum``'s counts every row as kept,
+the most a launch adds.
 """
 from __future__ import annotations
 
@@ -39,7 +45,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.segment.ref import (
     attraction_sum_ref,
-    segment_layout_ref,
     segment_offsets_ref,
     segment_sum_layout_ref,
     segment_sum_ref,
@@ -58,6 +63,36 @@ _ATTRACTION_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctyp
 # SPLIT_ROWS, the part of it whose first rows lie in one window of
 # GROUP_ROWS sorted rows.
 GROUP_ROWS, SPLIT_ROWS = 512, 2048
+
+
+# Operations and bytes of one launch of each entry (the bound of the
+# ``kernels`` line of ``chip_smoke.py`` and of the dry run's kernel counts):
+# every input read once, every output written once.
+def segment_sum_cost(e: int, d: int, n: int) -> tuple[int, int]:
+    """``segment_sum``: one add per element; the sorted rows and their ids
+    read, [n, d] written."""
+    return e * d, e * (4 * d + 4) + n * d * 4
+
+
+def segment_offsets_cost(e: int, n: int) -> tuple[int, int]:
+    """``segment_offsets``: a compare per row and per boundary; the ids
+    read, n + 1 offsets written."""
+    return e + n, e * 4 + (n + 1) * 4
+
+
+def sum_through_cost(e: int, d: int, n: int) -> tuple[int, int]:
+    """``segment_sum_edges`` and ``segment_sum_gather_bwd`` (a sum through
+    a layout): one add per element; the rows and their order read, the
+    offsets read, [n, d] written."""
+    return e * d, e * (4 * d + 4) + 4 * (n + 1) + 4 * n * d
+
+
+def attraction_sum_cost(n: int, kept: int) -> tuple[int, int]:
+    """``attraction_sum``: 6 operations per kept row (two subtracts, two
+    multiplies, two adds); each kept row's destination and weight read
+    (its destination's position from cache), each node's position and
+    offset read and force written."""
+    return 6 * kept, kept * 8 + 20 * n
 
 
 @dataclass(frozen=True)
@@ -87,14 +122,8 @@ def segment_layout(ids, n_segments: int, sorted: bool = False) -> SegmentLayout:
     """The ``SegmentLayout`` of [E] int ids over ``n_segments`` segments.
     ``sorted`` promises ascending ids (no sort, no ``perm``). On the card:
     one stable sort, its order cast to int32 once, and the offsets written
-    by K7's ``segment_offsets`` entry."""
-    dev = ids.device
+    by K7's ``segment_offsets`` entry (``searchsorted`` on the CPU)."""
     ids = ids.to(torch.int32).contiguous()
-    if dev.type == "cpu":
-        perm, offsets = segment_layout_ref(ids, n_segments, sorted)
-        return SegmentLayout(perm, offsets, ids, segment_groups(offsets, ids.shape[0]))
-    if dev.type != "cuda":
-        raise ValueError(f"segment_layout: unsupported device {dev}")
     e = ids.shape[0]
     if e >= 2**31 or not 0 <= n_segments < 2**31 - 1:
         raise ValueError(f"segment_layout: {e} rows into {n_segments} segments, the kernel "
@@ -114,13 +143,14 @@ def segment_offsets(sid, n_segments: int):
     entry on the card (a thread writes the boundaries of 4 rows),
     ``searchsorted`` on the CPU."""
     dev = sid.device
-    if dev.type == "cpu":
+    form = build.route(sid, "segment_offsets")
+    if form == "plain":
         return segment_offsets_ref(sid, n_segments)
-    if dev.type != "cuda":
-        raise ValueError(f"segment_offsets: unsupported device {dev}")
     e = sid.shape[0]
     build.require(sid, "sid", torch.int32, dev, (e,))
     offsets = torch.empty(n_segments + 1, dtype=torch.int32, device=dev)
+    if form == "rule":
+        return build.rule("segment_offsets", offsets, *segment_offsets_cost(e, n_segments))
     fn = build.entry("segment_sum", _OFFSETS_ARGTYPES, "segment_offsets")
     with torch.cuda.device(dev):
         code = fn(build.ptr(sid), e, n_segments, build.ptr(offsets), build.stream(dev))
@@ -165,10 +195,9 @@ def segment_sum(data, seg_ids, n_segments: int, indices_are_sorted: bool = False
     so the sum is the same either way).
     """
     dev = data.device
-    if dev.type == "cpu":
+    form = build.route(data, "segment_sum")
+    if form == "plain":
         return segment_sum_ref(data, seg_ids, n_segments, indices_are_sorted)
-    if dev.type != "cuda":
-        raise ValueError(f"segment_sum: unsupported device {dev}")
     e = data.shape[0]
     if e >= 2**31:
         raise ValueError(f"segment_sum: {e} rows, the kernel takes fewer than 2**31")
@@ -180,6 +209,9 @@ def segment_sum(data, seg_ids, n_segments: int, indices_are_sorted: bool = False
     x = x.contiguous()
     d = x.shape[1]
     out = torch.empty((n_segments, d), dtype=torch.float32, device=dev)
+    if form == "rule":
+        out = build.rule("segment_sum", out, *segment_sum_cost(e, d, n_segments))
+        return out.reshape((n_segments,) + tuple(data.shape[1:])).to(data.dtype)
     fn = build.entry("segment_sum", _ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(build.ptr(x), build.ptr(seg_ids), e, d, n_segments,
@@ -227,10 +259,9 @@ def attraction_sum(pos, dst, w, layout: SegmentLayout):
     n, e = pos.shape[0], dst.shape[0]
     if layout.perm is not None or layout.n_segments != n:
         raise ValueError(f"attraction_sum: expected the layout of {n} nodes' sorted sources")
-    if dev.type == "cpu":
+    form = build.route(pos, "attraction_sum")
+    if form == "plain":
         return attraction_sum_ref(pos, dst, w, layout.offsets)
-    if dev.type != "cuda":
-        raise ValueError(f"attraction_sum: unsupported device {dev}")
     build.require(pos, "pos", torch.float32, dev, (n, 2))
     build.require(dst, "dst", torch.int32, dev, (e,))
     build.require(w, "w", torch.float32, dev, (e,))
@@ -238,6 +269,8 @@ def attraction_sum(pos, dst, w, layout: SegmentLayout):
     groups = layout.groups
     build.require(groups, "groups", torch.int32, dev)
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    if form == "rule":
+        return build.rule("attraction_sum", out, *attraction_sum_cost(n, e))
     fn = build.entry("segment_sum", _ATTRACTION_ARGTYPES, "attraction_sum")
     with torch.cuda.device(dev):
         code = fn(build.ptr(pos), build.ptr(dst), build.ptr(w), build.ptr(layout.offsets),
@@ -292,10 +325,9 @@ def _sum_through(data, layout: SegmentLayout, counter: str):
     on the CPU, K7's ``segment_sum_layout`` entry on the card."""
     dev = data.device
     e, n = data.shape[0], layout.n_segments
-    if dev.type == "cpu":
+    form = build.route(data, counter)
+    if form == "plain":
         return segment_sum_layout_ref(data, layout.perm, layout.offsets)
-    if dev.type != "cuda":
-        raise ValueError(f"segment_sum: unsupported device {dev}")
     d = math.prod(data.shape[1:])
     x = data.to(torch.float32).reshape(e, d).contiguous()
     build.require(layout.offsets, "offsets", torch.int32, dev, (n + 1,))
@@ -304,6 +336,9 @@ def _sum_through(data, layout: SegmentLayout, counter: str):
     groups = layout.groups
     build.require(groups, "groups", torch.int32, dev)
     out = torch.empty((n, d), dtype=torch.float32, device=dev)
+    if form == "rule":
+        out = build.rule(counter, out, *sum_through_cost(e, d, n))
+        return out.reshape((n,) + tuple(data.shape[1:])).to(data.dtype)
     perm = ctypes.c_void_p(None) if layout.perm is None else build.ptr(layout.perm)
     fn = build.entry("segment_sum", _LAYOUT_ARGTYPES, "segment_sum_layout")
     with torch.cuda.device(dev):

@@ -30,7 +30,9 @@ every set of axes, holding the ranks that differ only along those axes
 (``groups[axes]``; ``collectives`` reduces and gathers over them).
 ``make_model_mesh`` builds it over the process group, ``make_host_mesh`` is
 the (1, 1) mesh of one process, ``make_production_mesh`` the (16, 16) or
-(2, 16, 16) one.
+(2, 16, 16) one. Over a fake process group (backend "fake", the dry run's:
+one real process standing for one rank of the world) a mesh takes any
+device, a card or not.
 
 ``spawn_local`` runs a function on ``world`` ranks of this host with
 ``torch.multiprocessing`` and a ``file://`` store (no TCP port), under a
@@ -127,6 +129,14 @@ def make_stream_mesh(devices: int | None = None, backend: str | None = None,
     if devices is not None and devices != size:
         raise ValueError(f"make_stream_mesh: {devices} ranks asked for, the "
                          f"process group has {size}")
+    if dist.get_backend() == "fake":
+        # A dry run's fake world (``torch.testing``'s fake process group):
+        # no rank exists but this one, and no card is needed; its tensors
+        # are fake, on the device asked for (default CUDA).
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", 0)
+        return StreamMesh(rank, size, dev, "fake", dist.group.WORLD)
     local_world = _env_int("LOCAL_WORLD_SIZE", size)
     dev = _mesh_device(device, _env_int("LOCAL_RANK", rank))
     have = dist.get_backend()

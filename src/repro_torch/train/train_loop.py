@@ -81,12 +81,20 @@ def _microbatches(batch: dict, n: int, place):
     """``part(i)``: microbatch i of ``n``, the reference's split of the
     *global* batch (``x.reshape(n, B // n, ...)``): global rows ``[i·B/n,
     (i+1)·B/n)``. With a placement each rank holds its block of those rows
-    along the batch axes (the block the reference's sharding of the
-    reshaped batch gives it): the inputs split over the batch axes are
-    gathered whole once (tokens and masks: small), and every microbatch is
-    cut from them. Splitting each rank's own rows instead would group
-    other rows into each microbatch, and a microbatch's masked mean and its
-    MoE routing depend on which rows share it (fault F3)."""
+    along the batch axes: the inputs split over the batch axes are gathered
+    whole once (tokens and masks: small), and every microbatch is cut from
+    them. Splitting each rank's own rows instead would group other rows
+    into each microbatch, and a microbatch's masked mean and its MoE
+    routing depend on which rows share it (fault F3).
+
+    Where ``B/n`` rows do not split evenly over the D batch shards (fault
+    G1), rank j takes rows ``[j·c, (j+1)·c)`` of the microbatch cut at
+    ``B/n``, c = ceil(B/n / D), as XLA pads an uneven shard: a share may be
+    short or empty. The losses weight each rank by its rows already (a
+    rank's masked sum over the global mask count). A model that routes
+    tokens to experts raises there: its capacity and load-balance term are
+    per token shard, and the reference's ``shard_map`` refuses such shards
+    too."""
     if place is None or not place.mesh.live_axes(place.batch_axes):
         def part(i):
             return {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
@@ -98,19 +106,23 @@ def _microbatches(batch: dict, n: int, place):
 
     mesh = place.mesh
     d = mesh.extent(place.batch_axes)
-    split = set()
+    split, uneven = set(), False
     for k, v in batch.items():
         spec = place.batch_specs.get(k, ())
         axes = mesh.live_axes(entry_axes(spec[0])) if len(spec) else ()
         rows = v.shape[0] * (d if axes else 1)
-        if rows % (n * d if axes else n):
+        if rows % n:
             raise NotImplementedError(
                 f"microbatching: input {k!r} has {rows} rows, which do not split into "
-                f"{n} microbatches of {d if axes else 1} equal blocks (one a batch shard); "
-                "the reference splits the global batch into microbatches and each over the "
-                "batch shards")
+                f"{n} microbatches (the reference reshapes the global batch to (n, B/n, ...))")
         if axes:
             split.add(k)
+            uneven |= bool(rows // n % d)
+    if uneven and _routes_tokens(place.specs):
+        raise NotImplementedError(
+            f"microbatching: {n} microbatches of the global batch do not split evenly over "
+            f"{d} batch shards, and an expert layer's capacity and load balance are per "
+            "token shard (the reference's shard_map refuses uneven token shards)")
     whole = {k: all_gather_axes(v, mesh, place.batch_axes, 0) if k in split else v
              for k, v in batch.items()}
     j = mesh.index(place.batch_axes)
@@ -120,13 +132,21 @@ def _microbatches(batch: dict, n: int, place):
         for k, v in whole.items():
             b = v.shape[0] // n
             if k in split:
-                per = b // d
-                out[k] = v[i * b + j * per:i * b + (j + 1) * per]
+                per = -(-b // d)
+                lo, hi = min(j * per, b), min((j + 1) * per, b)
+                out[k] = v[i * b + lo:i * b + hi]
             else:
                 out[k] = v[i * b:(i + 1) * b]
         return out
 
     return part
+
+
+def _routes_tokens(specs) -> bool:
+    """True when the parameter tree holds an expert router."""
+    if isinstance(specs, dict):
+        return "router" in specs or any(_routes_tokens(v) for v in specs.values())
+    return False
 
 
 def make_train_step(loss_fn: Callable, tcfg: TrainConfig, mesh=None):

@@ -71,8 +71,35 @@ def test_every_module_imports_without_jax_or_reference():
                  "repro_torch.train", "repro_torch.train.optimizer",
                  "repro_torch.train.compression", "repro_torch.train.train_loop",
                  "repro_torch.train.checkpoint", "repro_torch.train.fault_tolerance",
-                 "repro_torch.launch.train", "repro_torch.sharding.params"):
+                 "repro_torch.launch.train", "repro_torch.sharding.params",
+                 "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis"):
         assert name in walked, name
+
+
+_BLOCKED_EXAMPLES = """
+import importlib.util, pathlib, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+names = []
+for path in sorted(pathlib.Path({root!r}, "examples").glob("*_torch.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(path.stem)
+bad = sorted(m for m in sys.modules if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+assert not [m for m in bad if sys.modules[m] is not None], bad
+print(" ".join(names))
+"""
+
+
+def test_torch_examples_import_without_jax_or_reference():
+    """The port's examples (``examples/*_torch.py``) import no ``jax`` and
+    nothing of the reference package."""
+    out = subprocess.run([sys.executable, "-c", _BLOCKED_EXAMPLES.format(root=str(ROOT))],
+                         capture_output=True, text=True, env=_env(), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert set(out.stdout.split()) == {
+        "quickstart_torch", "stream_from_disk_torch", "gnn_fullbatch_torch",
+        "rounds_series_torch", "serve_lm_torch", "train_lm_torch"}
 
 
 def test_public_surface_covers_the_reference():
@@ -136,7 +163,7 @@ def test_registry_has_the_reference_keys():
 @pytest.mark.parametrize("pattern", [r"\bjax\b", r"(?<![\w/])repro\."])
 def test_no_port_file_names_jax_or_the_reference(pattern):
     files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu")]
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", *sorted((ROOT / "examples").glob("*_torch.py"))]
     hits = [
         f"{p.relative_to(ROOT)}:{i}"
         for p in files

@@ -14,7 +14,12 @@ Inputs are made here from numpy seeds.
   against the reference's sharded microbatched step, with
   ``tests/test_torch_train.py``'s tolerances; the dense cases also against
   the port's one-rank microbatched step (the (2, 1) case differed from it
-  by 4.1e-4 of the loss before the repair);
+  by 4.1e-4 of the loss before the repair); G1: 8 rows in 4 microbatches
+  on (4, 1), whose shares are uneven (two ranks a row, two none), and on
+  (2, 2), dense against the reference's sharded step and the port's
+  one-rank step, granite on (2, 2) against the reference (on (4, 1) the
+  reference's MoE ``shard_map`` refuses uneven token shards, and the port
+  raises there too);
 * (b) sequence parallelism: train steps with the sequence split over
   "model" on (1, 2) and (2, 2) bitwise the same step with ``seq_axis``
   None, and within tolerance of the reference's sharded step; granite on
@@ -191,6 +196,7 @@ def _ranks_agree(ranks, kind, name, key):
 
 # --------------------------------------------------------------------- (a)
 F3_CASES = [c for c in W.TRAIN_CASES if c[0].startswith("f3")]
+G1_CASES = [c for c in W.TRAIN_CASES if c[0].startswith("g1")]
 SP_CASES = [c for c in W.TRAIN_CASES if c[0].startswith("sp")]
 
 
@@ -209,14 +215,29 @@ def test_microbatches_on_a_mesh_follow_the_reference(runs, case):
     _ranks_agree(ranks, "train", name, "params")
 
 
+@pytest.mark.parametrize("case", G1_CASES, ids=[c[0] for c in G1_CASES])
+def test_uneven_microbatch_shares_follow_the_reference(runs, case):
+    """B/n rows that do not split evenly over the batch shards (fault G1):
+    each rank takes its padded block of every microbatch, possibly none,
+    and the step matches the reference's sharded step (and the dense
+    cases the port's one-rank step) within the train tolerances."""
+    test_microbatches_on_a_mesh_follow_the_reference(runs, case)
+
+
 def test_microbatches_that_do_not_split_raise():
+    """Global rows that do not split into n microbatches raise, as the
+    reference's reshape does; uneven shares of an expert model raise, as
+    the reference's MoE ``shard_map`` does."""
     mesh = ModelMesh(("data", "model"), {"data": 2, "model": 1}, 0, {"data": 0, "model": 0},
                      torch.device("cpu"), {})
     from repro_torch.train.train_loop import _microbatches
 
     place = Placement(mesh, {}, ("data",), {"tokens": rules.P("data", None)})
     with pytest.raises(NotImplementedError, match="microbatches"):
-        _microbatches({"tokens": torch.zeros((3, 4), dtype=torch.int32)}, 2, place)
+        _microbatches({"tokens": torch.zeros((3, 4), dtype=torch.int32)}, 4, place)
+    moe = replace(place, specs={"layers": {"router": rules.P()}})
+    with pytest.raises(NotImplementedError, match="shard_map"):
+        _microbatches({"tokens": torch.zeros((3, 4), dtype=torch.int32)}, 2, moe)
 
 
 # --------------------------------------------------------------------- (b)

@@ -26,13 +26,18 @@ LR = MW.LR["lm"]
 # A train case: (name, config, mesh shape, (rows, sequence), microbatches,
 # held against): "ref" the reference's sharded step, "one" the port's
 # one-rank step, "nosp" the same step with ``Placement.seq_axis`` None
-# (bitwise). F3's cases microbatch on a mesh that splits the batch; the SP
+# (bitwise). F3's cases microbatch on a mesh that splits the batch; G1's
+# split 8 rows into 4 microbatches of 2, which (4, 1)'s 4 batch shards take
+# unevenly (two ranks a row, two none; (2, 2)'s 2 shards a row each); the SP
 # cases split the sequence over "model"; "sp-off" has a sequence that does
 # not divide over it.
 TRAIN_CASES = [
     ("f3-dense-2x1", "dense", (2, 1), (4, 16), 2, ("ref", "one")),
     ("f3-dense-2x2", "dense", (2, 2), (4, 16), 2, ("ref", "one")),
     ("f3-granite-drop-2x2", "granite-drop", (2, 2), (4, 32), 2, ("ref",)),
+    ("g1-dense-4x1", "dense", (4, 1), (8, 16), 4, ("ref", "one")),
+    ("g1-dense-2x2", "dense", (2, 2), (8, 16), 4, ("ref", "one")),
+    ("g1-granite-2x2", "granite", (2, 2), (8, 16), 4, ("ref",)),
     ("sp-dense-1x2", "dense", (1, 2), (4, 16), 0, ("ref", "nosp")),
     ("sp-dense-2x2", "dense", (2, 2), (4, 16), 0, ("ref", "nosp")),
     ("sp-granite-1x2", "granite", (1, 2), (4, 16), 0, ("ref", "nosp")),
@@ -72,10 +77,11 @@ SAS_CASES = [
 # each; the first also computes the blocks.
 REF_GROUPS = [
     ["f3-dense-2x1", "f3-dense-2x2", "sp-off-1x2", "prefill-dense-1x2", "serve-1x2",
-     "serve-2x1", "retrieval-1x2"],
+     "serve-2x1", "retrieval-1x2", "g1-dense-4x1"],
     ["f3-granite-drop-2x2", "sp-granite-1x2", "prefill-granite-1x2", "decode-ref-1x2",
-     "serve-2x2"],
-    ["sp-dense-1x2", "sp-dense-2x2", "prefill-dense-2x2", "decode-ref-2x2", "retrieval-2x2"],
+     "serve-2x2", "g1-granite-2x2"],
+    ["sp-dense-1x2", "sp-dense-2x2", "prefill-dense-2x2", "decode-ref-2x2", "retrieval-2x2",
+     "g1-dense-2x2"],
 ]
 # devices_indices_map cases: the cache's spec (``P(None, bdim, "model", None,
 # None)``, bdim "data" where it splits the rows) and the candidates' (every
