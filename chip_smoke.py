@@ -162,9 +162,12 @@ Phases, each printing its wall seconds:
                run.
 15. dry run  — the dry run (``repro_torch.launch.dryrun``,
                ``dry_run_smoke_phase``): (a) each kernel entry with an
-               abstract rule (K2's, K7's and K8's) launched once and called
-               once on fake CUDA tensors of the same inputs, the outputs'
-               shapes, dtypes and strides equal; (b) each one-card run of
+               abstract rule (K2's, K5's, K6's, K7's and K8's) launched once
+               and called once on fake CUDA tensors of the same inputs, the
+               outputs' shapes, dtypes and strides equal, and the grid form
+               of ``layout_livejournal`` run and traced so, its rule calls
+               equal to its launches and K5's and K6's counts their bound
+               arithmetic; (b) each one-card run of
                the training phase (yi-6b, granite-moe with both states,
                SASRec, gin-tu) predicted by one dry step of the same
                configuration and batch on fake CUDA tensors — the bytes on
@@ -177,21 +180,23 @@ Phases, each printing its wall seconds:
 16. model mesh — ``build_step(..., mesh)`` on 2 ranks sharing the card
                under gloo (``model_mesh_phase``): yi-6b ``train_4k`` at
                full width, tensor and sequence parallel on (1, 2), at the
-               depth its estimate allows under 60 GB; granite-moe, expert
-               and tensor parallel, 2 layers; yi-6b at 2 layers, data
-               parallel with ZeRO-3 of d_model and ``compress_grads`` on
-               (2, 1); yi-6b at 2 layers with the sequence split and again
-               unsplit on (1, 2) (bitwise logged); yi-6b at 2 layers on
-               (2, 1) with 2 microbatches of 4 × 4,096 tokens and a ragged
-               loss mask (fault F3); SASRec
-               ``train_batch`` uncut with its item table split; gin-tu
-               ``full_graph_sm`` with its edges split, twice, bitwise; the
-               four ``bgv_*`` cells at their padded shapes and a grid
-               variant (K8, K2's and K6's row entries, K5, K7). Each against
-               its one-rank step on the card: the LMs and SASRec within
-               ``TRAIN_TOL``, gin-tu within ``MESH_GNN_TOL``, the
-               BigGraphVis cells bitwise; per rank: launches, step ms,
-               peak bytes, collective seconds.
+               depth its estimate allows under 60 GB, at most 4 layers;
+               granite-moe, expert and tensor parallel, 2 layers; yi-6b at
+               2 layers, data parallel with ZeRO-3 of d_model and
+               ``compress_grads`` on (2, 1); yi-6b at 2 layers with the
+               sequence split and again unsplit on (1, 2) (bitwise
+               logged); yi-6b at 2 layers on (2, 1) with 2 microbatches of
+               4 × 4,096 tokens and a ragged loss mask (fault F3), one
+               step; SASRec ``train_batch`` uncut with its item table
+               split; gin-tu ``full_graph_sm``, twice, bitwise, and
+               graphcast's at 2 layers, one step, each with its edges and
+               its node rows split; the four ``bgv_*`` cells at their
+               padded shapes and a grid variant (K8, K2's and K6's row
+               entries, K5, K7). Each against its one-rank step on the
+               card: the LMs and SASRec within ``TRAIN_TOL``, gin-tu within
+               ``MESH_GNN_TOL``, graphcast within ``MESH_GRAPHCAST_TOL``,
+               the BigGraphVis cells bitwise; per rank: launches, step ms,
+               peak bytes, collective seconds, and the GNNs' node rows.
 17. serving mesh — the serving cells on 2 ranks sharing the card under
                gloo (``serving_mesh_phase``), bfloat16 weights at the true
                fan-in, each against its one-rank step run first on the
@@ -298,8 +303,9 @@ LM_CPU_TOL, SAS_TOL, GNN_TOL = 2e-5, 1e-5, 1e-5
 # outside the tensor cores (a fused multiply-add counts as two operations).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
-# The bounds of K2's, K7's and K8's rows come from the cost functions
-# beside their wrappers (``repulsion_cost``, ``segment_offsets_cost``, ...),
+# The bounds of K2's, K5's, K6's, K7's and K8's rows come from the cost
+# functions beside their wrappers (``repulsion_cost``, ``far_field_cost``,
+# ``near_field_cost`` with the input's same-cell pairs, ...),
 # which the dry run's abstract rules use too; ``bytes_ops`` puts one in
 # ``kernel_row``'s order.
 # Per node i and axis: |f_kernel − f_plain| ≤ K2_TOL · Σ_j |f_ij|. Both
@@ -314,10 +320,6 @@ K2_TOL = 1e-4
 # Per (disk, pixel) pair inside the disk's bounding box: dx, dy (2);
 # dx², dy² (2); add (1); compare with r² (1).
 K4_OPS_PER_PAIR = 6
-# Per (node, cell) pair: dx, dy (2); dx², dy² and their sum (3); max EPS2
-# (1); ·M_j (1, kr·m_i hoisted); divide (1); own-cell select (1); mag·dx,
-# mag·dy (2); the two tile-sum adds (2).
-K5_OPS_PER_PAIR = 13
 # Per node and axis: |f_kernel − f_plain| ≤ K5_TOL · Σ_j |f_ij|. The
 # kernel fuses d² into an FMA (≤ 1 ulp), takes an approximate reciprocal
 # (≤ 2⁻²³) and applies kr·m_i once per node, so each pair force differs by
@@ -325,10 +327,6 @@ K5_OPS_PER_PAIR = 13
 # (12 + 256 + C/256) · 2⁻²⁴ of Σ|f_ij| (1.7e-5 at C = 4,096), and the plain
 # version's tree sum over the C cells less.
 K5_TOL = 1e-4
-# K6: one compare per in-range band slot, and per same-cell pair dx, dy (2);
-# dx², dy², sum (3); max (1); ·m_j (1); divide (1); mag·dx, mag·dy (2);
-# two adds (2).
-K6_OPS_PER_PAIR = 12
 # The layouts of src/repro_torch/csrc/near_field.cu (sorted nodes a block,
 # the window with its own kernel) and segment_sum.cu (floats a warp stages
 # at a time), for the edge cases.
@@ -2314,7 +2312,7 @@ def time_grid_kernels(torch, np, cap: Capture, row):
     row("far_field",
         cuda_ms(torch, lambda: k5(pos, mass, cell, ccent, cmass, kr), REPS),
         cuda_ms(torch, lambda: far_field_ref(pos, mass, cell, ccent, cmass, kr), 3),
-        None, err, n * 16 + c * 12 + n * 8, K5_OPS_PER_PAIR * n * c,
+        None, err, *bytes_ops(grid_ops.far_field_cost(n, c)),
         f"n={n} C={c} occupied={occupied}")
 
     # K6, bitwise. Operations: one compare per in-range band slot and the
@@ -2326,12 +2324,13 @@ def time_grid_kernels(torch, np, cap: Capture, row):
           "K6 differs on full-path input")
     n = pos_s.shape[0]
     w_eff = min(w, n - 1)
-    slots = sum(2 * (n - k) for k in range(1, w_eff + 1))
     pairs = sum(2 * int((cell_s[k:] == cell_s[:-k]).sum()) for k in range(1, w_eff + 1))
+    cost = grid_ops.near_field_cost(n, w, pairs)
+    slots = cost[0] - grid_ops.NEAR_OPS_PER_PAIR * pairs
     row("near_field",
         cuda_ms(torch, lambda: k6(pos_s, mass_s, cell_s, kr, w), REPS),
         cuda_ms(torch, lambda: near_field_ref(pos_s, mass_s, cell_s, kr, w), 3),
-        None, 0.0, n * 24, slots + K6_OPS_PER_PAIR * pairs,
+        None, 0.0, *bytes_ops(cost),
         f"n={n} W={w} band_slots={slots} same_cell_pairs={pairs}")
     # K6's row entry on rank 1's half of the same input. It needs its rows
     # and their ±W band (16 bytes each), and writes its rows; slots and
@@ -2344,20 +2343,20 @@ def time_grid_kernels(torch, np, cap: Capture, row):
     check(bits_equal(torch, got6, near_field_rows_ref(pos_s, mass_s, cell_s, kr, w, i0, nl)),
           "K6 rows differ from the plain row form on the full-path input")
     idx = torch.arange(i0, i0 + nl, device=pos_s.device)
-    rslots = rpairs = 0
+    rpairs = 0
     for k in range(-w_eff, w_eff + 1):
         if k == 0:
             continue
         j = idx + k
         ok = (j >= 0) & (j < n)
-        rslots += int(ok.sum())
         rpairs += int((ok & (cell_s[j.clamp(0, n - 1)] == cell_s[idx])).sum())
-    band = min(n, i0 + nl + w_eff) - max(0, i0 - w_eff)
+    cost = grid_ops.near_field_rows_cost(n, w, i0, nl, rpairs)
+    rslots = cost[0] - grid_ops.NEAR_OPS_PER_PAIR * rpairs
     row("near_field_rows",
         cuda_ms(torch, lambda: grid_ops.near_field_rows(pos_s, mass_s, cell_s, kr, w, i0, nl),
                 REPS),
         cuda_ms(torch, lambda: near_field_rows_ref(pos_s, mass_s, cell_s, kr, w, i0, nl), 3),
-        None, 0.0, band * 16 + nl * 8, rslots + K6_OPS_PER_PAIR * rpairs,
+        None, 0.0, *bytes_ops(cost),
         f"n={n} rows [{i0}, {i0 + nl}) W={w} band_slots={rslots} same_cell_pairs={rpairs}")
 
     # K7: the cell statistics (full path), and on both paths the
@@ -3532,9 +3531,9 @@ GNN_SMALL_CELLS = (("gin-tu", "molecule"), ("gat-cora", "full_graph_sm"))
 
 def gnn_cell_batch(np, name: str, cell: str):
     """``(arch, shape, model config, numpy batch)`` of gin-tu's ``molecule``
-    (a ``MoleculeStream`` batch, padded to the cell) or gat-cora's
-    ``full_graph_sm`` (a seeded graph at Cora's counts, padded), checked
-    against the cell's ``input_specs``."""
+    (a ``MoleculeStream`` batch, padded to the cell) or a ``full_graph_sm``
+    (a seeded graph at Cora's counts, padded; normal targets for a
+    regression), checked against the cell's ``input_specs``."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import input_specs
     from repro_torch.data.pipeline import MoleculeStream
@@ -3561,8 +3560,10 @@ def gnn_cell_batch(np, name: str, cell: str):
         feats[:real_n] = (rng.random((real_n, shape.d_feat)) < 0.0127).astype(np.float32)
         ed = np.full((e, 2), n, np.int32)
         ed[:real_e] = rng.integers(0, real_n, (real_e, 2))
-        batch = {"feats": feats, "edges": ed,
-                 "labels": rng.integers(0, shape.n_out, n).astype(np.int32),
+        labels = (rng.standard_normal((n, shape.n_out)).astype(np.float32)
+                  if shape.task == "node_reg"
+                  else rng.integers(0, shape.n_out, n).astype(np.int32))
+        batch = {"feats": feats, "edges": ed, "labels": labels,
                  "mask": (np.arange(n) < real_n).astype(np.float32)}
     for k, v in input_specs(arch, shape).items():
         check(tuple(batch[k].shape) == tuple(v.shape), f"{name}/{cell}: {k} shape")
@@ -3844,6 +3845,23 @@ def _tree_to(tree, device):
     from repro_torch.models.param import tree_map
 
     return tree_map(lambda t: t.to(device, copy=True), tree)
+
+
+def _flip_share(torch, a, b, lr: float, steps: int) -> tuple:
+    """(share of elements off by more than 1e-6·max|b| + 2e-3·lr, leaf by
+    leaf; every element within AdamW's reach 2.02·lr·steps·(1 + 0.01|b|))
+    of two parameter trees, on their device."""
+    from repro_torch.models.param import tree_leaves
+
+    off = total = 0
+    reach = True
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = x.float(), y.float()
+        d = (x - y).abs()
+        off += int((d > 1e-6 * float(y.abs().max()) + 2e-3 * lr).sum())
+        total += d.numel()
+        reach &= bool((d <= 2.02 * lr * steps * (1 + 0.01 * y.abs())).all())
+    return off / max(total, 1), reach
 
 
 def _max_rel(torch, a, b) -> float:
@@ -4283,6 +4301,7 @@ def rule_entries(torch, dev):
     inputs on ``dev``: (entry, inputs, call on a dict of inputs)."""
     from repro_torch.core import cms as cms_lib
     from repro_torch.kernels.cms import ops as cms_ops
+    from repro_torch.kernels.grid import ops as grid_ops
     from repro_torch.kernels.repulsion import ops as rep_ops
     from repro_torch.kernels.segment import ops as seg_ops
 
@@ -4297,6 +4316,10 @@ def rule_entries(torch, dev):
          "w": torch.rand(e, generator=g, device=dev),
          "data": torch.randn((e, 5), generator=g, device=dev),
          "keys": torch.randint(-1, 500, (e,), generator=g, device=dev, dtype=torch.int32)}
+    cell, order = grid_ops.bin_and_sort(t["pos"], 16)
+    idx = order.long()
+    t["pos_s"], t["mass_s"], t["cell_s"] = t["pos"][idx], t["mass"][idx], cell[idx]
+    t["ccent"], t["cmass"] = grid_ops.cell_stats(t["pos_s"], t["mass_s"], t["cell_s"], 256)
     cfg = cms_lib.CMSConfig(rows=4, cols=337)
 
     def gather_bwd(x, idx):
@@ -4320,6 +4343,12 @@ def rule_entries(torch, dev):
         "cms_update": lambda t: cms_ops.update_hashed(
             torch.zeros((4, 337), device=t["w"].device), cms_ops.hashed_buckets(t["keys"], cfg),
             t["w"]),
+        "far_field": lambda t: grid_ops.far_field(t["pos_s"], t["mass_s"], t["cell_s"],
+                                                  t["ccent"], t["cmass"], 80.0),
+        "near_field": lambda t: grid_ops.near_field_sorted(t["pos_s"], t["mass_s"],
+                                                           t["cell_s"], 80.0, 32),
+        "near_field_rows": lambda t: grid_ops.near_field_rows(
+            t["pos_s"], t["mass_s"], t["cell_s"], 80.0, 32, 1000, 1500),
     }
 
 
@@ -4345,6 +4374,59 @@ def rule_checks(torch) -> None:
         want = (tuple(real.shape), real.dtype, real.stride(), real.device)
         log(f"dry run rule {name}: fake {got}, launch {want}")
         check(got == want, f"{name}: the abstract rule gives {got}, the launch {want}")
+
+
+def grid_step_rule_check(torch, np) -> dict:
+    """Gate (a) on a whole step: the grid form of ``layout_livejournal``
+    (K5–K7, ``_mesh_bgv_inputs``' seeded supergraph stand-in) run once on
+    the card with its launches counted, then traced on fake CUDA tensors of
+    the same inputs: each kernel entry's rule calls equal to its launches,
+    the outputs' metadata equal, K5's operations and bytes its bound
+    arithmetic (``far_field_cost``) and K6's the same with every in-range
+    band slot a same-cell pair (a rule cannot read the cells; the pairs this
+    input holds are logged beside it)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.grid import ops as grid_ops
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.launch.steps import build_step
+
+    arch, shape, args = _mesh_bgv_inputs(torch, np, "layout_livejournal+grid", "grid")
+    built = build_step(arch, shape)
+    for c in build.LAUNCHES:
+        build.LAUNCHES[c] = 0
+    real = built.fn(*args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    mode = FakeTensorMode()
+    with mode:
+        fake_args = [mode.from_tensor(a) for a in args]
+        with OpCounter() as counter:
+            fake = built.fn(*fake_args)
+    check(build.LAUNCHES == {**dict.fromkeys(build.LAUNCHES, 0), **launches},
+          "the grid step's rules launched a kernel")
+    rules = counter.stats.kernels
+    calls = {k: v["calls"] for k, v in rules.items()}
+    log(f"dry run grid step {shape.name}: rule calls {calls}, launches {launches}")
+    check(calls == launches, f"grid step: rule calls {calls}, launches {launches}")
+    meta = [(tuple(x.shape), x.dtype, x.stride(), x.device) for x in real]
+    check(meta == [(tuple(x.shape), x.dtype, x.stride(), x.device) for x in fake],
+          "grid step: the traced outputs differ in shape, dtype, strides or device")
+    n, c, w = shape.n_nodes, arch.model.layout_grid_size ** 2, arch.model.layout_grid_window
+    k5, k6 = grid_ops.far_field_cost(n, c), grid_ops.near_field_cost(n, w)
+    check((rules["far_field"]["operations"], rules["far_field"]["bytes"]) == k5,
+          f"grid step: K5's rule counted {rules['far_field']}, its bound arithmetic {k5}")
+    check((rules["near_field"]["operations"], rules["near_field"]["bytes"]) == k6,
+          f"grid step: K6's rule counted {rules['near_field']}, its bound arithmetic {k6}")
+    cell, order = args[-2:]
+    cell_s = cell[order.long()]
+    pairs = sum(2 * int((cell_s[k:] == cell_s[:-k]).sum()) for k in range(1, min(w, n - 1) + 1))
+    out = {"rule_calls": calls, "launches": launches, "far_field": rules["far_field"],
+           "near_field": rules["near_field"], "same_cell_pairs": pairs,
+           "near_field_ops_at_pairs": grid_ops.near_field_cost(n, w, pairs)[0]}
+    log("dry run grid step " + json.dumps(out))
+    return out
 
 
 def predicted_peak(run) -> tuple:
@@ -4416,6 +4498,7 @@ def dry_run_smoke_phase(torch, np, smi: str) -> dict:
         procs = dry_cli(env, tmp)
         try:
             rule_checks(torch)
+            out["grid_step"] = grid_step_rule_check(torch, np)
             results = {run["name"]: predicted_peak(run)
                        for run in runs if run["kind"] != "lm"}
             log(f"dry run: rules and the in-process predictions done at "
@@ -4474,13 +4557,17 @@ def dry_run_smoke_phase(torch, np, smi: str) -> dict:
 # TRAIN_TOL["lm"], measured with float32 activations) at LM_LR, yi-6b at
 # the deepest depth whose estimate (``mesh_lm_estimate``: the two ranks
 # together, then rank 0's one-rank step beside the gathered parameters)
-# stays under MESH_BUDGET bytes. gin-tu runs MESH_GNN_CELL, twice from the
+# stays under MESH_BUDGET bytes, at most MESH_TP_LAYERS: 8 layers fit, but
+# their two steps took 9.1 and 20.8 s on a slow host (H100 80GB HBM3,
+# 700.00 W, PERF.md §6; 4.3–4.6 s on a faster one, PERF.md §5), and the
+# tensor-parallel split is the same at 4. gin-tu runs MESH_GNN_CELL, twice from the
 # same parameters: on ogbn-products' counts a 2-rank step took 26.1–37.1 s
 # (30 all-reduces of a [2.45 M, 64] float32 partial a step through the
 # host, 53–70 s of collectives a 2-step run; H100 80GB HBM3, 700.00 W,
 # PERF.md §6), which puts the phase far past its 150 s aim even at
 # one step, so it runs gin-tu's ``full_graph_sm`` (Cora's counts).
 MESH_RANKS, MESH_BUDGET, MESH_TIMEOUT, MESH_STEPS = 2, 60e9, 900, 2
+MESH_TP_LAYERS = 4
 MESH_GNN_CELL = "full_graph_sm"
 # gin-tu on 2 ranks against one, after MESH_STEPS steps: (loss, grad norm,
 # parameters of max|p|), about 3× the measured 2.76e-7, 3.93e-7 and
@@ -4490,13 +4577,32 @@ MESH_GNN_CELL = "full_graph_sm"
 # rank, and their sum, where one rank adds one chain; Cora-sized GIN
 # gradients (norm 1.5e4) carry that difference further.
 MESH_GNN_TOL = (1e-6, 1.5e-6, 6e-5)
+# graphcast's MESH_GNN_CELL at MESH_GRAPHCAST_LAYERS layers on (2, 1), one
+# step, against its one-rank step: (loss, grad norm, share of parameter
+# elements off by more than 1e-6·max|p| + 2e-3·lr, the CPU tests' step
+# tolerance), every element also within AdamW's reach of 2.02·lr. A
+# parameter is not held to a max: the sparse 0/1 features leave a few
+# elements with gradients near 1e-9, whose sign the two sums' rounding
+# decides, and AdamW's first step moves such an element by ≈ lr either way
+# (in_w 1.37·lr apart on the card after 2 steps, H100 80GB HBM3, 700.00 W,
+# PERF.md §6). Over a second step that flip moves 2.3 % of the elements apart
+# by more than the step tolerance (the same card run), so the run takes
+# one step, where only such elements differ. One step on the card read a
+# loss equal to the one-rank step's, the grad norm 1.33e-7 off and
+# 1.39e-4 of the 5.0 M elements off (in_w 1.366·lr); the tolerances are
+# gin-tu's loss tolerance and about 3× the other two readings.
+MESH_GRAPHCAST_LAYERS = 2
+MESH_GRAPHCAST_TOL = (1e-6, 4e-7, 4e-4)
 # (run, arch, mesh shape, rows × sequence, layers or None for the arch's,
 # compress_grads, microbatches, SP pair). The sequence divides over "model",
 # so the runs on (1, 2) split it (sequence parallelism, build_step's rule);
 # an SP pair runs a second time with ``seq_axis`` None, and the two are
 # compared bit for bit. The microbatched run (fault F3 on the card) takes a
 # ragged loss mask (MESH_MASK_KEEP of the positions), so that which rows
-# share a microbatch changes its loss.
+# share a microbatch changes its loss, and one step: the first step's loss
+# and gradients show which rows shared a microbatch, and its two steps
+# took 73 s of the phase on a slow host (H100 80GB HBM3, 700.00 W,
+# PERF.md §6).
 MESH_LM_RUNS = (("yi-6b-tp", "yi-6b", (1, 2), (1, 4096), None, False, 0, False),
                 ("granite-moe-ep-tp", "granite-moe-1b-a400m", (1, 2), (2, 4096), 2, False, 0,
                  False),
@@ -4592,7 +4698,7 @@ def _mesh_lm_setup(torch, run, depth):
     arch = dataclasses.replace(arch, model=cfg)
     spec = ShapeSpec("train_4k", "train", seq_len=seq, global_batch=rows)
     stream = LMStream(cfg.vocab, rows, seq, seed=SEED)
-    batches = [stream.batch_at(i) for i in range(MESH_STEPS)]
+    batches = [stream.batch_at(i) for i in range(1 if micro else MESH_STEPS)]
     if micro:
         rng = np.random.default_rng(SEED)
         for b in batches:
@@ -4605,7 +4711,8 @@ def _mesh_lm_setup(torch, run, depth):
 
 
 def _mesh_other_setup(torch, name):
-    """SASRec's train_batch and gin-tu's MESH_GNN_CELL, as ``_mesh_lm_setup``."""
+    """SASRec's train_batch, gin-tu's MESH_GNN_CELL and graphcast's at
+    MESH_GRAPHCAST_LAYERS layers, as ``_mesh_lm_setup``."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SASRecStream
     from repro_torch.models import gnn as gnn_lib
@@ -4625,11 +4732,17 @@ def _mesh_other_setup(torch, name):
         return arch, cfg, spec, sas_lib.sasrec_loss, params, batches, tcfg
     import numpy as np
 
-    arch, spec, cfg, host = gnn_cell_batch(np, "gin-tu", MESH_GNN_CELL)
+    arch, spec, cfg, host = gnn_cell_batch(np, "gin-tu" if name == "gin" else name,
+                                           MESH_GNN_CELL)
+    if name == "graphcast":
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, n_layers=MESH_GRAPHCAST_LAYERS))
+        cfg = arch.model_for(spec)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
     params = init_params(torch.Generator(device="cuda").manual_seed(SEED),
                          gnn_lib.param_specs(cfg))
-    return arch, cfg, spec, gnn_lib.gnn_loss, params, [batch] * MESH_STEPS, tcfg
+    steps = 1 if name == "graphcast" else MESH_STEPS
+    return arch, cfg, spec, gnn_lib.gnn_loss, params, [batch] * steps, tcfg
 
 
 class _CollectiveClock:
@@ -4687,6 +4800,11 @@ def _mesh_train_run(torch, mesh, setup, name: str, runs: int = 1, sp_pair: bool 
             "batch_axes": list(built.place.batch_axes), "runs": [],
             "seq_axis": [p.seq_axis if p.sp else None for p in places],
             "microbatch": tcfg.microbatch}
+    t_run = time.perf_counter()
+    if hasattr(cfg, "remat"):  # a GNN: the rank's block of node rows
+        from repro_torch.sharding.collectives import block_range
+
+        info["node_rows"] = block_range(spec.n_nodes, mesh.size, mesh.index(mesh.axis_names))
     finals = []
     for k in range(runs):
         step = make_train_step(ft.partial(loss, cfg, place=places[k]), tcfg, mesh=places[k])
@@ -4694,6 +4812,7 @@ def _mesh_train_run(torch, mesh, setup, name: str, runs: int = 1, sp_pair: bool 
         state = opt.init_opt_state(lp, tcfg.adamw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         for c in build.LAUNCHES:
             build.LAUNCHES[c] = 0
         clock = _CollectiveClock(dist)
@@ -4710,6 +4829,7 @@ def _mesh_train_run(torch, mesh, setup, name: str, runs: int = 1, sp_pair: bool 
         info["runs"].append({
             "losses": [x[0] for x in metrics], "grad_norms": [x[1] for x in metrics],
             "step_ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "allocated_before": before,
             "collective_s": clock.seconds, "collectives": clock.calls,
             "launches": {c: build.LAUNCHES[c] for c in MESH_COUNTERS if build.LAUNCHES[c]}})
         del state
@@ -4731,18 +4851,25 @@ def _mesh_train_run(torch, mesh, setup, name: str, runs: int = 1, sp_pair: bool 
         one = make_train_step(ft.partial(loss, cfg), tcfg)
         p1, params = params, None  # the step updates it in place
         st = opt.init_opt_state(p1, tcfg.adamw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        info["one_rank_allocated_before"] = torch.cuda.memory_allocated()
         m1, t0 = [], time.perf_counter()
         for b in batches:
             p1, st, m = one(p1, st, b)
             m1.append((float(m["loss"]), float(m["grad_norm"])))
         torch.cuda.synchronize()
         info["one_rank_s"] = time.perf_counter() - t0
+        info["one_rank_peak_bytes"] = torch.cuda.max_memory_allocated()
         del st
         mine = info["runs"][0]
         info["one_rank_losses"] = [x[0] for x in m1]
         info["loss_rel"] = max(abs(a / x[0] - 1) for a, x in zip(mine["losses"], m1))
         info["grad_norm_rel"] = max(abs(a / x[1] - 1) for a, x in zip(mine["grad_norms"], m1))
         info["param_max_rel"] = _max_rel(torch, finals[0], p1)
+        if "node_rows" in info:  # the GNNs' gate (MESH_GRAPHCAST_TOL)
+            info["param_off_share"], info["param_within_reach"] = _flip_share(
+                torch, finals[0], p1, tcfg.adamw.lr, len(batches))
         if sp_pair:
             info["sp_off_param_max_rel"] = _max_rel(torch, finals[1], p1)
             m_off = info["runs"][1]
@@ -4756,6 +4883,7 @@ def _mesh_train_run(torch, mesh, setup, name: str, runs: int = 1, sp_pair: bool 
         del p1, finals
     torch.cuda.empty_cache()
     dist.barrier()
+    info["run_s"] = time.perf_counter() - t_run
     return info
 
 
@@ -4836,8 +4964,8 @@ def _mesh_bgv_run(torch, np, mesh, name: str, model) -> dict:
 def mesh_rank(_stream_mesh, out_dir: str, depth: int) -> None:
     """One rank of the model mesh phase (spawned by ``model_mesh_phase``):
     every run of MESH_LM_RUNS, SASRec on (1, 2), gin-tu's MESH_GNN_CELL on
-    (2, 1) twice,
-    and MESH_BGV_CELLS on (1, 2); writes ``out_dir/rank{r}.json``."""
+    (2, 1) twice, graphcast's at MESH_GRAPHCAST_LAYERS layers on (2, 1), and
+    MESH_BGV_CELLS on (1, 2); writes ``out_dir/rank{r}.json``."""
     import numpy as np
     import torch
 
@@ -4859,7 +4987,9 @@ def mesh_rank(_stream_mesh, out_dir: str, depth: int) -> None:
     out.append(_mesh_train_run(torch, mesh_of((1, 2)), _mesh_other_setup(torch, "sasrec"),
                                "sasrec-vocab"))
     out.append(_mesh_train_run(torch, mesh_of((2, 1)), _mesh_other_setup(torch, "gin"),
-                               f"gin-tu-{MESH_GNN_CELL}-edges", runs=2))
+                               f"gin-tu-{MESH_GNN_CELL}-nodes", runs=2))
+    out.append(_mesh_train_run(torch, mesh_of((2, 1)), _mesh_other_setup(torch, "graphcast"),
+                               f"graphcast-{MESH_GNN_CELL}-nodes"))
     for name, model in MESH_BGV_CELLS:
         out.append(_mesh_bgv_run(torch, np, mesh_of((1, 2)), name, model))
     with open(os.path.join(out_dir, f"rank{_stream_mesh.rank}.json"), "w") as f:
@@ -4871,26 +5001,31 @@ def model_mesh_phase(torch, np, smi: str) -> dict:
     sharing the card under gloo (``mesh_rank``):
 
     * yi-6b ``train_4k`` at full width on (1, 2), tensor and sequence
-      parallel, at the depth MESH_BUDGET allows, one 4,096-token row;
-      granite-moe at full width and 2 layers on (1, 2), experts and
-      tensors parallel, 2 × 4,096 tokens; yi-6b at 2 layers on (2, 1),
-      data parallel with d_model's ZeRO-3 split and ``compress_grads``, 2
-      rows; yi-6b at 2 layers on (1, 2) with the sequence split and again
-      unsplit; yi-6b at 2 layers on (2, 1) with 2 microbatches of 4 rows
-      and a ragged loss mask (fault F3); float32, MESH_STEPS steps each;
+      parallel, at the depth MESH_BUDGET allows (at most MESH_TP_LAYERS),
+      one 4,096-token row; granite-moe at full width and 2 layers on (1,
+      2), experts and tensors parallel, 2 × 4,096 tokens; yi-6b at 2
+      layers on (2, 1), data parallel with d_model's ZeRO-3 split and
+      ``compress_grads``, 2 rows; yi-6b at 2 layers on (1, 2) with the
+      sequence split and again unsplit; yi-6b at 2 layers on (2, 1) with 2
+      microbatches of 4 rows and a ragged loss mask (fault F3), one step;
+      float32, MESH_STEPS steps each but that one;
     * SASRec ``train_batch`` uncut on (1, 2) (the item table split);
     * gin-tu's MESH_GNN_CELL (``full_graph_sm``: ``ogb_products`` took
-      26–37 s a step here) on (2, 1) (the edges split), twice from the same
-      parameters;
+      26–37 s a step here) on (2, 1), twice from the same parameters, and
+      graphcast's at MESH_GRAPHCAST_LAYERS layers on (2, 1), one step: the edges
+      split, and the node state each rank's block of rows;
     * the four ``bgv_*`` cells at their padded shapes and a grid variant
       of ``layout_livejournal`` on (1, 2).
     Gates: every run's gathered parameters (outputs for the BigGraphVis
     cells) against the same cell's one-rank step on the card: the LMs and
     SASRec within TRAIN_TOL[family], gin-tu within MESH_GNN_TOL and its two
-    runs bitwise, the BigGraphVis cells bitwise, the SP pair's unsplit
-    run within TRAIN_TOL too (whether the two were bitwise is logged);
-    each run's kernels launched on every rank. Prints each rank's
-    launches, step ms, peak bytes and collective seconds."""
+    runs bitwise, graphcast within MESH_GRAPHCAST_TOL (its parameters by
+    the share of elements off), the BigGraphVis
+    cells bitwise, the SP pair's unsplit run within TRAIN_TOL too (whether
+    the two were bitwise is logged); each run's kernels launched on every
+    rank. Prints each rank's launches, step ms, peak bytes and collective
+    seconds, and for the GNNs each rank's block of node rows and peak
+    bytes beside the one-rank step's."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import spawn_local
 
@@ -4900,7 +5035,7 @@ def model_mesh_phase(torch, np, smi: str) -> dict:
     fits = [n for n in range(1, yi.n_layers + 1)
             if max(mesh_lm_estimate(torch, dataclasses.replace(yi, n_layers=n), rows, seq,
                                     shape)) <= MESH_BUDGET]
-    depth = max(fits)
+    depth = min(max(fits), MESH_TP_LAYERS)
     est = mesh_lm_estimate(torch, dataclasses.replace(yi, n_layers=depth), rows, seq, shape)
     log(f"model mesh: yi-6b on {shape} at {depth} of {yi.n_layers} layers; estimate "
         f"{est[0]} bytes on the two ranks, {est[1]} for the one-rank step")
@@ -4914,6 +5049,9 @@ def model_mesh_phase(torch, np, smi: str) -> dict:
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(MESH_RANKS)]
     out = {"card": smi, "wall_s": wall, "yi_layers": depth, "runs": {}}
+    log(f"model mesh: {wall:.3f} s for the spawned ranks ({smi}); each run's seconds "
+        + json.dumps({r["run"]: round(r.get("run_s", r.get("step_ms", 0) / 1e3), 3)
+                      for r in ranks[0]}))
     failed = []  # every gate is read before any fails the phase
 
     def gate(ok, msg):
@@ -4934,13 +5072,27 @@ def model_mesh_phase(torch, np, smi: str) -> dict:
             continue
         family = "lm" if name.startswith(("yi", "granite")) else (
             "sasrec" if name.startswith("sasrec") else "gnn")
-        tol_loss, tol_gnorm, tol_p = MESH_GNN_TOL if family == "gnn" else TRAIN_TOL[family]
+        tol_loss, tol_gnorm, tol_p = (
+            MESH_GRAPHCAST_TOL if name.startswith("graphcast") else
+            MESH_GNN_TOL if family == "gnn" else TRAIN_TOL[family])
+        if family == "gnn":
+            log(f"model mesh {name}: " + "; ".join(
+                f"rank {r['rank']} node rows {r['node_rows']}, peak "
+                f"{r['runs'][0]['peak_bytes']} bytes ({r['runs'][0]['allocated_before']} "
+                "allocated before)" for r in [lead, *rest])
+                + f"; one rank: peak {lead['one_rank_peak_bytes']} bytes "
+                f"({lead['one_rank_allocated_before']} allocated before)")
         gate(lead["loss_rel"] <= tol_loss and lead["grad_norm_rel"] <= tol_gnorm,
              f"{name}: loss or grad norm {lead['loss_rel']}, {lead['grad_norm_rel']} off "
              "the one-rank step")
-        gate(lead["param_max_rel"] <= tol_p,
-             f"{name}: parameters {lead['param_max_rel']} of max|p| off the one-rank step")
-        if family == "gnn":
+        if name.startswith("graphcast"):
+            gate(lead["param_off_share"] <= tol_p and lead["param_within_reach"],
+                 f"{name}: {lead['param_off_share']} of the parameters off the one-rank "
+                 f"step, all within AdamW's reach: {lead['param_within_reach']}")
+        else:
+            gate(lead["param_max_rel"] <= tol_p,
+                 f"{name}: parameters {lead['param_max_rel']} of max|p| off the one-rank step")
+        if "ranks_run_to_run_bitwise" in lead:
             gate(lead["ranks_run_to_run_bitwise"], f"{name}: two runs differ")
         if "sp_on_off_bitwise" in lead:
             gate(lead["sp_off_loss_rel"] <= tol_loss and lead["sp_off_grad_norm_rel"] <= tol_gnorm
@@ -4948,13 +5100,12 @@ def model_mesh_phase(torch, np, smi: str) -> dict:
                  f"{name}: the run without sequence parallelism is off the one-rank step")
             log(f"model mesh {name}: SP on and off bitwise: {lead['sp_on_off_bitwise']}")
     check(not failed, "model mesh: " + "; ".join(failed))
-    log(f"model mesh: {wall:.3f} s for the spawned ranks ({smi})")
     return out
 
 
 def _mesh_kernels(name: str) -> tuple:
     """The counters a run of the phase must move on every rank."""
-    if name.startswith("gin"):
+    if name.startswith(("gin", "graphcast")):
         return ("segment_offsets", "segment_sum_edges", "segment_sum_gather_bwd")
     if name.startswith("detect"):
         return ("cms_update_keys",)

@@ -15,6 +15,16 @@ only, their ±W band read from the full arrays (the sharded layout's owned
 rows; plain version ``ref.near_field_rows``), bitwise the same rows of
 ``near_field_sorted``. K5's entry takes a row range as it is (its rows are
 independent), and K7's cell statistics stay whole.
+
+A fake tensor takes each entry's abstract rule (``build.route``): the
+output the card's call allocates, the launch skipped, and the launch's
+operations and bytes from ``far_field_cost``, ``near_field_cost`` and
+``near_field_rows_cost``, which ``chip_smoke.py``'s bound column reads as
+well. K6's work depends on the data: a band slot costs one compare, and
+only a slot whose node shares the row's cell costs the pair arithmetic. A
+rule cannot read the cells, so it counts every in-range slot as such a
+pair (the most the band can hold); the smoke passes the pairs its input
+holds.
 """
 from __future__ import annotations
 
@@ -42,6 +52,49 @@ _NEAR_ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [
 ] + [ctypes.c_void_p] * 2
 # K6 indexes in 32 bits, with room for one block (512 nodes) and its band.
 NEAR_MAX_N = 2**31 - 1 - 2048
+# K5, per (node, cell) pair: dx, dy (2); dx², dy² and their sum (3); max
+# EPS2 (1); ·M_j (1, kr·m_i hoisted); divide (1); own-cell select (1);
+# mag·dx, mag·dy (2); the two tile-sum adds (2).
+FAR_OPS_PER_PAIR = 13
+# K6: one compare per in-range band slot, and per same-cell pair dx, dy
+# (2); dx², dy², sum (3); max (1); ·m_j (1); divide (1); mag·dx, mag·dy
+# (2); two adds (2).
+NEAR_OPS_PER_PAIR = 12
+
+
+def far_field_cost(n: int, c: int) -> tuple[int, int]:
+    """(operations, bytes) of one ``far_field`` launch: every (node, cell)
+    pair's arithmetic; pos, mass and cell read (16 bytes a node), the cells'
+    centroids and masses (12 bytes a cell) and the forces written (8 bytes
+    a node) once."""
+    return FAR_OPS_PER_PAIR * n * c, n * 24 + c * 12
+
+
+def _clamped_sum(a: int, w: int, cap: int) -> int:
+    """Σ_{k=1..w} min(cap, max(0, a − k))."""
+    k1 = min(max(a - cap, 0), w)  # terms of value cap
+    k2 = min(w, max(a, 0))  # a − k > 0 up to here
+    tail = (k2 - k1) * a - (k2 * (k2 + 1) - k1 * (k1 + 1)) // 2 if k2 > k1 else 0
+    return k1 * cap + tail
+
+
+def near_field_rows_cost(n: int, window: int, i0: int, nl: int,
+                         pairs: int | None = None) -> tuple[int, int]:
+    """(operations, bytes) of one ``near_field_rows`` launch: one compare
+    per band slot j = i ± k (1 ≤ k ≤ min(W, n − 1)) of its rows with 0 ≤ j
+    < n, and ``NEAR_OPS_PER_PAIR`` per same-cell pair among them (``pairs``;
+    None: every slot, the most the band can hold); the rows and their ±W
+    band read (16 bytes a node), the rows' forces written (8 bytes)."""
+    w = min(max(int(window), 0), max(n - 1, 0))
+    slots = _clamped_sum(n - i0, w, nl) + _clamped_sum(i0 + nl, w, nl)
+    band = min(n, i0 + nl + w) - max(0, i0 - w) if nl else 0
+    return slots + NEAR_OPS_PER_PAIR * (slots if pairs is None else pairs), band * 16 + nl * 8
+
+
+def near_field_cost(n: int, window: int, pairs: int | None = None) -> tuple[int, int]:
+    """(operations, bytes) of one ``near_field_sorted`` launch: its rows
+    are all n (``near_field_rows_cost``)."""
+    return near_field_rows_cost(n, window, 0, n, pairs)
 
 
 def cell_stats(pos_s, mass_s, cell_s, n_cells: int):
@@ -58,10 +111,9 @@ def cell_stats(pos_s, mass_s, cell_s, n_cells: int):
 def far_field(pos, mass, cell, ccent, cmass, kr: float):
     """Monopole far field (own cell excluded) → [n, 2] float32."""
     dev = pos.device
-    if dev.type == "cpu":
+    form = build.route(pos, "far_field")
+    if form == "plain":
         return far_field_ref(pos, mass, cell, ccent, cmass, kr)
-    if dev.type != "cuda":
-        raise ValueError(f"far_field: unsupported device {dev}")
     n, c = pos.shape[0], ccent.shape[0]
     build.require(pos, "pos", torch.float32, dev, (n, 2))
     build.require(mass, "mass", torch.float32, dev, (n,))
@@ -69,6 +121,8 @@ def far_field(pos, mass, cell, ccent, cmass, kr: float):
     build.require(ccent, "ccent", torch.float32, dev, (c, 2))
     build.require(cmass, "cmass", torch.float32, dev, (c,))
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    if form == "rule":
+        return build.rule("far_field", out, *far_field_cost(n, c))
     fn = build.entry("far_field", _FAR_ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(build.ptr(pos), build.ptr(mass), build.ptr(cell), build.ptr(ccent),
@@ -81,10 +135,9 @@ def far_field(pos, mass, cell, ccent, cmass, kr: float):
 def near_field_sorted(pos_s, mass_s, cell_s, kr: float, window: int):
     """Banded same-cell near field over the sorted order → [n, 2] (sorted)."""
     dev = pos_s.device
-    if dev.type == "cpu":
+    form = build.route(pos_s, "near_field_sorted")
+    if form == "plain":
         return near_field_ref(pos_s, mass_s, cell_s, kr, window)
-    if dev.type != "cuda":
-        raise ValueError(f"near_field_sorted: unsupported device {dev}")
     n = pos_s.shape[0]
     if n > NEAR_MAX_N:
         raise ValueError(f"near_field_sorted: {n} nodes, the kernel takes at most {NEAR_MAX_N}")
@@ -92,6 +145,8 @@ def near_field_sorted(pos_s, mass_s, cell_s, kr: float, window: int):
     build.require(mass_s, "mass_s", torch.float32, dev, (n,))
     build.require(cell_s, "cell_s", torch.int32, dev, (n,))
     out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    if form == "rule":
+        return build.rule("near_field", out, *near_field_cost(n, window))
     fn = build.entry("near_field", _NEAR_ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(build.ptr(pos_s), build.ptr(mass_s), build.ptr(cell_s), n,
@@ -109,16 +164,17 @@ def near_field_rows(pos_s, mass_s, cell_s, kr: float, window: int, i0: int, nl: 
     n = pos_s.shape[0]
     if not 0 <= i0 <= n - nl or nl < 0:
         raise ValueError(f"near_field_rows: rows [{i0}, {i0 + nl}) outside [0, {n})")
-    if dev.type == "cpu":
+    form = build.route(pos_s, "near_field_rows")
+    if form == "plain":
         return near_field_rows_ref(pos_s, mass_s, cell_s, kr, window, i0, nl)
-    if dev.type != "cuda":
-        raise ValueError(f"near_field_rows: unsupported device {dev}")
     if n > NEAR_MAX_N:
         raise ValueError(f"near_field_rows: {n} nodes, the kernel takes at most {NEAR_MAX_N}")
     build.require(pos_s, "pos_s", torch.float32, dev, (n, 2))
     build.require(mass_s, "mass_s", torch.float32, dev, (n,))
     build.require(cell_s, "cell_s", torch.int32, dev, (n,))
     out = torch.empty((nl, 2), dtype=torch.float32, device=dev)
+    if form == "rule":
+        return build.rule("near_field_rows", out, *near_field_rows_cost(n, window, i0, nl))
     fn = build.entry("near_field", _NEAR_ROWS_ARGTYPES, "near_field_rows")
     with torch.cuda.device(dev):
         code = fn(build.ptr(pos_s), build.ptr(mass_s), build.ptr(cell_s), n, int(i0),

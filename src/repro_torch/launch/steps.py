@@ -17,7 +17,8 @@ leaf (``sharding.rules.spec_for`` over the arch's profile, the reference's
   ``train_batch`` (SASRec, "recsys") — the family's loss on the rank's
   blocks (``models``' mesh forms) under ``make_train_step(..., mesh=)``;
   the batch rows split over ("pod", "data") where they divide
-  (``_shard_batch_dim``), the GNN inputs over every axis;
+  (``_shard_batch_dim``), the GNN inputs over every axis, and the GNN node
+  state kept as each rank's block of rows between layers;
 * ``bgv_detect`` — the edges split over every axis: the one SCoDA block
   of all e edges gathered whole (``sharded_scoda_update``), then
   ``cms.sharded_update``; bitwise the one-rank step;
@@ -255,9 +256,13 @@ def _gnn_flops_meta(cfg: gnn_lib.GNNConfig, shape: ShapeSpec) -> dict:
 def build_gnn_step(arch: ArchConfig, shape: ShapeSpec, mesh=None) -> BuiltStep:
     """Every GNN cell is a training cell (``graph_train``). On a mesh every
     input whose dim 0 divides by the whole mesh is split over every axis
-    (the edges, and the node inputs, which the loss gathers back), else over
-    the batch axes where they divide, else replicated; the loss is whole on
-    every rank, so no batch axis sums it."""
+    (the edges, and the node inputs: the reference's ``b_shard``), else over
+    the batch axes where they divide, else replicated. The loss keeps the
+    node state split over every axis as the reference's constraint does
+    (``models.gnn``: a rank's block of c = ceil(N / D) rows, node inputs
+    not split so cut to it) and the edges split; every rank returns the
+    global loss, and every parameter's gradient is summed inside the loss
+    (``copy_to``), so no batch axis sums either."""
     _check_mesh(mesh)
     cfg = arch.model_for(shape)
     specs = gnn_lib.param_specs(cfg)

@@ -23,16 +23,27 @@ nodes, and over ``h_ext``'s n + 1 rows), and no launch sorts or copies
 its data. A graph-level pool sums through a layout of its own.
 
 On a ``ModelMesh`` (``forward``/``gnn_loss`` with a ``Placement``, profile
-"gnn") the parameters are replicated and the edges split contiguously
-over every axis (the reference's ``build_gnn_step`` edge placement):
-each rank builds the layouts of its own edges, sums its messages through
-K7 into full-size [N, D] partials, and one all-reduce over all ranks adds
-them (``reduce_from``); every gather of a node tensor onto its edges
-enters through ``copy_to``, and the edge MLPs' parameters (MeshGraphNet,
-GraphCast) too, so each rank ends with the whole gradient. The node-level
-MLPs, the loss and the pooled readout run on every rank. Node inputs held
-as blocks are gathered first. The result is within rounding of the
-one-rank forward (the partials add in another order), not its bits.
+"gnn") the parameters are replicated, the edges split contiguously over
+every axis, and the node state split over every axis too, as the
+reference's ``build_gnn_step`` constrains ``h`` (``NodeSplit``): rank j
+holds node rows ``[j·c, (j+1)·c)``, c = ceil(N / D), after the input MLP
+and after every layer (the last blocks may be short or empty). Node
+inputs arrive as those blocks where the step's specs split them, else
+whole and cut here. A layer all-gathers the node tensors its edges read
+(``h``; GAT's ``q``, ``es`` and ``ed``, computed on the rank's rows first)
+through ``gather_blocks``, whose backward sums the ranks' gradients and
+keeps the block; each rank sums its edges' messages through its K7
+layouts into full-size [N, ·] partials, and ``reduce_blocks`` adds them
+and keeps the rank's rows; the node MLPs run on those rows only. Every
+parameter enters through ``copy_to`` (its gradient summed over the
+ranks), but a graph-level readout's, which runs whole on every rank.
+GAT's per-node max is an all-reduce max, its softmax denominators a sum
+over the ranks (``sum_shards``) read on the rank's edges. ``forward``
+returns the rank's block of rows (the pooled graphs whole, for
+``graph_class``); ``gnn_loss`` adds the masked terms and the mask count
+over the ranks, so every rank returns the same global loss. The result is
+within rounding of the one-rank forward (each node's message sum is one
+chain a rank plus their sum), not its bits.
 
 ``cfg.remat`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``), as the reference's
@@ -117,54 +128,56 @@ def _segsum(data, lay, n: int):
     return segment_ops.segment_sum_edges(data, lay, n)
 
 
-def _gather_m(x, lay, mesh):
-    """``_gather`` onto the rank's edges: ``x`` (whole on every rank) enters
-    through ``copy_to``, so its gradient is summed over the ranks."""
-    if mesh is not None:
-        from repro_torch.sharding.collectives import copy_to
+@dataclass(frozen=True)
+class NodeSplit:
+    """A rank's share of the node rows: its block of ``n`` rows split over
+    ``axes`` (every live axis of ``mesh``) by ``collectives.block_range``."""
 
-        x = copy_to(x, mesh, mesh.axis_names)
-    return _gather(x, lay)
-
-
-def _segsum_m(data, lay, n: int, mesh):
-    """``_segsum`` of the rank's edges, the ranks' partials added
-    (``reduce_from``)."""
-    out = _segsum(data, lay, n)
-    if mesh is not None:
-        from repro_torch.sharding.collectives import reduce_from
-
-        out = reduce_from(out, mesh, mesh.axis_names)
-    return out
+    mesh: Any
+    axes: tuple
+    n: int
 
 
-def _edge_params(lp: dict, names, mesh) -> dict:
-    """Parameters used on the rank's edges: their gradients are summed over
-    the ranks."""
-    if mesh is None:
-        return lp
-    from repro_torch.sharding.collectives import copy_to
+def _whole(x, split):
+    """The whole [n, ...] node tensor from every rank's block."""
+    if split is None:
+        return x
+    from repro_torch.sharding.collectives import gather_blocks
 
-    return {k: copy_to(v, mesh, mesh.axis_names) if k in names else v for k, v in lp.items()}
+    return gather_blocks(x, split.mesh, split.axes, split.n)
 
 
-def _gin_layer(h, lp, src, dst, n, mesh=None):
-    agg = (_segsum_m(_gather_m(h, src, mesh), dst, n, mesh)
-           + _segsum_m(_gather_m(h, dst, mesh), src, n, mesh))  # symmetrized
+def _own(x, split):
+    """Full-size [n, ...] partials summed over the ranks, this rank's block kept."""
+    if split is None:
+        return x
+    from repro_torch.sharding.collectives import reduce_blocks
+
+    return reduce_blocks(x, split.mesh, split.axes)
+
+
+def _gin_layer(h, lp, src, dst, n, split=None):
+    hw = _whole(h, split)
+    agg = _own(_segsum(_gather(hw, src), dst, n) + _segsum(_gather(hw, dst), src, n),
+               split)  # symmetrized
     z = (1.0 + lp["eps"]) * h + agg
     z = F.relu(z @ lp["w1"] + lp["b1"])
     return z @ lp["w2"] + lp["b2"]
 
 
-def _gat_layer(h, lp, s2, d2, n, mesh=None):
+def _gat_layer(h, lp, s2, d2, n, split=None):
     """``s2``/``d2``: the layouts of both directions of every undirected
     edge (sources, destinations)."""
     d = h.shape[-1]
     nh, dh = lp["a_src"].shape
-    q = (h @ lp["w"].reshape(d, nh * dh)).reshape(n, nh, dh)
+    q = (h @ lp["w"].reshape(d, nh * dh)).reshape(-1, nh, dh)
     es = torch.einsum("nhd,hd->nh", q, lp["a_src"])
     ed = torch.einsum("nhd,hd->nh", q, lp["a_dst"])
-    logit = F.leaky_relu(_gather_m(es, s2, mesh) + _gather_m(ed, d2, mesh), 0.2)  # [2E, H]
+    if split is not None:  # one gather of the three node tensors the edges read
+        q, es, ed = _whole(torch.cat([q.reshape(-1, nh * dh), es, ed], dim=1), split).split(
+            [nh * dh, nh, nh], dim=1)
+        q = q.reshape(n, nh, dh)
+    logit = F.leaky_relu(_gather(es, s2) + _gather(ed, d2), 0.2)  # [2E, H]
     # Numerically stable edge softmax over incoming edges per dst; the max
     # is order-free, and ids ≥ n land in a dropped row. The softmax does not
     # depend on the shift, so its gradient through the max is 0: the max is
@@ -175,27 +188,27 @@ def _gat_layer(h, lp, s2, d2, n, mesh=None):
     mx.scatter_reduce_(0, torch.where(keep, ids, n).long()[:, None].expand(-1, nh),
                        logit.detach(), "amax", include_self=True)
     mx = mx[:n]
-    if mesh is not None:  # the max over every rank's incoming edges
-        from repro_torch.sharding.collectives import all_reduce_axes
+    if split is not None:  # the max over every rank's incoming edges
+        from repro_torch.sharding.collectives import all_reduce_axes, sum_shards
 
-        mx = all_reduce_axes(mx.contiguous(), mesh, mesh.axis_names, "max")
-    ex = torch.exp(logit - _gather_m(mx, d2, mesh))
-    denom = _segsum_m(ex, d2, n, mesh) + 1e-9
-    alpha = ex / _gather_m(denom, d2, mesh)
-    msg = alpha[:, :, None] * _gather_m(q, s2, mesh)
-    out = _segsum_m(msg.reshape(-1, nh * dh), d2, n, mesh)
+        mx = all_reduce_axes(mx.contiguous(), split.mesh, split.axes, "max")
+    ex = torch.exp(logit - _gather(mx, d2))
+    denom = _segsum(ex, d2, n)
+    if split is not None:  # whole on every rank, read on the rank's edges
+        denom = sum_shards(denom, split.mesh, split.axes)
+    denom = denom + 1e-9
+    alpha = ex / _gather(denom, d2)
+    msg = alpha[:, :, None] * _gather(q, s2)
+    out = _own(_segsum(msg.reshape(-1, nh * dh), d2, n), split)
     return F.elu(out)
 
 
-_EDGE_MLP = ("we1", "be1", "we2", "be2")
-
-
-def _mpnn_layer(h, e_feat, lp, src, dst, n, mesh=None):
-    lp = _edge_params(lp, _EDGE_MLP, mesh)
-    z = torch.cat([e_feat, _gather_m(h, src, mesh), _gather_m(h, dst, mesh)], dim=-1)
+def _mpnn_layer(h, e_feat, lp, src, dst, n, split=None):
+    hw = _whole(h, split)
+    z = torch.cat([e_feat, _gather(hw, src), _gather(hw, dst)], dim=-1)
     e_new = F.relu(z @ lp["we1"] + lp["be1"]) @ lp["we2"] + lp["be2"]
     e_feat = e_feat + e_new
-    agg = _segsum_m(e_feat, dst, n, mesh) + _segsum_m(e_feat, src, n, mesh)
+    agg = _own(_segsum(e_feat, dst, n) + _segsum(e_feat, src, n), split)
     z = torch.cat([h, agg], dim=-1)
     h_new = F.relu(z @ lp["wv1"] + lp["bv1"]) @ lp["wv2"] + lp["bv2"]
     return h + h_new, e_feat
@@ -211,29 +224,74 @@ def local_edges(edges, spec, mesh):
     return edges.tensor_split(mesh.size)[mesh.rank]
 
 
-def whole_nodes(batch: dict, place) -> dict:
-    """The batch with every input but the edges made whole (gathered from
-    the ranks' blocks) and the edges this rank's."""
+def node_blocks(cfg: GNNConfig, batch: dict, place):
+    """``(batch, split)``: the rank's inputs on ``place``'s mesh and its
+    ``NodeSplit`` (``(batch, None)`` on one rank). Node inputs split over
+    every axis (the step's specs, where N divides) are the rank's block
+    already; the others are gathered whole and cut to the block. The
+    graph-level labels and mask of ``graph_class`` stay whole, and the
+    edges are the rank's (``local_edges``)."""
+    if place is None or place.mesh.size == 1:
+        return batch, None
+    from repro_torch.sharding.collectives import block_range
     from repro_torch.sharding.params import gather_tree
+    from repro_torch.sharding.rules import entry_axes
 
-    specs = place.batch_specs
-    out = {}
+    mesh, specs = place.mesh, place.batch_specs
+    axes = mesh.live_axes(mesh.axis_names)
+    graph_level = ("labels", "mask") if cfg.task == "graph_class" else ()
+
+    def is_block(k):
+        spec = specs.get(k) or ()
+        return k not in graph_level and len(spec) > 0 and \
+            tuple(a for a in entry_axes(spec[0]) if mesh.extent(a) > 1) == axes
+
+    out, whole = {}, {}
     for k, v in batch.items():
         if k == "edges":
-            out[k] = local_edges(v, specs.get(k), place.mesh)
+            out[k] = local_edges(v, specs.get(k), mesh)
+        elif is_block(k):
+            out[k] = v
         else:
-            out[k] = gather_tree(v, specs.get(k) or (), place.mesh)
-    return out
+            whole[k] = gather_tree(v, specs.get(k) or (), mesh)
+    n = out["feats"].shape[0] * mesh.extent(axes) if is_block("feats") else \
+        whole["feats"].shape[0]
+    lo, hi = block_range(n, mesh.extent(axes), mesh.index(axes))
+    for k, v in whole.items():
+        out[k] = v if k in graph_level else v[lo:hi]
+    return out, NodeSplit(mesh, axes, n)
+
+
+def _replicated(cfg: GNNConfig, params: dict, mesh) -> dict:
+    """Every parameter through ``copy_to`` (used on the rank's rows or
+    edges: its gradient summed over the ranks), but a graph-level readout's,
+    which every rank runs whole."""
+    from repro_torch.sharding.collectives import copy_to
+
+    whole = ("out_w", "out_b") if cfg.task == "graph_class" else ()
+
+    def one(k, v):
+        if isinstance(v, dict):
+            return {kk: one(kk, vv) for kk, vv in v.items()}
+        return v if k in whole else copy_to(v, mesh, mesh.axis_names)
+
+    return {k: one(k, v) for k, v in params.items()}
 
 
 def forward(cfg: GNNConfig, params, batch, place=None):
     """batch: feats [N, d_feat], edges [E, 2] (trash id = N), plus
     graph_ids [N] for graph_class. Returns [N, n_out] (or [B, n_out]).
-    With ``place`` the node inputs are whole and the edges this rank's
-    (``whole_nodes``); every rank returns the whole output."""
-    mesh = place.mesh if place is not None and place.mesh.size > 1 else None
+    With ``place`` the batch is the rank's (the step's specs; the module
+    docstring), and the result the rank's block of rows (``NodeSplit``),
+    or for ``graph_class`` the pooled graphs whole on every rank."""
+    return _forward(cfg, params, *node_blocks(cfg, batch, place))
+
+
+def _forward(cfg: GNNConfig, params, batch, split):
     feats, edges = batch["feats"], batch["edges"]
-    n = feats.shape[0]
+    n = feats.shape[0] if split is None else split.n
+    if split is not None:
+        params = _replicated(cfg, params, split.mesh)
     src, dst = edges[:, 0], edges[:, 1]
     if cfg.arch == "gat":  # both directions of every undirected edge
         src, dst = torch.cat([src, dst]), torch.cat([dst, src])
@@ -250,40 +308,55 @@ def forward(cfg: GNNConfig, params, batch, place=None):
         return body(*carry)
 
     if cfg.arch in ("meshgraphnet", "graphcast"):
-        h_ext = torch.cat([h, torch.zeros((1, h.shape[1]), dtype=h.dtype, device=h.device)])
+        hw = _whole(h, split)
+        h_ext = torch.cat([hw, torch.zeros((1, hw.shape[1]), dtype=hw.dtype, device=hw.device)])
         # Ids above n read h_ext's zero row (gather_rows clamps them to it).
-        e_feat = torch.cat([_gather_m(h_ext, segment_ops.segment_layout(lay.ids, n + 1), mesh)
+        e_feat = torch.cat([_gather(h_ext, segment_ops.segment_layout(lay.ids, n + 1))
                             for lay in (src, dst)], dim=-1)
-        ep = _edge_params(params, ("edge_in_w", "edge_in_b"), mesh)
-        e_feat = F.relu(e_feat @ ep["edge_in_w"] + ep["edge_in_b"])
+        e_feat = F.relu(e_feat @ params["edge_in_w"] + params["edge_in_b"])
         for i in range(n_layers):
             lp = {k: v[i] for k, v in layers.items()}
             h, e_feat = layer_step(
-                lambda h, e, lp=lp: _mpnn_layer(h, e, lp, src, dst, n, mesh), h, e_feat)
+                lambda h, e, lp=lp: _mpnn_layer(h, e, lp, src, dst, n, split), h, e_feat)
     else:
         layer = _gin_layer if cfg.arch == "gin" else _gat_layer
         for i in range(n_layers):
             lp = {k: v[i] for k, v in layers.items()}
-            h = layer_step(lambda h, lp=lp: h + layer(h, lp, src, dst, n, mesh), h)
+            h = layer_step(lambda h, lp=lp: h + layer(h, lp, src, dst, n, split), h)
 
     if cfg.task == "graph_class":
         pooled = segment_ops.segment_sum_edges(h, batch["graph_ids"], batch["labels"].shape[0])
+        if split is not None:  # every rank's rows' partial sums added
+            from repro_torch.sharding.collectives import reduce_from
+
+            pooled = reduce_from(pooled, split.mesh, split.axes)
         return pooled @ params["out_w"] + params["out_b"]
     return h @ params["out_w"] + params["out_b"]
 
 
 def gnn_loss(cfg: GNNConfig, params, batch, place=None):
     """Masked cross-entropy (``node_class``, ``graph_class``) or masked
-    squared error (``node_reg``). With ``place`` every rank computes the
-    whole loss from its blocks of the batch (``whole_nodes``)."""
-    if place is not None:
-        batch = whole_nodes(batch, place)
-    out = forward(cfg, params, batch, place).to(torch.float32)
+    squared error (``node_reg``). With ``place`` each rank adds the terms
+    and the mask of its rows, and both are summed over the ranks: every
+    rank returns the global loss (``graph_class``: the pooled graphs are
+    whole on every rank, and so is the loss)."""
+    batch, split = node_blocks(cfg, batch, place)
+    out = _forward(cfg, params, batch, split).to(torch.float32)
     labels, mask = batch["labels"], batch["mask"]
     if cfg.task == "node_reg":
-        err = torch.square(out - labels) * mask[:, None]
-        return torch.sum(err) / torch.clamp(torch.sum(mask) * cfg.n_out, min=1.0)
-    logz = torch.logsumexp(out, dim=-1)
-    gold = torch.gather(out, -1, labels.long()[:, None])[:, 0]
-    nll = (logz - gold) * mask
-    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+        num = torch.sum(torch.square(out - labels) * mask[:, None])
+        den = torch.sum(mask) * cfg.n_out
+    else:
+        logz = torch.logsumexp(out, dim=-1)
+        gold = torch.gather(out, -1, labels.long()[:, None])[:, 0]
+        num = torch.sum((logz - gold) * mask)
+        den = torch.sum(mask)
+    if split is not None and cfg.task != "graph_class":
+        from repro_torch.sharding.collectives import all_reduce_axes, reduce_from
+
+        # Every rank's loss is the same scalar, so the gradient of a rank's
+        # sum passes through unchanged (Megatron's g); the parameters'
+        # copy_to and the blocks' gathers add the ranks' parts.
+        num = reduce_from(num, split.mesh, split.axes)
+        den = all_reduce_axes(den.detach().clone(), split.mesh, split.axes)
+    return num / torch.clamp(den, min=1.0)

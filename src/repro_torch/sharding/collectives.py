@@ -28,7 +28,14 @@ the mesh drop out, and an empty set is the identity):
   this rank's slice of a gradient that is whole on every rank) and
   ``scatter_seq`` (all-reduce and this rank's slice forward — a
   reduce-scatter —, or the slice alone of an input already whole;
-  backward, the all-gather).
+  backward, the all-gather);
+* the row-block pair of the GNN mesh forms, whose blocks follow
+  ``block_range`` (c = ceil(n / D) rows a rank, the last blocks short or
+  empty): ``gather_blocks`` (all-gather forward; backward, the gradient
+  summed over the ranks and this rank's block kept — a reduce-scatter —,
+  since every rank feeds the gathered rows to different edges) and
+  ``reduce_blocks`` (the ranks' full-size partials summed and this rank's
+  block kept — a reduce-scatter —; backward, the all-gather).
 
 A reduce-scatter is an all-reduce and a slice.
 
@@ -272,3 +279,72 @@ def scatter_seq(x: torch.Tensor, mesh, axis, dim: int, reduce: bool = True) -> t
     if mesh is None or not mesh.live_axes(axis):
         return x
     return _ScatterSeq.apply(x, mesh, tuple(mesh.live_axes(axis)), dim, bool(reduce))
+
+
+# ------------------------------------------------------------- row blocks
+
+
+def block_range(n: int, k: int, j: int) -> tuple[int, int]:
+    """Rows ``[lo, hi)`` of block j of n rows cut into k blocks of c =
+    ceil(n / k) rows, as XLA pads an uneven shard: the last blocks may be
+    short or empty."""
+    c = -(-n // k) if k else n
+    return min(j * c, n), min((j + 1) * c, n)
+
+
+def _gather_padded(x: torch.Tensor, mesh, axes, n: int) -> torch.Tensor:
+    """Every rank's block (at most c = ceil(n / k) rows) concatenated in
+    block order and cut to n rows."""
+    c = -(-n // mesh.extent(axes))
+    if x.shape[0] < c:
+        x = torch.cat([x, x.new_zeros((c - x.shape[0],) + tuple(x.shape[1:]))])
+    return all_gather_axes(x, mesh, axes, 0)[:n]
+
+
+def _own_block(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    lo, hi = block_range(x.shape[0], mesh.extent(axes), mesh.index(axes))
+    return x[lo:hi].contiguous()
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, n):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _gather_padded(x.contiguous(), mesh, axes, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce_axes(g.contiguous().clone(), ctx.mesh, ctx.axes, "sum")
+        return _own_block(g, ctx.mesh, ctx.axes), None, None, None
+
+
+class _ReduceBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes, ctx.n = mesh, axes, x.shape[0]
+        return _own_block(all_reduce_axes(x.contiguous().clone(), mesh, axes, "sum"), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_padded(g.contiguous(), ctx.mesh, ctx.axes, ctx.n), None, None
+
+
+def gather_blocks(x: torch.Tensor, mesh, axes, n: int) -> torch.Tensor:
+    """The whole [n, ...] tensor from every rank's block of rows along
+    ``axes`` (``block_range``). The gathered rows feed work that differs
+    from rank to rank (each rank's edges), so the backward sums the ranks'
+    gradients and keeps this rank's block: a reduce-scatter, where
+    ``gather_seq`` only slices."""
+    if mesh is None or not mesh.live_axes(axes):
+        return x
+    return _GatherBlocks.apply(x, mesh, tuple(mesh.live_axes(axes)), int(n))
+
+
+def reduce_blocks(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The ranks' full-size partials [n, ...] summed and this rank's block
+    of rows along ``axes`` kept (a reduce-scatter, as an all-reduce and a
+    slice). Backward: the blocks' gradients all-gathered, whole on every
+    rank."""
+    if mesh is None or not mesh.live_axes(axes):
+        return x
+    return _ReduceBlocks.apply(x, mesh, tuple(mesh.live_axes(axes)))

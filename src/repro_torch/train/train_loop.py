@@ -101,7 +101,7 @@ def _microbatches(batch: dict, n: int, place):
                     for k, v in batch.items()}
         return part
 
-    from repro_torch.sharding.collectives import all_gather_axes
+    from repro_torch.sharding.collectives import all_gather_axes, block_range
     from repro_torch.sharding.rules import entry_axes
 
     mesh = place.mesh
@@ -132,8 +132,7 @@ def _microbatches(batch: dict, n: int, place):
         for k, v in whole.items():
             b = v.shape[0] // n
             if k in split:
-                per = -(-b // d)
-                lo, hi = min(j * per, b), min((j + 1) * per, b)
+                lo, hi = block_range(b, d, j)
                 out[k] = v[i * b + lo:i * b + hi]
             else:
                 out[k] = v[i * b:(i + 1) * b]

@@ -8,7 +8,9 @@ CPU.
   devices, ``tests/torch_dryrun_ref.py``) — dot FLOPs, dot traffic and
   every kind's payload equal; a dense LM's train step and prefill at 2
   layers on (2, 2) — per-device dot FLOPs within the K/V projections'
-  share (below).
+  share (below); gin-tu's and graphcast's ``full_graph_sm`` train steps on
+  one rank and on (2, 2) — per-device dot FLOPs within 0.5 % (the node
+  state split over every axis, as the reference's).
 * A 2-rank step's counted collectives (calls and payload bytes, as rank 0
   of a fake world) equal to those the same step issues on a real 2-rank
   gloo group (``tests/torch_dryrun_worker.py``).
@@ -17,6 +19,9 @@ CPU.
   fake mode (the wrappers and their callers, ``fa2._attraction`` and
   ``core.cms.update``); no launch counted; its operations and bytes giving
   PERF.md §6's bound, to its printed digits, at that table's inputs.
+* K5's and K6's costs: the printed bounds at the rows' same-cell pairs;
+  a grid-form ``layout_berkstan`` step traced on fake tensors on one rank
+  and on (2, 2), with K5's and K6's rules and no plain version.
 * gin-tu ``ogb_products`` on a mesh of one: a step's 20 K7 sums, 10 gather
   backwards and 2 layout builds.
 * The CLI in subprocesses: two cells and every skipped cell, with the keys
@@ -34,6 +39,7 @@ in each layer (131,072 FLOPs), the train step's 786,432 of the bound's
 """
 import json
 import os
+from dataclasses import replace
 import subprocess
 import sys
 from pathlib import Path
@@ -50,6 +56,7 @@ from repro_torch.core import cms as cms_lib  # noqa: E402
 from repro_torch.core import forceatlas2 as fa2  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.cms import ops as cms_ops  # noqa: E402
+from repro_torch.kernels.grid import ops as grid_ops  # noqa: E402
 from repro_torch.kernels.repulsion import ops as rep_ops  # noqa: E402
 from repro_torch.kernels.segment import ops as seg_ops  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
@@ -119,6 +126,28 @@ def test_lm_dot_flops_match_the_reference_within_the_kv_share(sides, kind):
     assert 0 <= port - ref <= (1 - 1 / m) * _kv_projection_flops(kind), (port, ref)
 
 
+GNN_DOT_RTOL = 0.005
+
+
+@pytest.mark.parametrize("cell", [f"{a} {c}" for a, c in W.GNN_CELLS])
+def test_gnn_dot_flops_match_the_reference_per_device(sides, cell):
+    """The GNN mesh form splits the node rows over every axis as the
+    reference's constraint does, so each device's products are a quarter
+    of one device's on (2, 2), the reference's number within GNN_DOT_RTOL
+    on one device and on the mesh. The reference's ``n_dots`` counts the
+    dot instructions of its HLO, a scan's body once; the port counts every
+    product it runs, so its count is held against its own one-rank step:
+    the split runs every product, on fewer rows."""
+    one, split = f"{cell} (1, 1)", f"{cell} {W.GNN_MESH}"
+    ref, port = sides["ref"]["gnn"], sides["port"]["gnn"]
+    for key in (one, split):
+        assert abs(port[key]["dot_flops"] / ref[key]["dot_flops"] - 1) <= GNN_DOT_RTOL, \
+            (key, port[key]["dot_flops"], ref[key]["dot_flops"])
+    assert abs(port[split]["dot_flops"] * 4 / port[one]["dot_flops"] - 1) <= GNN_DOT_RTOL
+    assert port[split]["n_dots"] == port[one]["n_dots"]
+    assert ref[split]["n_dots"] == ref[one]["n_dots"]
+
+
 def test_fake_collectives_are_those_a_gloo_run_issues(sides):
     fake, real = sides["port"]["gloo_cell"], sides["gloo"]
     assert fake["collective_calls"] == real["collective_calls"]
@@ -137,8 +166,16 @@ def _rng_inputs():
     w = torch.rand(e, generator=g)
     data = torch.randn((e, 5), generator=g)
     keys = torch.randint(-1, 50, (e,), generator=g, dtype=torch.int32)
+    cell, order = grid_ops.bin_and_sort(pos, 8)
+    idx = order.long()
+    pos_s, mass_s, cell_s = pos[idx], mass[idx], cell[idx]
+    # The cell statistics by index_add_ (the tests refuse K7's plain version).
+    sums = torch.zeros(64, 3).index_add_(
+        0, cell_s.long(), torch.cat([pos_s * mass_s[:, None], mass_s[:, None]], 1))
+    cmass = sums[:, 2].contiguous()
+    ccent = sums[:, :2] / torch.clamp(cmass, min=1e-9)[:, None]
     return dict(n=n, e=e, pos=pos, mass=mass, radii=radii, src=src, dst=dst, w=w, data=data,
-                keys=keys)
+                keys=keys, pos_s=pos_s, mass_s=mass_s, cell_s=cell_s, ccent=ccent, cmass=cmass)
 
 
 def _gather_bwd(x, idx):
@@ -162,8 +199,15 @@ ENTRIES = {
     "cms_update_keys": lambda t: cms_ops.update(torch.zeros(4, 37), t["keys"], t["w"], CMS),
     "cms_update": lambda t: cms_ops.update_hashed(
         torch.zeros(4, 37), cms_ops.hashed_buckets(t["keys"], CMS), t["w"]),
+    "far_field": lambda t: grid_ops.far_field(t["pos_s"], t["mass_s"], t["cell_s"], t["ccent"],
+                                              t["cmass"], 2.0),
+    "near_field": lambda t: grid_ops.near_field_sorted(t["pos_s"], t["mass_s"], t["cell_s"],
+                                                       2.0, 8),
+    "near_field_rows": lambda t: grid_ops.near_field_rows(t["pos_s"], t["mass_s"], t["cell_s"],
+                                                          2.0, 8, 100, 150),
 }
 _PLAIN = {rep_ops: ("repulsion_ref", "repulsion_chunked", "repulsion_chunked_rows"),
+          grid_ops: ("far_field_ref", "near_field_ref", "near_field_rows_ref"),
           seg_ops: ("segment_offsets_ref", "segment_sum_ref", "segment_sum_layout_ref",
                     "attraction_sum_ref"),
           cms_ops: ("cms_update_ref",)}
@@ -266,7 +310,17 @@ BOUND_ROWS = [
         cms_lib.CMSConfig(rows=4, cols=6594)), "0.00170"),
     ("cms_update", lambda: cms_ops.update_hashed(
         _fake((4, 6594)), _fake((4, 685230), torch.int32), _fake(685230)), "0.00415"),
+    ("far_field", lambda: grid_ops.far_field(
+        _fake((685230, 2)), _fake(685230), _fake(685230, torch.int32), _fake((4096, 2)),
+        _fake(4096), 80.0), "0.545"),
 ]
+# K6's rows: (entry, cost arguments, same-cell pairs of the row's input, its
+# bound ms as printed). A rule on fake tensors cannot read the cells and
+# counts every in-range band slot as a pair; the printed bounds count the
+# pairs of the full path's converged layout, as chip_smoke.py's row log
+# gives them (``same_cell_pairs=``).
+NEAR_ROWS = [("near_field", (685230, 32, 0, 685230), 41714462, "0.00813"),
+             ("near_field_rows", (685230, 32, 342615, 342615), 20857246, "0.00406")]
 
 
 @pytest.mark.parametrize("row", range(len(BOUND_ROWS)),
@@ -280,6 +334,72 @@ def test_rule_costs_give_the_perf_table_bounds(row, monkeypatch):
     (ops, nbytes), = [(o, b) for name, o, b in seen if name == entry]
     bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e3
     assert float(f"{bound:.3g}") == float(printed), (entry, bound, printed)
+
+
+def _bound_ms(ops, nbytes):
+    return max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e3
+
+
+@pytest.mark.parametrize("row", NEAR_ROWS, ids=[r[0] for r in NEAR_ROWS])
+def test_near_field_costs_give_the_perf_table_bounds(row, monkeypatch):
+    """K6's cost at the row's pairs gives PERF.md §6's bound; its rule, on
+    fake tensors of the row's shapes, counts every in-range band slot as a
+    pair, the bytes unchanged."""
+    entry, (n, w, i0, nl), pairs, printed = row
+    ops, nbytes = grid_ops.near_field_rows_cost(n, w, i0, nl, pairs)
+    assert float(f"{_bound_ms(ops, nbytes):.3g}") == float(printed)
+    seen = []
+    monkeypatch.setattr(build, "RULE_OBSERVERS", [lambda *a: seen.append(a)])
+    with FakeTensorMode():
+        args = (_fake((n, 2)), _fake(n), _fake(n, torch.int32), 80.0, w)
+        if entry == "near_field":
+            grid_ops.near_field_sorted(*args)
+        else:
+            grid_ops.near_field_rows(*args, i0, nl)
+    slots = ops - grid_ops.NEAR_OPS_PER_PAIR * pairs
+    assert seen == [(entry, slots * (1 + grid_ops.NEAR_OPS_PER_PAIR), nbytes)]
+    if entry == "near_field":
+        assert slots == sum(2 * (n - k) for k in range(1, w + 1))
+
+
+def _grid_layout_arch():
+    arch = get_config("biggraphvis")
+    return replace(arch, model=replace(arch.model, layout_repulsion="grid"))
+
+
+def test_grid_layout_step_takes_the_k5_k6_rules(no_plain):
+    """The grid form of a ``layout_berkstan``-shaped step on one rank,
+    traced end to end on fake tensors: no plain version, and K5's and K6's
+    rules counted once each with their costs; the step's outputs shaped as
+    its inputs. (On a mesh: ``test_grid_layout_step_on_a_mesh``.)"""
+    arch = _grid_layout_arch()
+    shape = arch.shapes["layout_berkstan"]
+    mesh = make_host_mesh(device="cpu")
+    built = build_step(arch, shape, mesh)
+    stats, _ = dryrun.trace_step(built, mesh, mesh.device)
+    n, c, w = shape.n_nodes, arch.model.layout_grid_size ** 2, arch.model.layout_grid_window
+    k = stats.kernels
+    assert k["far_field"] == {"calls": 1, "operations": grid_ops.far_field_cost(n, c)[0],
+                              "bytes": grid_ops.far_field_cost(n, c)[1]}
+    ops, nbytes = grid_ops.near_field_cost(n, w)
+    assert k["near_field"] == {"calls": 1, "operations": ops, "bytes": nbytes}
+    assert k["segment_sum"]["calls"] == 1 and "repulsion_nbody" not in k
+
+
+def test_grid_layout_step_on_a_mesh(sides):
+    """The same step on (2, 2), as rank 0 of a fake world of four with
+    every plain version refused (``tests/torch_dryrun_worker.py``): K5 on
+    the rank's sorted rows, K6's row entry, and no whole K6."""
+    arch = _grid_layout_arch()
+    shape = arch.shapes["layout_berkstan"]
+    n, c, w = shape.n_nodes, arch.model.layout_grid_size ** 2, arch.model.layout_grid_window
+    nl = n // 4
+    k = sides["port"]["grid_layout"]
+    assert k["far_field"] == {"calls": 1, "operations": grid_ops.far_field_cost(nl, c)[0],
+                              "bytes": grid_ops.far_field_cost(nl, c)[1]}
+    ops, nbytes = grid_ops.near_field_rows_cost(n, w, 0, nl)
+    assert k["near_field_rows"] == {"calls": 1, "operations": ops, "bytes": nbytes}
+    assert "near_field" not in k
 
 
 def test_gin_products_step_counts_its_k7_entries():

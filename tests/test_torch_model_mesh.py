@@ -28,6 +28,11 @@ two sides start from the same parameters and batches.
   reference's compiles take ≈ 5 s a case); a MoE layer on a mesh that
   splits the tokens routes each shard apart, so those are held against
   the reference only;
+* (d′) the GNN mesh form: each rank's node state its block of c =
+  ceil(N / D) rows (short or empty on the last ranks, N = 38 and 9 on
+  four ranks), entering and leaving every layer and out of ``forward``;
+  the loss the same scalar on every rank; ``gather_blocks``' backward a
+  sum over the ranks and ``reduce_blocks``' an all-gather;
 * (e) the BigGraphVis cells on 2 and 4 ranks, bitwise the port's one-rank
   step;
 * (f) ``launch/train.py --mesh 1x2`` killed and resumed, bitwise.
@@ -112,9 +117,9 @@ def _inputs() -> dict:
     params, batch = {}, {}
     for i, case in enumerate(W.CASES):
         name, family, cfg_name = case[:3]
-        _, _, cfg, specs, _ = W.port_case(family, cfg_name)
+        _, _, cfg, specs, _ = W.port_case(family, cfg_name, name)
         params[name] = W.np_params(W.spec_leaves(specs), seed=100 + i)
-        batch[name] = W.batch_for(family, cfg, seed=200 + i)
+        batch[name] = W.batch_for(family, cfg, seed=200 + i, name=name)
     b, s, d, e, f, _ = W.MOE_SHAPE
     rng = np.random.default_rng(5)
     moe = [rng.standard_normal(sh).astype(np.float32) * sc for sh, sc in (
@@ -353,6 +358,60 @@ def test_train_steps_match_the_reference_sharded_step(runs, case):
     for got in ranks[1:]:
         for k, v in got["train"][name]["params"].items():
             assert np.array_equal(v, ranks[0]["train"][name]["params"][k]), k
+
+
+_GNN_MESH_CASES = [c for c in W.CASES if c[1] == "gnn"]
+
+
+@pytest.mark.parametrize("case", _GNN_MESH_CASES, ids=[c[0] for c in _GNN_MESH_CASES])
+def test_gnn_node_state_is_the_ranks_block(runs, case):
+    """Every rank holds its block of c = ceil(N / D) node rows (the last
+    blocks short or empty) entering and leaving every layer, and its
+    forward returns that block (the pooled graphs whole for graph_class);
+    every rank's loss is the same scalar, in the forward and in each train
+    step."""
+    name, _, cfg_name = case[:3]
+    n, _ = W.gnn_size(name)
+    world = W.world_of(case[3])
+    c = -(-n // world)
+    ranks = runs[world]
+    seen = set()
+    for got in ranks:
+        blk = got["train"][name]["blocks"]
+        lo, hi = blk["range"]
+        assert (lo, hi) in {(min(j * c, n), min((j + 1) * c, n)) for j in range(world)}
+        seen.add((lo, hi))
+        assert blk["layer_rows"] and all(r == (hi - lo, hi - lo) for r in blk["layer_rows"])
+        want = W.GNN_GRAPHS if cfg_name.endswith("-graph") else hi - lo
+        assert blk["out_rows"] == want
+        assert blk["loss"] == ranks[0]["train"][name]["blocks"]["loss"]
+        assert got["train"][name]["metrics"] == ranks[0]["train"][name]["metrics"]
+    assert len(seen) == world  # every block held by one rank
+    if name in W.GNN_SIZES:  # a short or empty last block
+        assert n % world
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_gather_blocks_backward_sums_over_ranks(runs, world):
+    """``gather_blocks`` gathers every rank's block whole, and its gradient
+    is the sum of every rank's (a reduce-scatter), this rank's block kept;
+    ``reduce_blocks`` sums the ranks' partials to the rank's block, and its
+    gradient is the whole of the blocks' gradients on every rank."""
+    ranks = runs[world]
+    first = ranks[0]["blocks_autograd"]
+    x, w, p, v = first["x"], first["w"], first["p"], first["v"]
+    ranges = []
+    for got in ranks:
+        res = got["blocks_autograd"]
+        lo, hi = res["range"]
+        ranges.append((lo, hi))
+        assert np.array_equal(res["gathered"], x)
+        np.testing.assert_allclose(res["x_grad"], w.sum(0)[lo:hi], rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(res["own"], p.sum(0)[lo:hi], rtol=1e-6, atol=1e-6)
+        assert np.array_equal(res["p_grad"], v)
+    assert sorted(ranges) == [(min(j * 3 if world == 4 else j * 5, 9),
+                               min((j + 1) * (3 if world == 4 else 5), 9))
+                              for j in range(world)]
 
 
 # --------------------------------------------------------------------- (e)

@@ -9,7 +9,8 @@ its ``launch.hlo_analysis.analyze_hlo``: (a) a chain of two products with an
 all-reduce and an all-gather between them, under ``shard_map`` over four
 devices; (b) a dense LM train step and (c) its prefill, at 2 layers of
 ``smoke_lm``'s width, on a (2, 2) mesh with Auto axes (Explicit axes hit
-fault R3). It writes each analysis's numbers to ``OUT.json``.
+fault R3); (d) the GNN cells' train steps (``W.GNN_CELLS``) on one device
+and on that mesh. It writes each analysis's numbers to ``OUT.json``.
 """
 import json
 import os
@@ -71,8 +72,22 @@ def lm(kind: str) -> dict:
     return _numbers(lowered.compile())
 
 
+def gnn(arch_name: str, cell: str, shape) -> dict:
+    """A GNN cell's train step (``launch.steps.build_gnn_step``: the node
+    state constrained to every axis) on a mesh of ``shape``."""
+    mesh = MR.make_mesh(shape)
+    arch = get_config(arch_name)
+    built = jsteps.build_step(arch, arch.shapes[cell], mesh)
+    with mesh:
+        lowered = jax.jit(built.fn, in_shardings=built.in_shardings,
+                          out_shardings=built.out_shardings).lower(*built.abstract_args)
+    return _numbers(lowered.compile())
+
+
 def main() -> None:
-    out = {"chain": chain(), "train": lm("train"), "prefill": lm("prefill")}
+    out = {"chain": chain(), "train": lm("train"), "prefill": lm("prefill"),
+           "gnn": {f"{a} {c} {m}": gnn(a, c, m)
+                   for a, c in W.GNN_CELLS for m in ((1, 1), W.GNN_MESH)}}
     with open(sys.argv[1], "w") as f:
         json.dump(out, f)
 

@@ -4,9 +4,10 @@ that need a process group of their own (a fake world, or gloo ranks).
     python tests/torch_dryrun_worker.py OUT.json
 
 traces, each as rank 0 of a fake world (``torch.testing``'s fake process
-group), the chain of ``CHAIN`` over four ranks and the dense LM's train
-step and prefill (``LM_SHAPE``) on the (2, 2) mesh, and the ``GLOO_CELL``
-on (1, 2), counting with ``op_analysis.OpCounter``; it writes their numbers
+group), the chain of ``CHAIN`` over four ranks, the dense LM's train
+step and prefill (``LM_SHAPE``) on the (2, 2) mesh, the ``GLOO_CELL``
+on (1, 2), the ``GNN_CELLS``' train steps on one rank and on
+``GNN_MESH`` and a grid-form layout step on ``GNN_MESH``, counting with ``op_analysis.OpCounter``; it writes their numbers
 to ``OUT.json``. ``gloo_rank`` is the other side of the last: the same
 step on a real 2-rank gloo group, its collectives counted by wrapping
 ``torch.distributed.all_reduce`` and ``all_gather``. This module imports
@@ -23,6 +24,10 @@ import sys
 CHAIN = ((8, 16), (16, 32), (32, 8))
 LM_MESH, LM_SHAPE = (2, 2), (4, 16)  # (rows, sequence)
 GLOO_MESH = (1, 2)
+# The GNN train steps held against the reference's per-device dot FLOPs:
+# (arch, cell), on one rank and on GNN_MESH.
+GNN_CELLS = (("gin-tu", "full_graph_sm"), ("graphcast", "full_graph_sm"))
+GNN_MESH = (2, 2)
 
 
 def _lm_built(kind: str, mesh, shape=LM_SHAPE):
@@ -92,6 +97,73 @@ def traced(kind: str, mesh_shape, world: int, shape=LM_SHAPE) -> dict:
     return _stats(stats)
 
 
+def traced_gnn(arch_name: str, cell: str, mesh_shape) -> dict:
+    """A GNN cell's train step as rank 0 of a fake world of the mesh's
+    size (on one rank, no process group)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_model_mesh
+    from repro_torch.launch.steps import build_step
+
+    world = mesh_shape[0] * mesh_shape[1]
+    arch = get_config(arch_name)
+    if world == 1:
+        mesh = make_host_mesh(device="cpu")
+        stats, _ = dryrun.trace_step(build_step(arch, arch.shapes[cell], mesh), mesh, mesh.device)
+        return _stats(stats)
+    _fake_world(world)
+    try:
+        mesh = make_model_mesh(mesh_shape, ("data", "model"), device="cpu")
+        stats, _ = dryrun.trace_step(build_step(arch, arch.shapes[cell], mesh), mesh, mesh.device)
+    finally:
+        dist.destroy_process_group()
+    return _stats(stats)
+
+
+def grid_layout(mesh_shape) -> dict:
+    """The grid form of a ``layout_berkstan``-shaped step as rank 0 of a
+    fake world of the mesh's size, every plain kernel version refused:
+    its kernel rules' counts."""
+    from dataclasses import replace
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grid import ops as grid_ops
+    from repro_torch.kernels.repulsion import ops as rep_ops
+    from repro_torch.kernels.segment import ops as seg_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_model_mesh
+    from repro_torch.launch.steps import build_step
+
+    def refuse(name):
+        def f(*a, **k):
+            raise AssertionError(f"{name} traced in place of a kernel")
+        return f
+
+    plain = {grid_ops: ("far_field_ref", "near_field_ref", "near_field_rows_ref"),
+             rep_ops: ("repulsion_ref", "repulsion_chunked", "repulsion_chunked_rows"),
+             seg_ops: ("segment_offsets_ref", "segment_sum_ref", "segment_sum_layout_ref",
+                       "attraction_sum_ref")}
+    saved = {(m, k): getattr(m, k) for m, names in plain.items() for k in names}
+    for m, k in saved:
+        setattr(m, k, refuse(k))
+    arch = get_config("biggraphvis")
+    arch = replace(arch, model=replace(arch.model, layout_repulsion="grid"))
+    _fake_world(mesh_shape[0] * mesh_shape[1])
+    try:
+        mesh = make_model_mesh(mesh_shape, ("data", "model"), device="cpu")
+        built = build_step(arch, arch.shapes["layout_berkstan"], mesh)
+        stats, _ = dryrun.trace_step(built, mesh, mesh.device)
+    finally:
+        dist.destroy_process_group()
+        for (m, k), fn in saved.items():
+            setattr(m, k, fn)
+    return stats.kernels
+
+
 def _ring(kind: str, nbytes: int, k: int) -> float:
     if kind == "all-reduce":
         return nbytes * 2.0 * (k - 1) / k
@@ -150,7 +222,10 @@ def gloo_rank(_stream_mesh, out: str) -> None:
 def main() -> None:
     res = {"chain": chain(), "train": traced("train", LM_MESH, 4),
            "prefill": traced("prefill", LM_MESH, 4),
-           "gloo_cell": traced("train", GLOO_MESH, 2)}
+           "gloo_cell": traced("train", GLOO_MESH, 2),
+           "gnn": {f"{a} {c} {m}": traced_gnn(a, c, m)
+                   for a, c in GNN_CELLS for m in ((1, 1), GNN_MESH)},
+           "grid_layout": grid_layout(GNN_MESH)}
     with open(sys.argv[1], "w") as f:
         json.dump(res, f)
 

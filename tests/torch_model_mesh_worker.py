@@ -27,6 +27,11 @@ LR = {"lm": 1e-5, "recsys": 1e-5, "gnn": 1e-3}
 STEPS = 2
 LM_BATCH, LM_SEQ = (4, 16)
 GNN_NODES, GNN_EDGES = 40, 96
+# GNN cases of other sizes: N that does not divide over the 4 ranks (the
+# node blocks of c = ceil(N / 4) rows, the last short; or empty). The
+# graph-level case pools GNN_GRAPHS graphs.
+GNN_SIZES = {"gat-uneven-2x2": (38, 96), "gin-empty-2x2": (9, 96)}
+GNN_GRAPHS = 4
 SAS_BATCH = 8
 # A train step case: (name, family, config, mesh shape, state bits,
 # compress_grads, held against): "ref" the reference's sharded step, "one"
@@ -45,6 +50,9 @@ CASES = [
     ("gat-2x2", "gnn", "gat", (2, 2), 32, False, "one"),
     ("graphcast-2x1", "gnn", "graphcast", (2, 1), 32, False, "one"),
     ("sasrec-2x1", "recsys", "sasrec", (2, 1), 32, False, "one"),
+    ("gat-uneven-2x2", "gnn", "gat", (2, 2), 32, False, "one"),
+    ("gin-empty-2x2", "gnn", "gin", (2, 2), 32, False, "one"),
+    ("gin-graph-2x2", "gnn", "gin-graph", (2, 2), 32, False, "one"),
 ]
 # The reference's cases in groups of about equal compile time, one process
 # each; the first also runs the MoE cases and the blocks.
@@ -129,16 +137,26 @@ def flatten(tree, prefix=()) -> dict:
     return {"/".join(prefix): tree}
 
 
-def batch_for(family: str, cfg, seed: int) -> dict:
+def gnn_size(name: str | None) -> tuple:
+    """(nodes, edges) of a GNN case."""
+    return GNN_SIZES.get(name, (GNN_NODES, GNN_EDGES))
+
+
+def batch_for(family: str, cfg, seed: int, name: str | None = None) -> dict:
     rng = np.random.default_rng(seed)
     if family == "lm":
         return {"tokens": rng.integers(1, cfg.vocab, (LM_BATCH, LM_SEQ)).astype(np.int32),
                 "loss_mask": (rng.random((LM_BATCH, LM_SEQ)) < 0.9).astype(np.float32)}
     if family == "gnn":
-        n, e = GNN_NODES, GNN_EDGES
+        n, e = gnn_size(name)
         edges = rng.integers(0, n, (e, 2)).astype(np.int32)
         edges[-6:] = n  # trash padding
         b = {"feats": rng.standard_normal((n, cfg.d_feat)).astype(np.float32), "edges": edges}
+        if cfg.task == "graph_class":
+            b["graph_ids"] = np.sort(rng.integers(0, GNN_GRAPHS, n)).astype(np.int32)
+            b["labels"] = rng.integers(0, cfg.n_out, GNN_GRAPHS).astype(np.int32)
+            b["mask"] = np.array([1, 1, 0, 1], np.float32)[:GNN_GRAPHS]
+            return b
         if cfg.task == "node_reg":
             b["labels"] = rng.standard_normal((n, cfg.n_out)).astype(np.float32)
         else:
@@ -161,8 +179,9 @@ def _port_ns():
     return smoke_lm, get_config, torch.float32
 
 
-def port_case(family: str, cfg_name: str):
-    """``(arch, shape, cfg, specs, loss)`` of a case in the port."""
+def port_case(family: str, cfg_name: str, name: str | None = None):
+    """``(arch, shape, cfg, specs, loss)`` of a case in the port (``name``:
+    the case's, for its size)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.configs.gnn_archs import smoke_gnn
@@ -177,11 +196,14 @@ def port_case(family: str, cfg_name: str):
         shape = ShapeSpec("train_4k", "train", seq_len=LM_SEQ, global_batch=LM_BATCH)
         return arch, shape, cfg, tfm.param_specs(cfg), tfm.lm_loss
     if family == "gnn":
-        cfg = smoke_gnn(cfg_name)
-        arch = replace(get_config({"gin": "gin-tu", "gat": "gat-cora"}.get(cfg_name, cfg_name)),
+        cfg = smoke_gnn(cfg_name.split("-")[0])
+        if cfg_name.endswith("-graph"):
+            cfg = replace(cfg, task="graph_class", n_out=2)
+        arch = replace(get_config({"gin": "gin-tu", "gat": "gat-cora"}.get(cfg.arch, cfg.arch)),
                        model=cfg)
-        shape = ShapeSpec("g", "graph_train", n_nodes=GNN_NODES, n_edges=GNN_EDGES,
-                          d_feat=cfg.d_feat, n_out=cfg.n_out, task=cfg.task)
+        n, e = gnn_size(name)
+        shape = ShapeSpec("g", "graph_train", n_nodes=n, n_edges=e, d_feat=cfg.d_feat,
+                          n_out=cfg.n_out, task=cfg.task, n_graphs=GNN_GRAPHS)
         return arch, shape, cfg, gnn_lib.param_specs(cfg), gnn_lib.gnn_loss
     cfg = smoke_sasrec()
     arch = replace(get_config("sasrec"), model=cfg)
@@ -201,7 +223,7 @@ def port_train(mesh, case, inputs: dict) -> dict:
     from repro_torch.train.train_loop import TrainConfig, make_train_step
 
     name, family, cfg_name, _, bits, compress, _ = case
-    arch, shape, cfg, _, loss = port_case(family, cfg_name)
+    arch, shape, cfg, _, loss = port_case(family, cfg_name, name)
     params = {k: torch.as_tensor(v) for k, v in inputs["params"][name].items()}
     params = nest(params)
     batch = {k: torch.as_tensor(v) for k, v in inputs["batch"][name].items()}
@@ -218,13 +240,78 @@ def port_train(mesh, case, inputs: dict) -> dict:
         params = shard_tree(params, p_specs, mesh)
         state = shard_tree(state, o_specs, mesh)
         batch = shard_tree(batch, b_specs, mesh)
+    out = {}
+    if family == "gnn" and mesh is not None:
+        out["blocks"] = gnn_blocks(cfg, params, batch, built.place, shape.n_nodes)
     metrics = []
     for _ in range(STEPS):
         params, state, m = fn(params, state, batch)
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
     if mesh is not None:
         params = gather_tree(params, p_specs, mesh)
-    return {"metrics": metrics, "params": {k: v.numpy() for k, v in flatten(params).items()}}
+    return {"metrics": metrics, "params": {k: v.numpy() for k, v in flatten(params).items()},
+            **out}
+
+
+def gnn_blocks(cfg, params, batch, place, n: int) -> dict:
+    """A GNN forward on the rank's blocks: the rows of ``h`` entering and
+    leaving each layer, of the output, the rank's block range and the loss."""
+    import torch
+
+    from repro_torch.models import gnn as gnn_lib
+    from repro_torch.sharding.collectives import block_range
+
+    rows = []
+    saved = {k: getattr(gnn_lib, k) for k in ("_gin_layer", "_gat_layer", "_mpnn_layer")}
+
+    def watch(fn):
+        def layer(h, *a, **k):
+            out = fn(h, *a, **k)
+            rows.append((h.shape[0], (out[0] if isinstance(out, tuple) else out).shape[0]))
+            return out
+        return layer
+
+    for k, fn in saved.items():
+        setattr(gnn_lib, k, watch(fn))
+    try:
+        with torch.no_grad():
+            out = gnn_lib.forward(cfg, params, batch, place)
+            loss = gnn_lib.gnn_loss(cfg, params, batch, place)
+    finally:
+        for k, fn in saved.items():
+            setattr(gnn_lib, k, fn)
+    mesh = place.mesh
+    axes = mesh.live_axes(mesh.axis_names)
+    return {"layer_rows": rows, "out_rows": out.shape[0], "loss": float(loss),
+            "range": block_range(n, mesh.extent(axes), mesh.index(axes))}
+
+
+def blocks_autograd(mesh) -> dict:
+    """``gather_blocks`` and ``reduce_blocks`` alone, with their gradients,
+    on N = 9 rows (4 ranks: blocks of 3, the last empty; 2 ranks: 5 and
+    4): each rank's block of a seeded X gathered and weighted by a
+    rank's own W_r; partials P_r summed to the rank's block and weighted by
+    V (whole, seeded)."""
+    import torch
+
+    from repro_torch.sharding.collectives import block_range, gather_blocks, reduce_blocks
+
+    n, axes = 9, mesh.live_axes(mesh.axis_names)
+    lo, hi = block_range(n, mesh.extent(axes), mesh.index(axes))
+    g = torch.Generator().manual_seed(11)
+    x = torch.randn((n, 3), generator=g)
+    w = torch.randn((mesh.size, n, 3), generator=g)
+    p = torch.randn((mesh.size, n, 3), generator=g)
+    v = torch.randn((n, 3), generator=g)
+    xb = x[lo:hi].clone().requires_grad_(True)
+    whole = gather_blocks(xb, mesh, axes, n)
+    (whole * w[mesh.rank]).sum().backward()
+    pr = p[mesh.rank].clone().requires_grad_(True)
+    own = reduce_blocks(pr, mesh, axes)
+    (own * v[lo:hi]).sum().backward()
+    return {"range": (lo, hi), "gathered": whole.detach().numpy(), "x": x.numpy(),
+            "x_grad": xb.grad.numpy(), "w": w.numpy(), "own": own.detach().numpy(),
+            "p": p.numpy(), "p_grad": pr.grad.numpy(), "v": v.numpy()}
 
 
 def port_moe(mesh, case, inputs: dict) -> dict:
@@ -346,6 +433,7 @@ def run_all(_stream_mesh, inputs_path: str, out_dir: str) -> None:
     for shape in ((1, world), (world // 2, 2)) if world == 4 else ((1, world),):
         for case in BGV_CASES:
             res["bgv"][(case[0], shape)] = port_bgv(mesh_of(shape), case)
+    res["blocks_autograd"] = blocks_autograd(mesh_of((1, world)))
     res["round_trip"] = round_trip(mesh_of((1, 2) if world == 2 else (2, 2)), inputs)
     res["coords"] = mesh_of((1, 2) if world == 2 else (2, 2)).coords
     with open(os.path.join(out_dir, f"rank{_stream_mesh.rank}.pkl"), "wb") as f:
