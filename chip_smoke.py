@@ -1475,6 +1475,43 @@ def make_graph():
     return edges, delta
 
 
+# The reference's uniform draw for key 0, shape (4, 2), in [-1000, 1000)
+# (release 0.9.0 of its array library: threefry2x32, partitionable),
+# flattened, as bit patterns.
+REFERENCE_UNIFORM_BITS = {
+    "float32": (0x445FD560, 0x446F4A39, 0xC3A7B561, 0xC27AA6FE,
+                0x430BC705, 0xC4273F9D, 0xC3BDCE2E, 0x43BD7B05),
+    "bfloat16": (0x4394, 0x4310, 0xC42C, 0xC414, 0x43D4, 0xC3F2, 0xC200, 0x4476),
+}
+
+
+def prng_checks(torch, sizes: dict, seed: int) -> None:
+    """The layouts' starting draws (``core/prng``) on the card: the same
+    bits as on the CPU at each path's size, and the reference's recorded
+    values for key 0. Times the full path's draw on the card."""
+    from repro_torch.core import prng
+
+    k = prng.key(seed)
+    for name, n in sizes.items():
+        card = prng.uniform(k, (n, 2), -1000.0, 1000.0, device="cuda")
+        same = bits_equal(torch, card.cpu(), prng.uniform(k, (n, 2), -1000.0, 1000.0))
+        log(f"prng uniform ({n}, 2) float32, {name}: card bits equal the CPU's: {same}")
+        check(same, f"prng: the card's draw for the {name} differs from the CPU's")
+    for dtype, want in REFERENCE_UNIFORM_BITS.items():
+        dt = getattr(torch, dtype)
+        ibits = torch.int32 if dt == torch.float32 else torch.int16
+        mask = (1 << (8 * dt.itemsize)) - 1
+        for dev in ("cuda", "cpu"):
+            got = prng.uniform(prng.key(0), (4, 2), -1000.0, 1000.0, dt, dev)
+            got = tuple(int(b) & mask for b in got.view(ibits).flatten().tolist())
+            log(f"prng uniform key 0 (4, 2) {dtype} on {dev}: "
+                f"{' '.join(f'{b:#x}' for b in got)}; the reference's: {got == want}")
+            check(got == want, f"prng: {dtype} draw on {dev} differs from the reference's")
+    n = max(sizes.values())
+    ms = cuda_ms(torch, lambda: prng.uniform(k, (n, 2), -1000.0, 1000.0, device="cuda"), 5)
+    log(f"prng uniform ({n}, 2) float32 on the card: {ms:.4f} ms")
+
+
 def main_path(torch, np, cap: Capture, edges, delta):
     """Drives the main path twice on one graph. The first run is the one
     measured: launch counts, wall time, stage times, peak memory and the
@@ -1524,6 +1561,8 @@ def main_path(torch, np, cap: Capture, edges, delta):
     s_layout = min(max(1 << (max(n_sn, 2) - 1).bit_length(), 64), cfg.s_cap)
     log(f"n_supernodes {n_sn} n_superedges {res.n_superedges} s_layout {s_layout} "
         f"modularity {res.modularity}")
+    prng_checks(torch, {"main path supergraph": s_layout, "full path": n},
+                cfg.layout.seed)
     log("stage seconds " + json.dumps({
         **{k: v for k, v in res.timings.items()},
         "node_raster_s": rstats.node_raster_s, "edge_raster_s": rstats.edge_raster_s,
@@ -1651,7 +1690,7 @@ def full_path(torch, np, cap: Capture, edges, delta, main_wall: float):
     del again, again_groups
 
     t0 = time.perf_counter()
-    pos0 = fa2.init_positions(n, torch.Generator().manual_seed(cfg.layout.seed)).numpy()
+    pos0 = fa2.init_positions(n, cfg.layout.seed, device="cuda").cpu().numpy()
     q = {name: layout_quality(np, p, edges, n) for name, p in (("initial", pos0), ("final", pos))}
     log(f"full layout quality {json.dumps(q)} (host seconds {time.perf_counter() - t0:.3f})")
     # FA2 moves a node at most 10 units per iteration, so 500 iterations
@@ -1665,7 +1704,7 @@ def full_path(torch, np, cap: Capture, edges, delta, main_wall: float):
                                       grid_window=WINDOW, grid_rebuild=1)
     spos, _ = repro_torch.full_layout_colored(small, m, scfg, iterations=FULL_ITERATIONS,
                                               device="cuda")
-    s0 = fa2.init_positions(m, torch.Generator().manual_seed(scfg.layout.seed)).numpy()
+    s0 = fa2.init_positions(m, scfg.layout.seed, device="cuda").cpu().numpy()
     sq = {name: layout_quality(np, p, small, m) for name, p in (("initial", s0), ("final", spos))}
     log(f"6,000-node full layout quality {json.dumps(sq)}")
     check(sq["final"]["neighborhood"] > 2 * sq["initial"]["neighborhood"]
@@ -2698,7 +2737,7 @@ def md_rank(mesh, npy: str, out_dir: str, delta: int) -> None:
     # MD_GRID_ITERATIONS iterations.
     lcfg = fa2.FA2Config(iterations=MD_GRID_ITERATIONS, repulsion="grid", grid_size=GRID,
                          grid_window=WINDOW, use_radii=False)
-    pos0 = fa2.init_positions(n, torch.Generator().manual_seed(lcfg.seed), device=dev)
+    pos0 = fa2.init_positions(n, lcfg.seed, device=dev)
     edges = torch.as_tensor(edges_np, device=dev)
     w = torch.ones(edges.shape[0], device=dev)
     mass = gdeg.to(torch.float32) + 1.0
@@ -2875,7 +2914,7 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
     # The grid force pass, single-rank, on the same inputs.
     lcfg = fa2.FA2Config(iterations=MD_GRID_ITERATIONS, repulsion="grid", grid_size=GRID,
                          grid_window=WINDOW, use_radii=False)
-    pos0 = fa2.init_positions(n, torch.Generator().manual_seed(lcfg.seed), device=dev)
+    pos0 = fa2.init_positions(n, lcfg.seed, device=dev)
     w = torch.ones(e_dev.shape[0], device=dev)
     mass = torch.as_tensor(gdeg, device=dev).to(torch.float32) + 1.0
     m, p, radii, (dst, w2, lay) = fa2._layout_inputs(e_dev, w, mass, n, lcfg, pos0, dev)
@@ -5611,6 +5650,7 @@ def serving_mesh_phase(torch, np, smi: str) -> dict:
 
 
 def run() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -5688,6 +5728,7 @@ def run() -> int:
     check(sorted(r["name"] for r in rows) == sorted(KERNELS),
           f"kernel rows {sorted(r['name'] for r in rows)}, expected {sorted(KERNELS)}")
     log(json.dumps({"kernels": rows}))
+    log(f"chip_smoke seconds {time.perf_counter() - t_start:.3f}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

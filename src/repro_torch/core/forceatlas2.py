@@ -55,6 +55,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.grid import ops as grid_ops
@@ -94,12 +95,12 @@ def _check_backend(cfg: FA2Config) -> None:
         )
 
 
-def init_positions(n: int, generator: torch.Generator, scale: float = 1000.0,
-                   dtype=torch.float32, device="cpu"):
-    """Uniform positions in [-scale, scale)², drawn on the CPU from
-    ``generator`` (the same numbers on every device)."""
-    u = torch.rand((n, 2), generator=generator, dtype=torch.float32)
-    return (u * (2 * scale) - scale).to(device=device, dtype=dtype)
+def init_positions(n: int, seed: int, scale: float = 1000.0, dtype=torch.float32,
+                   device="cpu"):
+    """Uniform positions in [-scale, scale)² drawn on ``device``: the
+    reference's uniform draw of shape (n, 2) for ``seed``, bit for bit
+    (``prng``)."""
+    return prng.uniform(prng.key(seed), (n, 2), -scale, scale, dtype, device)
 
 
 def init_positions_degree(n: int, mass, scale: float = 1000.0,
@@ -126,15 +127,17 @@ def init_positions_degree(n: int, mass, scale: float = 1000.0,
     return pos.to(torch.float32).to(dtype)
 
 
-def init_positions_bfs(edges, mass, n: int, generator: torch.Generator,
+def init_positions_bfs(edges, mass, n: int, seed: int,
                        rounds: int = 32, smooth_rounds: int = 10,
                        scale: float = 1000.0, dtype=torch.float32):
     """BFS-ring + neighbor-smoothing init: hop depths from the heaviest node
     via ``rounds`` scatter-min relaxations, radius ∝ depth, golden-angle
-    azimuth with a small radial jitter from ``generator``; then
-    ``smooth_rounds`` sweeps pull each node halfway to its neighbors'
-    centroid (rescaled to the scaffold's RMS radius). Padded edge slots
-    (endpoint == n) write to a trash row that is reset or dropped."""
+    azimuth with a small radial jitter (the reference's draw for ``seed``,
+    bit for bit); then ``smooth_rounds`` sweeps pull each node halfway to
+    its neighbors' centroid (rescaled to the scaffold's RMS radius). Padded
+    edge slots (endpoint == n) write to a trash row that is reset or
+    dropped. Within a few ulp of max|pos| of the reference's, which takes
+    its float32 trigonometry and its sums in other roundings and orders."""
     dev = mass.device
     e = edges.long().clamp(0, n)
     u, v = e[:, 0], e[:, 1]
@@ -151,10 +154,15 @@ def init_positions_bfs(edges, mass, n: int, generator: torch.Generator,
     deepest = torch.where(depth >= unreached, 0, depth).max()
     d = torch.where(depth >= unreached, deepest + 1, depth).to(torch.float32)
     r = scale * (d + 0.5) / (deepest.to(torch.float32) + 1.5)
-    jitter = torch.rand(n, generator=generator, dtype=torch.float32).to(dev)
+    jitter = prng.uniform(prng.key(seed), (n,), dtype=torch.float32, device=dev)
     r = r * (0.9 + 0.2 * jitter)
     theta = torch.arange(n, dtype=torch.float32, device=dev) * _GOLDEN_ANGLE
-    pos = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=1)
+    # The float32 cosine and sine correctly rounded (taken in float64):
+    # torch's float32 ones on the CPU depend on the vector width, and the
+    # reference's are within an ulp of these.
+    t64 = theta.to(torch.float64)
+    pos = torch.stack([r * torch.cos(t64).to(torch.float32),
+                       r * torch.sin(t64).to(torch.float32)], dim=1)
 
     one = torch.ones(u.shape[0], dtype=torch.float32, device=dev)
     deg = torch.zeros(n + 1, dtype=torch.float32, device=dev)
@@ -174,17 +182,15 @@ def init_positions_bfs(edges, mass, n: int, generator: torch.Generator,
 
 
 def initial_positions(edges, mass, n: int, cfg: FA2Config):
-    """Dispatch ``cfg.init``; "random" and "bfs" draw from
-    ``torch.Generator().manual_seed(cfg.seed)``."""
+    """Dispatch ``cfg.init`` on ``mass``'s device; "random" and "bfs" draw
+    the reference's bits for ``cfg.seed``."""
     dtype = getattr(torch, cfg.dtype)
     if cfg.init == "random":
-        gen = torch.Generator().manual_seed(cfg.seed)
-        return init_positions(n, gen, dtype=dtype, device=mass.device)
+        return init_positions(n, cfg.seed, dtype=dtype, device=mass.device)
     if cfg.init == "degree":
         return init_positions_degree(n, mass, dtype=dtype)
     if cfg.init == "bfs":
-        gen = torch.Generator().manual_seed(cfg.seed)
-        return init_positions_bfs(edges, mass, n, gen, rounds=cfg.init_bfs_rounds,
+        return init_positions_bfs(edges, mass, n, cfg.seed, rounds=cfg.init_bfs_rounds,
                                   dtype=dtype)
     raise ValueError(
         f"unknown init {cfg.init!r}: expected 'random', 'degree', or 'bfs'"
@@ -395,9 +401,10 @@ def _layout_inputs(edges, weights, mass, n: int, cfg: FA2Config, pos0, device):
     dtype = getattr(torch, cfg.dtype)
     edges = torch.as_tensor(edges, device=device)
     weights = torch.as_tensor(weights, device=device).to(dtype)
-    mass = torch.as_tensor(mass, device=device).to(dtype)
-    if pos0 is None:
+    mass = torch.as_tensor(mass, device=device)
+    if pos0 is None:  # from the mass as given, as the reference starts
         pos0 = initial_positions(edges, mass, n, cfg)
+    mass = mass.to(dtype)
     pos = torch.as_tensor(pos0, device=device).to(dtype)
     radii = torch.sqrt(torch.clamp(mass, min=0.0))  # paper: radius ∝ √size
     return mass, pos, radii, _attraction_edge_layout(edges, weights, n)

@@ -27,6 +27,7 @@ import os
 import signal
 import tempfile
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -265,9 +266,19 @@ class StreamCheckpointer:
 
     def install_preemption_handler(self) -> None:
         """SIGTERM (the cloud/cluster preemption signal) ⇒ checkpoint at
-        the next chunk boundary. Call from the main thread."""
+        the next chunk boundary. Call from the main thread.
+
+        The handler holds the checkpointer weakly: the signal table lives
+        until the interpreter exits, and a checkpointer kept there would
+        keep its mesh's process group alive into the interpreter's
+        teardown, where destroying gloo's group can abort the process
+        after a clean run."""
+        ref = weakref.ref(self)
+
         def handler(signum, frame):
-            self._preempted = True
+            ckpt = ref()
+            if ckpt is not None:
+                ckpt._preempted = True
 
         signal.signal(signal.SIGTERM, handler)
 

@@ -155,8 +155,10 @@ def test_single_step_matches():
 
 
 def test_random_and_bfs_inits_are_seeded_and_grid_backends_raise():
-    """The seeded inits repeat; an unknown repulsion backend raises. (The
-    grid backends run since the full-graph slice: test_torch_full_layout.py.)"""
+    """The seeded inits repeat and are the reference's starts ("random"
+    bitwise, "bfs" within the tolerance of test_torch_prng.py); an unknown
+    repulsion backend raises. (The grid backends run since the full-graph
+    slice: test_torch_full_layout.py.)"""
     edges, w, mass, _, n = _inputs(seed=6)
     for init in ("random", "bfs"):
         cfg = fa2.FA2Config(init=init, seed=3)
@@ -164,6 +166,13 @@ def test_random_and_bfs_inits_are_seeded_and_grid_backends_raise():
         b = fa2.initial_positions(torch.as_tensor(edges), torch.as_tensor(mass), n, cfg)
         assert a.shape == (n, 2) and torch.isfinite(a).all()
         assert torch.equal(a, b)
+        want = np.asarray(jfa2._initial_positions_jit(
+            jnp.asarray(edges), jnp.asarray(mass), n, jfa2.FA2Config(init=init, seed=3)))
+        if init == "random":
+            np.testing.assert_array_equal(a.numpy().view(np.uint32), want.view(np.uint32))
+        else:
+            np.testing.assert_allclose(a.numpy(), want, rtol=0,
+                                       atol=8 * np.spacing(np.abs(want).max()))
     for backend in ("barnes_hut", "Grid", ""):
         with pytest.raises(ValueError, match="unknown repulsion backend"):
             fa2.layout(edges, w, mass, n, fa2.FA2Config(repulsion=backend),

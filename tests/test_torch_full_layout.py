@@ -147,12 +147,16 @@ def test_grid_step_with_precomputed_cells():
     assert torch.equal(up, tp)  # the default re-bins the same positions
 
 
-@pytest.mark.parametrize("n,iterations", [(5000, 4), (1200, 3)])
-def test_full_layout_colored_matches_reference(n, iterations):
-    """Above 4,096 nodes "exact" becomes "grid"; at 1,200 it stays exact."""
+@pytest.mark.parametrize("n,iterations,init", [(5000, 4, "degree"), (1200, 3, "degree"),
+                                              (5000, 4, "random"), (1200, 3, "random")],
+                         ids=["5000-4", "1200-3", "5000-4-random", "1200-3-random"])
+def test_full_layout_colored_matches_reference(n, iterations, init):
+    """Above 4,096 nodes "exact" becomes "grid"; at 1,200 it stays exact.
+    From the degree init and from the default "random" one, which draws the
+    reference's start bit for bit."""
     edges, _ = planted_partition(n, 40, 0.02 * 5000 / n, 0.0004, seed=1)
     cfg = repro.default_config(n, len(edges), mode_degree(edges, n), iterations=5,
-                               init="degree")
+                               init=init)
     want_p, want_g = repro.full_layout_colored(edges, n, cfg, iterations=iterations)
     tr = Tracer()
     tcfg = dataclasses.replace(config_from_reference(cfg), obs=tr)

@@ -72,7 +72,8 @@ def test_every_module_imports_without_jax_or_reference():
                  "repro_torch.train.compression", "repro_torch.train.train_loop",
                  "repro_torch.train.checkpoint", "repro_torch.train.fault_tolerance",
                  "repro_torch.launch.train", "repro_torch.sharding.params",
-                 "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis"):
+                 "repro_torch.launch.dryrun", "repro_torch.launch.op_analysis",
+                 "repro_torch.core.prng", "repro_torch.core.forceatlas2"):
         assert name in walked, name
 
 
@@ -171,6 +172,14 @@ def test_no_port_file_names_jax_or_the_reference(pattern):
         if re.search(pattern, line, re.IGNORECASE)
     ]
     assert not hits, hits
+
+
+def test_layout_inits_draw_from_the_seed_alone():
+    """The FA2 inits take a seed and draw the reference's bits
+    (``core/prng``): no torch generator, so no second way to draw."""
+    src = (PKG / "core" / "forceatlas2.py").read_text()
+    assert "Generator" not in src and "torch.rand" not in src
+    assert "prng.uniform" in src
 
 
 def test_device_none_raises_without_cuda(monkeypatch):

@@ -90,6 +90,29 @@ def test_layout_launcher_writes_its_outputs(tmp_path):
     _check_obs(tmp_path, "biggraphvis", "layout")
 
 
+def _csv_rows(path):
+    rows = [r.split(",") for r in path.read_text().splitlines()[1:]]
+    return (np.array([[int(r[0]), int(r[1]), int(r[4])] for r in rows]),
+            np.array([[float(r[2]), float(r[3])] for r in rows]))
+
+
+def test_layout_launcher_default_init_matches_reference(tmp_path, monkeypatch):
+    """With no ``--init`` both launchers start from the same draw: the
+    CSV's communities, sizes and groups are equal, its positions within
+    1e-4·max|pos| (test_torch_pipeline.py) plus the CSV's 0.005 rounding."""
+    from repro.launch import layout as jlayout
+
+    args = ["--edges", "synthetic:300:6", "--iterations", "5"]
+    layout.main(args + ["--out", str(tmp_path / "g.svg"), "--device", "cpu"])
+    monkeypatch.setattr("sys.argv", ["layout"] + args + ["--out", str(tmp_path / "r.svg")])
+    jlayout.main()
+    got_ids, got_pos = _csv_rows(tmp_path / "g.csv")
+    want_ids, want_pos = _csv_rows(tmp_path / "r.csv")
+    np.testing.assert_array_equal(got_ids, want_ids)
+    np.testing.assert_allclose(got_pos, want_pos, rtol=0,
+                               atol=1e-4 * np.abs(want_pos).max() + 0.01)
+
+
 def test_load_edges_matches_reference(tmp_path):
     for spec in ("synthetic:200:4",):
         got, n = layout.load_edges(spec)

@@ -5,7 +5,7 @@ Bitwise: labels, sizes, color groups, the supergraph, n_supernodes and
 n_superedges, and the raster int32 accumulators given the reference's pixel
 coordinates. Within tolerance: modularity (1e-6, a float32 sum in another
 order), positions (1e-4·max|pos| after a few iterations from the degree
-init, see test_torch_fa2.py) and image pixels (±1 from the float32 tone
+init and from the default "random" one, see test_torch_fa2.py) and image pixels (±1 from the float32 tone
 map). Disk-backed sources are held against the reference's in-memory run.
 """
 import numpy as np
@@ -30,12 +30,17 @@ from repro_torch.render.png import read_png, write_png  # noqa: E402
 CASES = {"ppart-300": (300, 6, 0.15, 0.01), "ppart-3000": (3000, 30, 0.04, 0.0008)}
 
 
-@pytest.fixture(scope="module", params=sorted(CASES))
+@pytest.fixture(scope="module", params=[(case, init) for case in sorted(CASES)
+                                        for init in ("degree", "random")],
+                ids=lambda p: p[0] if p[1] == "degree" else "-".join(p))
 def runs(request):
-    n, k, p_in, p_out = CASES[request.param]
+    """Each graph from the degree init and from the default configuration's
+    "random" init (the reference's draw, bit for bit)."""
+    case, init = request.param
+    n, k, p_in, p_out = CASES[case]
     edges, _ = planted_partition(n, k, p_in, p_out, seed=0)
     cfg = repro.default_config(n, len(edges), mode_degree(edges, n),
-                               iterations=4, init="degree")
+                               iterations=4, init=init)
     scfg = JaxStreamConfig(chunk_size=2048)
     want = repro.biggraphvis(edges, n, cfg, scfg)
     got = repro_torch.biggraphvis(edges, n, config_from_reference(cfg),

@@ -451,6 +451,29 @@ def test_sigterm_during_a_save_is_not_lost(tmp_path):
     assert ck.saves == 2
 
 
+def test_preemption_handler_holds_its_checkpointer_weakly(tmp_path):
+    """The installed handler does not keep the checkpointer (and its mesh's
+    process group) alive: a group destroyed in the interpreter's teardown
+    could abort a rank after a clean run. Once the checkpointer is gone a
+    SIGTERM does nothing."""
+    import gc
+    import weakref
+
+    ck = res.StreamCheckpointer(str(tmp_path))
+    old = signal.getsignal(signal.SIGTERM)
+    try:
+        ck.install_preemption_handler()
+        os.kill(os.getpid(), signal.SIGTERM)
+        assert ck.want_save(False)  # the flag is set
+        gone = weakref.ref(ck)
+        del ck
+        gc.collect()
+        assert gone() is None
+        os.kill(os.getpid(), signal.SIGTERM)  # no checkpointer: nothing to flag
+    finally:
+        signal.signal(signal.SIGTERM, old)
+
+
 # ------------------------------------------------ validation & quarantine
 
 

@@ -29,10 +29,11 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
-pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
 
 import repro  # noqa: E402
 import repro.resilience as jres  # noqa: E402
+from repro.core import forceatlas2 as jfa2  # noqa: E402
 from repro.core.cms import CMSConfig as JaxCMSConfig  # noqa: E402
 from repro.core.scoda import ScodaConfig as JaxScodaConfig  # noqa: E402
 from repro.core.stream import EdgeChunkStream as JaxEdgeChunkStream  # noqa: E402
@@ -111,6 +112,9 @@ def single(tmp_path_factory):
         out[f"pipeline_{agg}"] = W.result_arrays(repro_torch.biggraphvis(
             edges, W.N, cfg, repro_torch.StreamConfig(chunk_size=256, agg_backend=agg),
             device="cpu"))
+    out["pipeline_random"] = W.result_arrays(repro_torch.biggraphvis(
+        edges, W.N, W.pipeline_cfg(edges, init="random"),
+        repro_torch.StreamConfig(chunk_size=256), device="cpu"))
     out["fallback"] = W.result_arrays(repro_torch.biggraphvis(
         edges, W.N, W.pipeline_cfg(edges, block=81),
         repro_torch.StreamConfig(chunk_size=81), device="cpu"))
@@ -136,19 +140,28 @@ def single(tmp_path_factory):
     return out
 
 
-@pytest.fixture(scope="module")
-def reference():
+def _reference_run(init):
     """The reference's single-device run of the pipeline case (JAX)."""
     edges = W.graph()
     cfg = repro.default_config(W.N, len(edges), mode_degree(edges, W.N), rounds=2,
-                               iterations=5, init="degree")
+                               iterations=5, init=init)
     cfg = replace(cfg, scoda=replace(cfg.scoda, block_size=128))
-    assert config_from_reference(cfg) == W.pipeline_cfg(edges)
+    assert config_from_reference(cfg) == W.pipeline_cfg(edges, init=init)
     scfg = JaxStreamConfig(chunk_size=256)
     res = repro.biggraphvis(edges, W.N, cfg, scfg)
     stream = JaxEdgeChunkStream(edges, W.N, 256, block_size=128)
     chunk_b = stream.chunk_bytes * stream.inflight_buffers(scfg.prefetch)
     return res, chunk_b
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return _reference_run("degree")
+
+
+@pytest.fixture(scope="module")
+def reference_random():
+    return _reference_run("random")
 
 
 @pytest.fixture(scope="module", params=RANKS, ids=lambda d: f"D{d}")
@@ -169,8 +182,10 @@ def ranks(request, single, tmp_path_factory):
     return got
 
 
-@pytest.mark.parametrize("agg", ["merge", "lexsort"])
+@pytest.mark.parametrize("agg", ["merge", "lexsort", "random"])
 def test_sharded_pipeline_matches_one_rank_bitwise(ranks, single, agg):
+    """Each aggregation backend from the degree init, and "random": the
+    merge backend from the default init."""
     want = single[f"pipeline_{agg}"]
     for got in ranks:
         res = got[f"pipeline_{agg}"]
@@ -179,22 +194,48 @@ def test_sharded_pipeline_matches_one_rank_bitwise(ranks, single, agg):
         assert res["peak_local_bytes"] < res["peak_device_bytes"]
 
 
-def test_sharded_pipeline_matches_the_reference(ranks, reference):
+def _matches_reference(res, want):
     """Integers bitwise against the reference's single-device run; Q and
     positions within tests/test_torch_pipeline.py's tolerances."""
+    for k, ref in (("labels", want.labels), ("sizes", want.sizes),
+                   ("groups", want.groups), ("sg_edges", want.supergraph.edges),
+                   ("sg_weights", want.supergraph.weights)):
+        assert np.array_equal(res[k], np.asarray(ref)), k
+    assert (res["n_supernodes"], res["n_superedges"]) == (want.n_supernodes,
+                                                           want.n_superedges)
+    assert abs(res["modularity"] - want.modularity) <= 1e-6
+    scale = np.abs(want.positions).max()
+    np.testing.assert_allclose(res["positions"], want.positions, rtol=0,
+                               atol=1e-4 * scale)
+
+
+def test_sharded_pipeline_matches_the_reference(ranks, reference):
     want, _ = reference
     for got in ranks:
-        res = got["pipeline_merge"]
-        for k, ref in (("labels", want.labels), ("sizes", want.sizes),
-                       ("groups", want.groups), ("sg_edges", want.supergraph.edges),
-                       ("sg_weights", want.supergraph.weights)):
-            assert np.array_equal(res[k], np.asarray(ref)), k
-        assert (res["n_supernodes"], res["n_superedges"]) == (want.n_supernodes,
-                                                               want.n_superedges)
-        assert abs(res["modularity"] - want.modularity) <= 1e-6
-        scale = np.abs(want.positions).max()
-        np.testing.assert_allclose(res["positions"], want.positions, rtol=0,
-                                   atol=1e-4 * scale)
+        _matches_reference(got["pipeline_merge"], want)
+
+
+def test_sharded_pipeline_from_the_default_init_matches_the_reference(ranks,
+                                                                     reference_random):
+    """The same from the default "random" init: the ranks start from the
+    reference's draw."""
+    want, _ = reference_random
+    for got in ranks:
+        _matches_reference(got["pipeline_random"], want)
+
+
+def test_layout_start_is_the_reference_start_on_every_rank(ranks):
+    """The default init on each rank: bitwise the one-rank start and the
+    reference's (the start ``layout`` draws when given no ``pos0``)."""
+    edges = W.graph()[:512]
+    mass = np.bincount(edges[:, 0], minlength=W.N).astype(np.float32) + 1
+    one = fa2.initial_positions(torch.as_tensor(edges), torch.as_tensor(mass), W.N,
+                                fa2.FA2Config()).numpy()
+    want = np.asarray(jfa2._initial_positions_jit(jnp.asarray(edges), jnp.asarray(mass),
+                                                  W.N, jfa2.FA2Config()))
+    assert np.array_equal(_bits(one), _bits(want))
+    for got in ranks:
+        assert np.array_equal(_bits(got["start"]), _bits(one))
 
 
 def test_peak_local_bytes_is_the_reference_analytic(ranks, reference):

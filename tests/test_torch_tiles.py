@@ -115,6 +115,36 @@ def test_synthetic_trace_equals_reference(pyramids, seed):
     assert any(isinstance(s, DrillSpec) for s in got)
 
 
+def test_drill_from_the_default_init_matches_reference():
+    """The default configuration ("random" init): the port's result and a
+    drill's layout against the reference's. Positions within 1e-4·max|pos|
+    (test_torch_pipeline.py), the rest bitwise; the reference's drill is its
+    ``full_layout_colored`` as its ``_render_drill`` calls it."""
+    edges, _ = planted_partition(N, COMMUNITIES, 0.3, 0.01, seed=1)
+    cfg = repro.default_config(N, len(edges), mode_degree(edges, N), iterations=10,
+                               s_cap=64)
+    assert cfg.layout.init == "random"
+    want = repro.biggraphvis(edges, N, cfg)
+    pcfg = config_from_reference(cfg)
+    got = repro_torch.biggraphvis(edges, N, pcfg, device="cpu")
+    np.testing.assert_array_equal(got.labels, np.asarray(want.labels))
+    scale = np.abs(want.positions).max()
+    np.testing.assert_allclose(got.positions, want.positions, rtol=0, atol=1e-4 * scale)
+    tcfg = jtiles.TileConfig(**TILE)
+    port = TilePyramid(got, config_from_reference(tcfg), source=edges, bgv_cfg=pcfg)
+    community = int(port.drillable_communities()[0])
+    sub, members, pos, groups = port.drill_layout(community)
+    jsub, jmembers = jtiles.community_subgraph(edges, want.labels, community)
+    np.testing.assert_array_equal(sub, jsub)
+    np.testing.assert_array_equal(members, jmembers)
+    wpos, wgroups = repro.full_layout_colored(
+        jsub, len(jmembers), cfg, iterations=tcfg.drill_iterations,
+        stop_tolerance=tcfg.drill_stop_tolerance, min_iterations=tcfg.drill_min_iterations)
+    np.testing.assert_array_equal(groups, np.asarray(wgroups))
+    wpos = np.asarray(wpos)
+    np.testing.assert_allclose(pos, wpos, rtol=0, atol=1e-4 * np.abs(wpos).max())
+
+
 def test_error_tile_equals_reference():
     np.testing.assert_array_equal(tiles.error_tile(17), jtiles.error_tile(17))
 

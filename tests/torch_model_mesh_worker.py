@@ -357,7 +357,7 @@ def bgv_step(case, mesh):
         deg = torch.randint(0, 6, (n + 1,), generator=g, dtype=torch.int32)
         deg[n] = 0
         return built, (com, deg, edges)
-    pos = fa2.init_positions(n, torch.Generator().manual_seed(3), device="cpu")
+    pos = fa2.init_positions(n, 3, device="cpu")
     args = (pos, 0.1 * torch.randn((n, 2), generator=g), 1.0 + torch.rand(n, generator=g) * 4,
             torch.rand(n, generator=g), edges, torch.rand(e, generator=g))
     if rep == "grid":

@@ -106,6 +106,12 @@ def _case_pipelines(mesh, out):
                                         shard_detect=True, shard_layout=True)
         out[f"pipeline_{agg}"] = result_arrays(
             repro_torch.biggraphvis(edges, N, cfg, scfg))
+    # The default configuration's "random" init: every rank draws the
+    # reference's start.
+    scfg = repro_torch.StreamConfig(chunk_size=256, mesh=mesh, shard_detect=True,
+                                    shard_layout=True)
+    out["pipeline_random"] = result_arrays(
+        repro_torch.biggraphvis(edges, N, pipeline_cfg(edges, init="random"), scfg))
     # Block 81 and chunk 81 divide by neither 2 nor 4: both passes fall back.
     cfg81 = pipeline_cfg(edges, block=81)
     with warnings.catch_warnings(record=True) as caught:
@@ -121,6 +127,7 @@ def _case_layouts(mesh, out):
     edges = torch.as_tensor(graph()[:512])
     w = torch.ones(edges.shape[0])
     mass = torch.zeros(N).index_add_(0, edges[:, 0].long(), torch.ones(edges.shape[0])) + 1
+    out["start"] = fa2.initial_positions(edges, mass, N, fa2.FA2Config()).numpy()
     for rep in ("exact", "grid"):
         cfg = fa2.FA2Config(iterations=4, repulsion=rep, grid_size=8, grid_window=8)
         pos, trace, it = fa2.layout_sharded(edges, w, mass, N, cfg, mesh, device="cpu")

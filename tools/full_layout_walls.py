@@ -55,7 +55,7 @@ def main() -> int:
     mass = degrees(edges, NODES).to(torch.float32) + 1.0
     cfg = fa2.FA2Config(iterations=FULL_ITERATIONS, repulsion="grid", grid_size=GRID,
                         grid_window=WINDOW, grid_rebuild=1, use_radii=False)
-    pos0 = fa2.init_positions(NODES, torch.Generator().manual_seed(cfg.seed), device="cuda")
+    pos0 = fa2.init_positions(NODES, cfg.seed, device="cuda")
     for rep in range(args.reps + 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
