@@ -44,7 +44,11 @@ Phases, each printing its wall seconds:
                this run, and the content of the image is checked; K7's fused
                attraction launches once an iteration and its layout build
                once. A second run of the same path records each kernel's
-               inputs.
+               inputs. Then the seeded draws (``prng_checks``): the
+               layouts' uniform and the weights' normal on the card against
+               the CPU and the reference's recorded bits, a normal draw in
+               chunks against the whole draw, ``split``, and the timed
+               draws (yi-6b's embedding leaf among them).
 5. full path — ``full_layout_colored`` (grid repulsion, 500 iterations) +
                ``render_arrays`` over every edge, on the same graph, with the
                counters set to 0 just before and read just after: stage
@@ -143,6 +147,10 @@ Phases, each printing its wall seconds:
                granite-moe-1b-a400m, both LMs at 2 layers against the CPU,
                SASRec's serve and retrieval cells, gin-tu and gat-cora
                (``models_phase``): tokens/s, ms per decode step, peak memory.
+               The LMs' weights are the smoke's own seeded draw at the true
+               fan-in (``lm_params``); SASRec's and the GNNs' the
+               reference's (``init_params`` from ``prng.key(SEED)``),
+               SASRec's rescaled to the true fan-in.
 14. training — ``repro_torch.train`` through ``make_train_step`` at full
                width (``training_phase``): yi-6b ``train_4k`` with its depth
                cut by a memory estimate (17 of 32 layers, one 4,096-token
@@ -203,9 +211,9 @@ Phases, each printing its wall seconds:
                card: yi-6b ``decode_32k`` at full width and depth (8 rows ×
                32,768 positions, 16 steps, slots on both halves of the
                cache, one crossing the ranks' boundary, one inactive) and
-               gemma3-4b ``long_500k`` (12 layers, 1 row × 524,288
+               gemma3-4b ``long_500k`` (6 layers, 1 row × 524,288
                positions, 4 steps) on (1, 2), the KV cache split by
-               position (split-K attention); yi-6b ``prefill_32k`` (4
+               position (split-K attention); yi-6b ``prefill_32k`` (2
                layers, 32,768 tokens) with the sequence split and again
                unsplit (each rank's peak bytes both ways); SASRec
                ``serve_p99`` on (1, 2) and (2, 1), ``retrieval_cand`` on
@@ -1483,12 +1491,24 @@ REFERENCE_UNIFORM_BITS = {
                 0x430BC705, 0xC4273F9D, 0xC3BDCE2E, 0x43BD7B05),
     "bfloat16": (0x4394, 0x4310, 0xC42C, 0xC414, 0x43D4, 0xC3F2, 0xC200, 0x4476),
 }
+# The reference's float32 normal draw for key 0, shape (4, 2), flattened, as
+# bit patterns, and its split of key 0 into 3 (the same release).
+REFERENCE_NORMAL_BITS = (0x3FCFB2BD, 0x40019DF0, 0xBEDE0017, 0xBDA10222,
+                         0x3E34512C, 0xBF78DAD7, 0xBEFD97CC, 0x3EFD1F31)
+REFERENCE_SPLIT = [(1797259609, 2579123966), (928981903, 3453687069),
+                   (4146024105, 2718843009)]
+NORMAL_CHECK_SIZE = 1 << 20  # values of the card-against-CPU normal draw
+NORMAL_TIMED = ("yi-6b embed", (64000, 4096))  # the weights' draw timed on the card
 
 
 def prng_checks(torch, sizes: dict, seed: int) -> None:
-    """The layouts' starting draws (``core/prng``) on the card: the same
-    bits as on the CPU at each path's size, and the reference's recorded
-    values for key 0. Times the full path's draw on the card."""
+    """The seeded draws (``core/prng``) on the card: the layouts' uniform
+    starts the same bits as on the CPU at each path's size, and the
+    reference's recorded values for key 0; the weights' normal draw
+    (``init_params``) the CPU's bits at NORMAL_CHECK_SIZE values, a draw
+    in chunks the whole draw's, key 0's the reference's recorded bits, and
+    ``split`` the reference's. Times the full path's uniform draw and
+    NORMAL_TIMED's normal draw on the card."""
     from repro_torch.core import prng
 
     k = prng.key(seed)
@@ -1510,6 +1530,42 @@ def prng_checks(torch, sizes: dict, seed: int) -> None:
     n = max(sizes.values())
     ms = cuda_ms(torch, lambda: prng.uniform(k, (n, 2), -1000.0, 1000.0, device="cuda"), 5)
     log(f"prng uniform ({n}, 2) float32 on the card: {ms:.4f} ms")
+
+    split = prng.split(prng.key(0), 3)
+    log(f"prng split of key 0 into 3: {split}; the reference's: {split == REFERENCE_SPLIT}")
+    check(split == REFERENCE_SPLIT, "prng: split of key 0 differs from the reference's")
+    for dev in ("cuda", "cpu"):
+        got = prng.normal(prng.key(0), (4, 2), device=dev)
+        got = tuple(int(b) & 0xFFFFFFFF for b in got.view(torch.int32).flatten().tolist())
+        log(f"prng normal key 0 (4, 2) float32 on {dev}: "
+            f"{' '.join(f'{b:#x}' for b in got)}; the reference's: {got == REFERENCE_NORMAL_BITS}")
+        check(got == REFERENCE_NORMAL_BITS, f"prng: normal draw on {dev} differs from the "
+                                            "reference's")
+    card = prng.normal(k, (NORMAL_CHECK_SIZE,), device="cuda")
+    t0 = time.perf_counter()
+    host = prng.normal(k, (NORMAL_CHECK_SIZE,))
+    host_s = time.perf_counter() - t0
+    same = bits_equal(torch, card.cpu(), host)
+    log(f"prng normal ({NORMAL_CHECK_SIZE},) float32: card bits equal the CPU's: {same} "
+        f"(the CPU's draw {host_s:.3f} s)")
+    check(same, "prng: the card's normal draw differs from the CPU's")
+    chunk = prng.CHUNK
+    try:
+        prng.CHUNK = NORMAL_CHECK_SIZE // 3 + 1  # three chunks, the last one shorter
+        same = bits_equal(torch, prng.normal(k, (NORMAL_CHECK_SIZE,), device="cuda"), card)
+    finally:
+        prng.CHUNK = chunk
+    log(f"prng normal ({NORMAL_CHECK_SIZE},) on the card in three chunks equals the whole "
+        f"draw: {same}")
+    check(same, "prng: a normal draw in chunks differs from the whole draw")
+    del card, host
+    name, shape = NORMAL_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(torch, lambda: prng.normal(k, shape, device="cuda"), 1)
+    log(f"prng normal {shape} float32 ({name}, {math.prod(shape)} values) on the card: "
+        f"{ms:.4f} ms, peak {torch.cuda.max_memory_allocated()} bytes")
+    torch.cuda.empty_cache()
 
 
 def main_path(torch, np, cap: Capture, edges, delta):
@@ -3529,21 +3585,53 @@ def lm_engine_run(torch, np, cfg, params, n_req: int, new: int, name: str,
     return info
 
 
-def sasrec_params(cfg, gen):
-    """Seeded random SASRec weights at the true fan-in (``lm_params``'s
-    rule: ``init_params`` takes the [L, d, H, hd] attention weights' fan-in
-    as H = 1, so its attention logits are an argmax)."""
-    from repro_torch.models import sasrec as sas_lib
-    from repro_torch.models.param import init_params
+def seeded_params(specs, gen):
+    """The smoke's own seeded weights for the full-width models: each leaf
+    of ``specs`` in sorted key order, ``torch.randn`` on ``gen`` times its
+    scale (``init_params``'s scale rule), zeros and ones as specified.
+    These are not the reference's numbers: ``init_params`` draws those
+    (threefry and the reference's ``erf_inv``, ``core/prng``), at ≈ 2 ns a
+    value on the card, ≈ 10 s for yi-6b's 6.06e9 parameters, which the
+    smoke draws ≈ 8 times; the smoke checks that draw on its own
+    (``prng_checks``) and runs it for the small trees."""
+    import torch
 
-    p = init_params(gen, sas_lib.param_specs(cfg))
+    def fill(tree):
+        if isinstance(tree, dict):
+            return {k: fill(tree[k]) for k in sorted(tree)}
+        if tree.init in ("zeros", "ones"):
+            return getattr(torch, tree.init)(tree.shape, dtype=tree.dtype, device=gen.device)
+        x = torch.randn(tree.shape, generator=gen, dtype=torch.float32, device=gen.device)
+        if tree.init == "scaled":
+            fan_in = tree.shape[-2] if len(tree.shape) >= 2 else tree.shape[-1]
+            return (x * (1.0 / math.sqrt(max(fan_in, 1)))).to(tree.dtype)
+        return (x * tree.init_scale).to(tree.dtype)
+
+    return fill(specs)
+
+
+def sasrec_true_fan_in(cfg, p):
+    """SASRec weights ``p`` with the attention weights rescaled in place to
+    their true fan-in (``lm_params``'s rule: the reference's fan-in rule
+    takes the [L, d, H, hd] attention weights' as H = 1, so its attention
+    logits are an argmax, and a rounding's worth of change in the weights
+    moves the scores by about SAS_TOL)."""
     for k in ("wq", "wk", "wv"):
         p["layers"][k] *= (cfg.n_heads / cfg.embed_dim) ** 0.5
     return p
 
 
+def sasrec_params(cfg, gen):
+    """Seeded random SASRec weights (``seeded_params``) at the true fan-in
+    (``sasrec_true_fan_in``)."""
+    from repro_torch.models import sasrec as sas_lib
+
+    return sasrec_true_fan_in(cfg, seeded_params(sas_lib.param_specs(cfg), gen))
+
+
 def lm_params(cfg, gen):
-    """Seeded random LM weights at the true fan-in of every product.
+    """Seeded random LM weights (``seeded_params``) at the true fan-in of
+    every product.
 
     ``init_params`` follows the reference's rule, fan-in = shape[-2], which
     for the stacked [L, d, H, hd] attention weights is H (or hd for wo),
@@ -3554,9 +3642,8 @@ def lm_params(cfg, gen):
     wq, wk, wv are rescaled to 1/√d and wo to 1/√(H·hd); every other
     weight already has its true fan-in."""
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.param import init_params
 
-    p = init_params(gen, tfm.param_specs(cfg))
+    p = seeded_params(tfm.param_specs(cfg), gen)
     lyr = p["layers"]
     lyr["wq"] *= (cfg.n_heads / cfg.d_model) ** 0.5
     lyr["wk"] *= (cfg.n_kv_heads / cfg.d_model) ** 0.5
@@ -3632,7 +3719,8 @@ def models_phase(torch, np, cap: Capture, smi: str) -> dict:
     * Card against CPU, float32, full width with the depth cut to 2
       layers, for both LMs: prefill logits within LM_CPU_TOL·max|logits|,
       and a short float32 engine run under the float32 gate.
-    * SASRec at its full config: ``serve_p99`` (512 × 1,048,576 scores)
+    * SASRec at its full config, the reference's weights at the true
+      fan-in (``sasrec_true_fan_in``): ``serve_p99`` (512 × 1,048,576 scores)
       and ``retrieval_cand`` (1,000,448 candidates), the retrieval scores
       equal to the serve scores at the candidates within SAS_TOL, and the
       first 8 rows of the serve scores within SAS_TOL of the CPU.
@@ -3642,6 +3730,7 @@ def models_phase(torch, np, cap: Capture, smi: str) -> dict:
     Prints tokens/s, ms per decode step and peak memory."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import input_specs
+    from repro_torch.core import prng
     from repro_torch.data.pipeline import SASRecStream
     from repro_torch.device import resolve_device
     from repro_torch.models import gnn as gnn_lib
@@ -3701,7 +3790,8 @@ def models_phase(torch, np, cap: Capture, smi: str) -> dict:
     # SASRec at its full config.
     sas = get_config("sasrec")
     scfg = sas.model
-    sp = init_params(torch.Generator(device="cuda").manual_seed(SEED), sas_lib.param_specs(scfg))
+    sp = sasrec_true_fan_in(scfg, init_params(prng.key(SEED), sas_lib.param_specs(scfg),
+                                              device="cuda"))
     seq = SASRecStream(scfg.n_items, sas.shapes["serve_p99"].global_batch, scfg.seq_len,
                        seed=SEED).batch_at(0)["seq"]
     check(tuple(seq.shape) == tuple(input_specs(sas, sas.shapes["serve_p99"])["seq"].shape),
@@ -3737,8 +3827,7 @@ def models_phase(torch, np, cap: Capture, smi: str) -> dict:
     for name, cell in GNN_SMALL_CELLS:
         arch, shape, gcfg, batch = gnn_cell_batch(np, name, cell)
         n, e = shape.n_nodes, shape.n_edges
-        gp = init_params(torch.Generator(device="cuda").manual_seed(SEED),
-                         gnn_lib.param_specs(gcfg))
+        gp = init_params(prng.key(SEED), gnn_lib.param_specs(gcfg), device="cuda")
         bd = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
         before = cap.counts()["segment_sum_edges"]
         ms, got = _wall_ms(torch, lambda: gnn_lib.forward(gcfg, gp, bd), 3)
@@ -4127,6 +4216,7 @@ def training_phase(torch, np, cap: Capture, smi: str) -> list:
     * The launcher: ``train_launcher_round_trip``.
     Returns the ``kernels`` rows of K7's two training entries."""
     from repro_torch.configs import get_config
+    from repro_torch.core import prng
     from repro_torch.data.pipeline import LMStream, SASRecStream
     from repro_torch.device import resolve_device
     from repro_torch.models import gnn as gnn_lib
@@ -4242,7 +4332,7 @@ def training_phase(torch, np, cap: Capture, smi: str) -> list:
     # GNNs: the small cells against the CPU and bitwise run to run.
     for name, cell in GNN_SMALL_CELLS:
         arch, shape, gcfg, batch = gnn_cell_batch(np, name, cell)
-        host = init_params(torch.Generator().manual_seed(SEED), gnn_lib.param_specs(gcfg))
+        host = init_params(prng.key(SEED), gnn_lib.param_specs(gcfg), device="cpu")
         cap.reset()
         info = card_against_cpu(torch, np, f"{name}/{cell}", "gnn",
                                 functools.partial(gnn_lib.gnn_loss, gcfg), host,
@@ -4265,7 +4355,7 @@ def training_phase(torch, np, cap: Capture, smi: str) -> list:
     torch.cuda.synchronize()
     log(f"ogb_products batch: {shape.n_nodes} nodes, {shape.n_edges} edges, made on the card "
         f"in {time.perf_counter() - t0:.3f} s")
-    p0 = init_params(torch.Generator(device="cuda").manual_seed(SEED), gnn_lib.param_specs(gcfg))
+    p0 = init_params(prng.key(SEED), gnn_lib.param_specs(gcfg), device="cuda")
     e, d = shape.n_edges, gcfg.d_hidden
     est = 3 * e * d * 4 + e * 8 * 3 + shape.n_nodes * (shape.d_feat + 16 * d) * 4
     loss_fn = functools.partial(gnn_lib.gnn_loss, gcfg)
@@ -4753,6 +4843,7 @@ def _mesh_other_setup(torch, name):
     """SASRec's train_batch, gin-tu's MESH_GNN_CELL and graphcast's at
     MESH_GRAPHCAST_LAYERS layers, as ``_mesh_lm_setup``."""
     from repro_torch.configs import get_config
+    from repro_torch.core import prng
     from repro_torch.data.pipeline import SASRecStream
     from repro_torch.models import gnn as gnn_lib
     from repro_torch.models import sasrec as sas_lib
@@ -4778,8 +4869,7 @@ def _mesh_other_setup(torch, name):
             arch.model, n_layers=MESH_GRAPHCAST_LAYERS))
         cfg = arch.model_for(spec)
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
-    params = init_params(torch.Generator(device="cuda").manual_seed(SEED),
-                         gnn_lib.param_specs(cfg))
+    params = init_params(prng.key(SEED), gnn_lib.param_specs(cfg), device="cuda")
     steps = 1 if name == "graphcast" else MESH_STEPS
     return arch, cfg, spec, gnn_lib.gnn_loss, params, [batch] * steps, tcfg
 
@@ -5180,18 +5270,22 @@ SERVE_TOL = 0.3
 # (the cache alone would be 275 GB at 128; 17.2 GB at 8, 8.6 GB a rank);
 # lengths on both halves of the positions, the slot at 16,380 crossing the
 # ranks' boundary at 16,384 on its fifth step, the last slot inactive.
-# gemma3-4b ``long_500k``: 12 of 34 layers (global layers 5 and 11 among
-# them; 25.8 GB of cache, 12.9 GB a rank), the one row near the end, so
-# that rank 0's positions [0, 262,144) lie outside every local layer's
-# 1,024-position window.
+# gemma3-4b ``long_500k``: 6 of 34 layers (cut from 12 to make room in the
+# smoke's time limit: five local layers and the global layer 5; 12.9 GB of
+# cache, 6.4 GB a rank), the one row near the end, so that rank 0's
+# positions [0, 262,144) lie outside every local layer's 1,024-position
+# window.
 SERVE_DECODE_RUNS = (
     ("yi-6b-decode_32k", "yi-6b", None, 8, 32768,
      (96, 5000, 16380, 16384, 20000, 27000, 32000, 9000), (1, 1, 1, 1, 1, 1, 1, 0), 16),
-    ("gemma3-4b-long_500k", "gemma3-4b", 12, 1, 524288, (523_990,), (1,), 4),
+    ("gemma3-4b-long_500k", "gemma3-4b", 6, 1, 524288, (523_990,), (1,), 4),
 )
-# yi-6b ``prefill_32k``: 1 row of 32,768 tokens (cut from 32 rows), 4 of 32
-# layers; the sequence split over "model", then unsplit.
-SERVE_PREFILL = ("yi-6b-prefill_32k", "yi-6b", 4, 1, 32768)
+# yi-6b ``prefill_32k``: 1 row of 32,768 tokens (cut from 32 rows), 2 of 32
+# layers (cut from 4 to make room in the smoke's time limit: at 4 layers
+# each layer's gloo collectives took 1.8–2.3 s of the split run and 1.4–1.8
+# s of the unsplit one, H100 80GB HBM3, 700.00 W); the sequence split over
+# "model", then unsplit.
+SERVE_PREFILL = ("yi-6b-prefill_32k", "yi-6b", 2, 1, 32768)
 # SASRec uncut: (run, cell, mesh shape).
 SERVE_SAS = (("sasrec-serve_p99-1x2", "serve_p99", (1, 2)),
              ("sasrec-serve_p99-2x1", "serve_p99", (2, 1)),
@@ -5575,9 +5669,9 @@ def serving_mesh_phase(torch, np, smi: str) -> dict:
     freed):
 
     * yi-6b ``decode_32k`` (full width and depth, 8 rows × 32,768
-      positions, 16 steps) and gemma3-4b ``long_500k`` (12 layers, 1 row ×
+      positions, 16 steps) and gemma3-4b ``long_500k`` (6 layers, 1 row ×
       524,288 positions, 4 steps) on (1, 2), the cache split by position;
-    * yi-6b ``prefill_32k`` (4 layers, 32,768 tokens) on (1, 2), the
+    * yi-6b ``prefill_32k`` (2 layers, 32,768 tokens) on (1, 2), the
       sequence split;
     * SASRec ``serve_p99`` on (1, 2) and (2, 1), ``retrieval_cand`` on (1, 2).
     Gates: decode logits within SERVE_TOL of the one-rank decode, the

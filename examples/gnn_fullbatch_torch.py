@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.gnn_archs import smoke_gnn
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.graph import NeighborSampler, planted_partition
 from repro_torch.graph.utils import to_csr
@@ -38,7 +39,7 @@ def full_batch_gat(dev) -> None:
     n, k = 600, 6
     edges, labels = planted_partition(n, k, 0.3, 0.01, seed=1)
     cfg = replace(smoke_gnn("gat"), d_feat=32, n_out=k, n_layers=2, d_hidden=32)
-    params = init_params(torch.Generator(device=dev).manual_seed(0), gnn_lib.param_specs(cfg))
+    params = init_params(prng.key(0), gnn_lib.param_specs(cfg), dev)
     rng = np.random.default_rng(0)
     # features: noisy one-hot-ish community signal
     feats = rng.standard_normal((n, 32)).astype(np.float32)
@@ -68,7 +69,7 @@ def sampled_gin(dev) -> None:
     indptr, indices = to_csr(edges, n)
     sampler = NeighborSampler(indptr, indices, fanouts=(10, 5))
     cfg = replace(smoke_gnn("gin"), d_feat=16, n_out=10)
-    params = init_params(torch.Generator(device=dev).manual_seed(1), gnn_lib.param_specs(cfg))
+    params = init_params(prng.key(1), gnn_lib.param_specs(cfg), dev)
     rng = np.random.default_rng(3)
     feats_all = rng.standard_normal((n, 16)).astype(np.float32)
     feats_all[np.arange(n), labels % 16] += 2.0

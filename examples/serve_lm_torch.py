@@ -15,6 +15,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.param import init_params
@@ -33,7 +34,7 @@ def main(argv=None) -> None:
         head_dim=16, d_ff=128, vocab=101, vocab_padded=112,
         act_dtype=torch.float32, q_chunk=0,
     )
-    params = init_params(torch.Generator(device=dev).manual_seed(1), tfm.param_specs(cfg))
+    params = init_params(prng.key(1), tfm.param_specs(cfg), dev)
     engine = LMEngine(cfg, params, n_slots=4, max_len=64, device=dev)
 
     rng = np.random.default_rng(0)

@@ -23,6 +23,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 import torch
 
+from repro_torch.core import prng
 from repro_torch.data.pipeline import LMStream
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
@@ -62,7 +63,7 @@ def main(argv=None) -> None:
     tcfg = TrainConfig(adamw=AdamWConfig(lr=1e-3))
     step_fn = make_train_step(functools.partial(tfm.lm_loss, cfg), tcfg)
 
-    params = init_params(torch.Generator(device=dev).manual_seed(0), specs)
+    params = init_params(prng.key(0), specs, dev)
     state = init_opt_state(params, tcfg.adamw)
     stream = LMStream(vocab=cfg.vocab, batch=args.batch, seq_len=args.seq)
 

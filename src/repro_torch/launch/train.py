@@ -40,6 +40,7 @@ from repro_torch.configs.base import ShapeSpec
 from repro_torch.configs.gnn_archs import smoke_gnn
 from repro_torch.configs.lm_archs import smoke_lm
 from repro_torch.configs.sasrec import smoke_sasrec
+from repro_torch.core import prng
 from repro_torch.data.pipeline import LMStream, MoleculeStream, SASRecStream
 from repro_torch.device import resolve_device
 from repro_torch.models import gnn as gnn_lib
@@ -120,7 +121,7 @@ def run(arch_name: str, steps: int, batch: int, seq: int, ckpt_dir: str,
     device = resolve_device(device) if mesh is None else mesh.device
     cfg, specs, loss_fn, stream = build_smoke(arch_name, batch, seq)
     tcfg = TrainConfig(adamw=AdamWConfig(lr=lr, state_bits=state_bits))
-    params = init_params(torch.Generator(device=device).manual_seed(0), specs)
+    params = init_params(prng.key(0), specs, device)  # the reference's PRNGKey(0)
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     if mesh is None:
         step_fn, in_specs = make_train_step(loss_fn, tcfg), None

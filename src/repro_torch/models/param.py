@@ -5,10 +5,12 @@ allowed). Each ``ParamSpec`` carries *logical* axis names ("embed",
 "heads", "expert", "vocab", ...), kept for the sharding rules of a later
 multi-device slice; parameters are plain nested dicts of tensors.
 
-Random weights come from an explicit ``torch.Generator``, one leaf after
-the other in sorted key order. They are not the reference's numbers (it
-draws from its own generator); a test that compares the two packages
-carries the reference's parameters over (``convert.params_from_reference``).
+Random weights are the reference's for the same key, bit for bit: the
+leaves in its flattening order (sorted keys), one subkey each from
+``prng.split`` (``zeros`` and ``ones`` leaves take theirs too), each a
+float32 ``prng.normal`` draw times its scale, cast to the leaf's dtype
+last. Weights that were not drawn from a key (a checkpoint, another run of
+the reference) cross over through ``convert.params_from_reference``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+
+from repro_torch.core import prng
+from repro_torch.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -50,35 +55,35 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def _init_one(gen: torch.Generator, spec: ParamSpec) -> torch.Tensor:
-    dev = gen.device
+def _init_one(key: tuple[int, int], spec: ParamSpec, device) -> torch.Tensor:
     if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=dev)
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "scaled":  # fan-in scaled normal
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
-        return (x * (1.0 / math.sqrt(max(fan_in, 1)))).to(spec.dtype)
-    return (x * spec.init_scale).to(spec.dtype)
+        scale = 1.0 / math.sqrt(max(fan_in, 1))
+    else:
+        scale = spec.init_scale
+    x = prng.normal(key, spec.shape, device=device)
+    # the draw times the scale rounded to float32: one float32 product
+    x.mul_(torch.tensor(scale, dtype=torch.float32, device=device))
+    return x.to(spec.dtype)
 
 
-def init_params(generator: torch.Generator, specs) -> Any:
-    """Materialise a spec tree on the generator's device, leaves drawn one
-    after the other in sorted key order."""
-    out = {}
+def init_params(key: tuple[int, int], specs, device=None) -> Any:
+    """Materialise a spec tree on ``device`` (the card unless the caller
+    asks for the CPU) from ``key`` (``prng.key(seed)``): the reference's
+    ``init_params(PRNGKey(seed), specs)``."""
+    device = resolve_device(device)
+    keys = iter(prng.split(key, len(tree_leaves(specs))))
 
-    def fill(tree, dst):
-        for k in sorted(tree):
-            v = tree[k]
-            if isinstance(v, dict):
-                dst[k] = {}
-                fill(v, dst[k])
-            else:
-                dst[k] = _init_one(generator, v)
+    def fill(tree):
+        if isinstance(tree, dict):
+            return {k: fill(tree[k]) for k in sorted(tree)}
+        return _init_one(next(keys), tree, device)
 
-    fill(specs, out)
-    return out
+    return fill(specs)
 
 
 def abstract_params(specs) -> Any:

@@ -182,9 +182,20 @@ def test_layout_inits_draw_from_the_seed_alone():
     assert "prng.uniform" in src
 
 
+@pytest.mark.parametrize("module", ["models/param.py", "launch/train.py"])
+def test_weights_draw_from_the_key_alone(module):
+    """``init_params`` and the train launcher draw the reference's weights
+    from a key (``core/prng``): no torch generator, so no second way to
+    draw."""
+    src = (PKG / module).read_text()
+    assert "Generator" not in src and "torch.randn" not in src and "torch.rand" not in src
+    assert "prng." in src
+
+
 def test_device_none_raises_without_cuda(monkeypatch):
     import repro_torch
     from repro_torch.configs.lm_archs import smoke_lm
+    from repro_torch.core import prng
     from repro_torch.graph.generators import planted_partition
     from repro_torch.models.param import init_params
     from repro_torch.models.transformer import param_specs
@@ -200,8 +211,9 @@ def test_device_none_raises_without_cuda(monkeypatch):
         lambda: repro_torch.render_arrays(np.zeros((4, 2)), np.ones(4), np.zeros(4)),
         lambda: repro_torch.stream_pipeline(edges, 60, cfg.scoda, cfg.cms, 60, 64),
         lambda: repro_torch.full_layout_colored(edges, 60, cfg, iterations=2),
-        lambda: LMEngine(smoke_lm(), init_params(torch.Generator().manual_seed(0),
-                                                 param_specs(smoke_lm())), 2, 8),
+        lambda: LMEngine(smoke_lm(), init_params(prng.key(0), param_specs(smoke_lm()),
+                                                 device="cpu"), 2, 8),
+        lambda: init_params(prng.key(0), param_specs(smoke_lm())),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

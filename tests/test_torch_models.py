@@ -6,6 +6,9 @@ and the inputs made with numpy.
 The port has no training step yet, so where the reference's test takes two
 train steps this one holds the forward pass and the loss's value.
 
+``init_params`` from the same key gives the reference's parameters bit
+for bit, for every smoke tree (``test_init_params_are_the_reference_s``).
+
 Tolerances (float32 on both sides): the two libraries' matrix products
 and reductions sum in different orders, so outputs agree within 2e-4 of
 their largest magnitude (measured ≤ 5e-5 on the LM logits) and losses
@@ -36,9 +39,11 @@ from repro_torch.configs.gnn_archs import smoke_gnn  # noqa: E402
 from repro_torch.configs.lm_archs import smoke_lm  # noqa: E402
 from repro_torch.configs.sasrec import smoke_sasrec  # noqa: E402
 from repro_torch.convert import params_from_reference  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.models import gnn as gnn_lib  # noqa: E402
 from repro_torch.models import sasrec as sas_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.param import init_params, tree_leaves  # noqa: E402
 
 KEY = jax.random.PRNGKey(0)
 TOL = 2e-4  # of the largest magnitude, float32
@@ -238,6 +243,44 @@ def test_smoke_sasrec():
     # retrieval scores equal the serve scores at those candidates
     np.testing.assert_allclose(sc.numpy(), scores[0][torch.as_tensor(cand).long()].numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------- seeded weights
+SMOKE_TREES = ["dense-lm", "moe-lm", "sliding-lm", "dense-lm-bf16", "gin-tu", "gat-cora",
+               "graphcast", "meshgraphnet", "sasrec"]
+
+
+def _smoke_specs(tree, ref):
+    """The spec tree of a smoke config: the reference's (``ref``) or the
+    port's."""
+    if tree.endswith("-lm") or tree == "dense-lm-bf16":
+        cfg = (jsmoke_lm if ref else smoke_lm)(moe=tree == "moe-lm", sliding=tree == "sliding-lm")
+        if tree == "dense-lm-bf16":
+            cfg = dataclasses.replace(cfg, param_dtype=jnp.bfloat16 if ref else torch.bfloat16)
+        return (jtfm if ref else tfm).param_specs(cfg)
+    if tree == "sasrec":
+        return (jsas if ref else sas_lib).param_specs((jsmoke_sasrec if ref else smoke_sasrec)())
+    arch = (jget_config if ref else get_config)(tree).model.arch
+    return (jgnn if ref else gnn_lib).param_specs((jsmoke_gnn if ref else smoke_gnn)(arch))
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+@pytest.mark.parametrize("tree", SMOKE_TREES)
+def test_init_params_are_the_reference_s(tree, seed):
+    """The same key gives the reference's parameters bit for bit: every leaf
+    (zeros and ones included) in the reference's flattening order."""
+    want = jax.tree_util.tree_leaves_with_path(jinit_params(jax.random.PRNGKey(seed),
+                                                            _smoke_specs(tree, True)))
+    got = init_params(prng.key(seed), _smoke_specs(tree, False), device="cpu")
+    got_l = tree_leaves(got)
+    assert len(got_l) == len(want) > 3
+    for g, (path, w) in zip(got_l, want):
+        w = np.asarray(w)
+        assert g.device.type == "cpu" and tuple(g.shape) == w.shape, path
+        assert str(g.dtype).split(".")[-1] == str(w.dtype), path
+        if g.dtype == torch.bfloat16:
+            g, w = g.view(torch.int16), w.view(np.int16)
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=str(path))
 
 
 # --------------------------------------------------------------- registry

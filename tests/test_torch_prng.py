@@ -2,9 +2,10 @@
 on the CPU, and the FA2 starting layouts drawn from them against the
 reference's.
 
-Bitwise: keys, ``random_bits``, ``uniform`` in float32, bfloat16 and
-float16, and the "random" init in float32 and bfloat16 (the draw is the
-whole init). The "bfs" init draws its jitter bitwise, but the reference
+Bitwise: keys, ``split``, ``random_bits``, ``uniform`` in float32,
+bfloat16 and float16, ``normal`` and the compiled reference's float32
+``log1p`` under it, and the "random" init in float32 and bfloat16 (the
+draw is the whole init). The "bfs" init draws its jitter bitwise, but the reference
 takes its float32 cosine and sine with its own approximations (within an
 ulp of the correctly rounded ones the port takes) and its sums in its own
 order: positions within 8 ulp of max|pos| (measured at most 5 on these
@@ -26,6 +27,7 @@ from repro_torch.core import prng  # noqa: E402
 
 SEEDS = [0, 1, 7, 2**31 - 1, -1, 2**40]
 SHAPES = [(0,), (1,), (5,), (1000, 2), (3, 7, 2)]
+NORMAL_SHAPES = [(), (1,), (3, 5, 7), (200000,), (1 << 20,)]
 DTYPES = {"float32": (jnp.float32, torch.float32, np.uint32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, np.uint16),
           "float16": (jnp.float16, torch.float16, np.uint16)}
@@ -94,6 +96,82 @@ def test_uniform_rejects_other_types():
         prng.uniform(prng.key(0), (3,), dtype=torch.float64)
     with pytest.raises(ValueError, match="width"):
         prng.random_bits(prng.key(0), (3,), width=64)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 300])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_bitwise(seed, n):
+    want = np.asarray(jax.random.key_data(jax.random.split(jax.random.PRNGKey(seed), n)))
+    got = prng.split(prng.key(seed), n)
+    assert [tuple(int(w) for w in row) for row in want] == got
+
+
+def test_split_of_key_zero():
+    assert prng.split(prng.key(0), 3) == [(1797259609, 2579123966), (928981903, 3453687069),
+                                          (4146024105, 2718843009)]
+
+
+@pytest.mark.parametrize("shape", NORMAL_SHAPES, ids=str)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_bitwise(seed, shape):
+    want = jax.random.normal(jax.random.PRNGKey(seed), shape)
+    got = prng.normal(prng.key(seed), shape)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(_bits(got, np.uint32), _bits(want, np.uint32))
+
+
+def test_normal_of_a_subkey_bitwise():
+    """The draws ``init_params`` makes: a subkey of ``split``, not a seed's
+    key."""
+    k = jax.random.split(jax.random.PRNGKey(3), 4)[2]
+    want = jax.random.normal(k, (64, 129))
+    got = prng.normal(prng.split(prng.key(3), 4)[2], (64, 129))
+    np.testing.assert_array_equal(_bits(got, np.uint32), _bits(want, np.uint32))
+
+
+def _log1p_cases():
+    """float32 values: both sides of the small-|x| threshold and of the
+    mantissa split at √½, ±0, the ends of the domain, subnormals, and a
+    sample of every bit pattern in [-1, 1]."""
+    th = np.float32(prng._LOG1P_SMALL)
+    near = [np.nextafter(th, np.float32(0)), th, np.nextafter(th, np.float32(1))]
+    sqrt_half = np.float32(prng._SQRT_HALF)
+    edges = near + [-v for v in near] + [
+        sqrt_half - 1, np.nextafter(sqrt_half, np.float32(0)) - 1, 0.0, -0.0, -1.0, 1.0,
+        np.nextafter(np.float32(-1), np.float32(0)), 1e-40, -1e-40, 1e-38, -1e-38, 2.0 ** -126,
+        -(2.0 ** -126), 1e-20, -1e-20, np.inf, -2.0, np.nan]
+    bits = np.random.default_rng(0).integers(0, 0x3F800001, 1 << 18).astype(np.uint32)
+    sample = bits.view(np.float32) * np.where(np.arange(bits.size) % 2, -1, 1).astype(np.float32)
+    return np.concatenate([np.asarray(edges, np.float32), sample])
+
+
+def test_log1p_bitwise():
+    x = _log1p_cases()
+    want = np.asarray(jax.jit(jnp.log1p)(x))
+    got = prng.log1p(torch.from_numpy(x).double()).float().numpy()
+    small = np.abs(x) < np.float32(prng._LOG1P_SMALL)
+    assert small.sum() > 1000 and (~small & np.isfinite(want)).sum() > 1000
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.uint32), want[~nan].view(np.uint32))
+
+
+def test_chunked_normal_equals_the_whole_draw(monkeypatch):
+    whole = prng.normal(prng.key(5), (1000, 3))
+    bits = prng.random_bits(prng.key(5), (3000,))
+    np.testing.assert_array_equal(prng.random_bits(prng.key(5), (7, 100), start=1234).numpy(),
+                                  bits[1234:1934].reshape(7, 100).numpy())
+    np.testing.assert_array_equal(
+        _bits(prng.uniform(prng.key(5), (500,), -2.0, 3.0, start=2000), np.uint32),
+        _bits(prng.uniform(prng.key(5), (3000,), -2.0, 3.0)[2000:2500], np.uint32))
+    monkeypatch.setattr(prng, "CHUNK", 701)
+    chunked = prng.normal(prng.key(5), (1000, 3))
+    np.testing.assert_array_equal(_bits(chunked, np.uint32), _bits(whole, np.uint32))
+
+
+def test_normal_rejects_other_types():
+    with pytest.raises(ValueError, match="float32"):
+        prng.normal(prng.key(0), (3,), dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -675,6 +675,58 @@ def test_train_launcher_runs_each_family(tmp_path, capsys, arch):
                                                         "step_00000002.npz.meta.json"]
 
 
+def _recording(init, record, convert):
+    """``init`` that also keeps a copy of what it returns."""
+    def init_and_record(*args, **kwargs):
+        out = init(*args, **kwargs)
+        record.append(convert(out))
+        return out
+    return init_and_record
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "granite-moe-1b-a400m", "sasrec", "gat-cora"])
+def test_train_launcher_matches_the_reference_s(tmp_path, monkeypatch, arch):
+    """The port's launcher against the reference's, from the same seed: the
+    starting parameters bitwise (the reference's ``PRNGKey(0)``), every
+    step's loss within LOSS_RTOL, and the final checkpoint (parameters
+    and AdamW state) within a step's tolerances (``_step_close``) once for
+    each step taken: each AdamW step may move an element up to LR_TOL·lr
+    (LM_LR_TOL·lr) apart (measured after 3 steps: 1.32 times one step's
+    tolerance for the dense LM's wg, 1.56 for SASRec's wq)."""
+    from repro.launch import train as jtrain_launcher
+
+    lr, steps = 1e-3, 3
+    started, jstarted = [], []
+    monkeypatch.setattr(train_launcher, "init_params", _recording(
+        train_launcher.init_params, started,
+        lambda t: [x.detach().clone().numpy() for x in tree_leaves(t)]))
+    monkeypatch.setattr(jtrain_launcher, "init_params", _recording(
+        jtrain_launcher.init_params, jstarted,
+        lambda t: [np.asarray(x) for x in jax.tree_util.tree_leaves(t)]))
+    out = train_launcher.run(arch, steps, 4, 16, str(tmp_path / "port"), 100, lr,
+                             device="cpu")
+    jout = jtrain_launcher.run(arch, steps, 4, 16, str(tmp_path / "ref"), 100, lr)
+    assert len(started) == len(jstarted) == 1 and len(started[0]) == len(jstarted[0])
+    for g, w in zip(started[0], jstarted[0]):
+        np.testing.assert_array_equal(g, w)
+    assert len(out["losses"]) == len(jout["losses"]) == steps
+    np.testing.assert_allclose(out["losses"], jout["losses"], rtol=LOSS_RTOL)
+    name = f"step_{steps - 1:08d}.npz"
+    got, want = np.load(tmp_path / "port" / name), np.load(tmp_path / "ref" / name)
+    assert sorted(got.files) == sorted(want.files) and len(got.files) > 10
+    family = "lm" if get_config(arch).family == "lm" else "other"
+    tol = steps * STEP_TOL, steps * (LM_LR_TOL if family == "lm" else LR_TOL) * lr
+    for k in got.files:
+        g, w = got[k], want[k]
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        if w.dtype.kind != "f":
+            np.testing.assert_array_equal(g, w, err_msg=k)
+            continue
+        assert np.isfinite(g).all(), k
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol[0] * max(np.abs(w).max(), 1e-30)
+                                   + tol[1], err_msg=k)
+
+
 def test_train_launcher_refuses_the_full_preset(tmp_path):
     with pytest.raises(SystemExit, match="more than one card"):
         train_launcher.main(["--preset", "full", "--ckpt-dir", str(tmp_path / "ck")])
