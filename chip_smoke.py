@@ -59,6 +59,21 @@ Phases, each printing its wall seconds:
                One more iteration from the final layout records K5–K7's
                inputs, and one node pass and one edge chunk from it K3's,
                under keys of their own.
+5b. bfloat16 — half-width layouts (``half_layout_phase``): K2 (whole and
+               its row entry on rank 1's half) and K7's fused attraction
+               in bfloat16 on the two paths' recorded inputs and in
+               float16 on seeded inputs of the main path's shapes, each
+               against its plain version (K2 within K2_TOL·Σ|f_ij| + one
+               ulp of the type, the attraction bitwise the CPU's), in the
+               layout's type and bitwise run to run; ``layout_supergraph``
+               of phase 4's supergraph in bfloat16 (100 iterations: K2 and
+               the attraction launched 100 times each, handed the same
+               bfloat16 pos, no float32 copy of it made; finite, bitwise
+               run to run) and ``BGVResult.render`` of it; the full path's
+               grid layout in bfloat16 (500 iterations, K5–K7 once an
+               iteration, finite, bitwise run to run); a 3-iteration
+               bfloat16 layout at the CPU tests' size against the CPU
+               within 2⁻⁷·max|pos|.
 6. serve     — the tile service over phase 4's result (685,230 nodes,
                ≈ 12.8 k supernodes): ``TilePyramid`` (256-px tiles, 3
                levels, 21 tiles) and ``TileEngine`` (64 MiB, 8 slots) warm
@@ -97,13 +112,18 @@ Phases, each printing its wall seconds:
                the full graph's grid force pass on 2 ranks (20 iterations;
                K5, K6's row entry and K7 on both ranks); ``stream_runner
                --shard all`` on 4 ranks under ``torch.distributed.run``; a
-               4-rank checkpoint resumed on one rank, bitwise.
+               4-rank checkpoint resumed on one rank, bitwise; the
+               supergraph laid out in bfloat16 on the 2 ranks (K2's row
+               entry and the attraction 100 times a rank, within
+               2⁻⁷·max|pos| of phase 5b's one-rank layout).
 9. timing    — each kernel entry on the inputs its path gave it (recorded
                in phases 4 and 5; K3 on both paths): held against its plain
                version again, and timed with CUDA events beside the plain
                version, one PyTorch library call where there is one, and its
                bound. K1's generic scatter and K8's hashed entry (on no
-               path) are timed on the main path's K1 rows and CMS input.
+               path) are timed on the main path's K1 rows and CMS input;
+               K2's entries and K7's attraction also in bfloat16, on the
+               casts of the same inputs (rows ``*_bf16``).
 10. consistency — the full path's node accumulator (685,230 small disks)
                from K3's disk entry against the plain version on the card;
                a 3,000-node graph through ``biggraphvis`` and an 8,000-node
@@ -141,7 +161,7 @@ Phases, each printing its wall seconds:
                layout and sums its two-scatter attraction through it once,
                and that sum (``layout_livejournal``'s input) is timed for
                the ``kernels`` line.
-13. models   — yi-6b at full width and depth through ``LMEngine`` (16
+13. models   — yi-6b at full width, 28 of 32 layers, through ``LMEngine`` (16
                requests on 8 slots × 2,048 positions, teacher-forced against
                a prefill, each request's tokens equal to its solo run's),
                granite-moe-1b-a400m, both LMs at 2 layers against the CPU,
@@ -301,6 +321,11 @@ LAYOUT_REAL = {"layout_berkstan": (31_213, 57_382), "layout_livejournal": (248_1
 # 1.57e-5 (yi-6b at 2 layers) and 6.9e-6 (granite, 24 layers); the
 # tolerances are about 3× and 6× those.
 ENGINE_SLOTS, ENGINE_LEN = 8, 2048
+# yi-6b's depth in LMEngine: its concurrent and solo decodes are host-bound,
+# about proportional to depth, and were 148.5 s of the models phase at 32
+# layers on a slow host; 28 of 32 pays for the bfloat16 layout checks
+# (≈ 10.3 s; PERF.md §6, PR 30).
+ENGINE_LAYERS = 28
 TF_TOL = {"float32": 1e-4, "bfloat16": 0.3}
 # Card against CPU, float32 (TF32 off), per max|out|: the two sides'
 # products and reductions add in different orders. Measured: LM logits
@@ -394,6 +419,15 @@ KERNELS = {
     # K8: keys hashed in the kernel (core.cms.update), and buckets given.
     "cms_update_keys": ("cms_update", _CMS, "cms_update_keys", "main"),
     "cms_update": ("cms_update", _CMS, "cms_update", None),
+    # Half-width layouts (FA2Config.dtype "bfloat16"): K2 on the main path's
+    # supergraph laid out in bfloat16, its row entry on that layout's 2-rank
+    # form, K7's attraction on it and on the full path's grid layout.
+    "repulsion_nbody_bf16": ("repulsion_nbody", "src/repro/kernels/repulsion/nbody.py:84",
+                             "repulsion_nbody", "bf16"),
+    "repulsion_rows_bf16": ("repulsion_nbody", "src/repro/kernels/repulsion/nbody.py:84",
+                            "repulsion_rows", "multi_bf16"),
+    "attraction_sum_bf16": ("segment_sum", _SEG, "attraction_sum", "bf16"),
+    "attraction_sum_full_bf16": ("segment_sum", _SEG, "attraction_sum", "full_bf16"),
 }
 # Counters the main path must move; on the full path K5, K6 and K7's cell
 # statistics and fused attraction launch once per iteration, and K3's raw
@@ -1830,6 +1864,286 @@ def layout_quality(np, pos, edges, n):
             "edge_over_pair_length": float(edge_len / pair_len)}
 
 
+# ------------------------------------------------------------- phase 5b
+# Half-width layouts (``FA2Config.dtype``). K2's two entries and K7's fused
+# attraction read a bfloat16 or float16 layout in its own type, compute in
+# float32 as for a float32 layout and round each output once; their plain
+# versions widen, compute and round the same way. Per row and axis, K2
+# against its plain version on the card: |Δf| ≤ K2_TOL·Σ_j|f_ij| + one ulp
+# of the output type at |f_plain| (the two float32 sums' K2_TOL, then each
+# side's one rounding). The attraction is bitwise its plain version on the
+# CPU, as in float32 (the same terms, order and rounding).
+HALF_TYPES = {"bfloat16": 7, "float16": 10}  # type → explicit mantissa bits
+# The bfloat16 runs: the main path's supergraph layout (its 100 iterations),
+# the full path's grid layout (its 500), and a small layout at the CPU
+# tests' size (tests/test_torch_fa2.py: 150 nodes, 600 edges, 3
+# iterations) on the card against the CPU within 2⁻⁷·max|pos|.
+HALF_CPU_NODES, HALF_CPU_EDGES, HALF_CPU_ITERATIONS, HALF_CPU_TOL = 150, 600, 3, 2.0**-7
+
+
+def half_ulp(torch, a, b):
+    """One ulp of the half-width type of ``a`` and ``b`` at max(|a|, |b|),
+    as float32 (the least subnormal's at 0): two values within d of each
+    other round to values within d + that ulp."""
+    bits = HALF_TYPES[str(a.dtype).removeprefix("torch.")]
+    least = torch.finfo(a.dtype).smallest_normal * 2.0**-bits
+    _, e = torch.frexp(torch.maximum(a.float().abs(), b.float().abs()))
+    return torch.clamp(torch.ldexp(torch.ones_like(a, dtype=torch.float32), e - 1 - bits),
+                       min=least)
+
+
+def half_inputs(torch, np, cap: Capture, name: str):
+    """K2's and the attraction's inputs in type ``name``: bfloat16, the
+    main and full paths' recorded inputs cast; float16, the recorded
+    main-path shapes and layout with seeded values in float16's range (the
+    recorded positions and masses would overflow its forces: spread wide,
+    radii below the nearest distances, small weights on small
+    coordinates). Returns (K2's (pos, mass, kr, radii), {tag: the
+    attraction's (pos, dst, w, layout)})."""
+    t = getattr(torch, name)
+    _, (p, m, kr), kw = cap.calls["repulsion_nbody"]
+    radii = kw.get("radii")
+    att = {tag: cap.calls["attraction_sum" + tag][1] for tag in ("", "@full")}
+    if name == "bfloat16":
+        k2 = (p.to(t), m.to(t), kr, None if radii is None else radii.to(t))
+        return k2, {tag: (pos.to(t), dst, w.to(t), lay) for tag, (pos, dst, w, lay) in att.items()}
+    rng = np.random.default_rng(SEED)
+
+    def uniform(shape, lo, hi):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32),
+                               device=p.device).to(t)
+
+    n = p.shape[0]
+    k2 = (uniform((n, 2), -16000, 16000), uniform(n, 0.5, 2.0), kr, uniform(n, 0.0, 0.05))
+    pos, dst, w, lay = att[""]
+    return k2, {"": (uniform(tuple(pos.shape), -10, 10), dst, uniform(tuple(w.shape), 0.05, 0.5),
+                     lay)}
+
+
+def half_kernel_checks(torch, np, cap: Capture) -> dict:
+    """K2 (whole, and its row entry on rank 1's half) and K7's fused
+    attraction in bfloat16 and float16 against their plain versions (see
+    above), each finite, in the layout's type and bitwise run to run; the
+    row entry bitwise the whole launch's rows. Returns the worst K2 error
+    per type, as |Δf| / (K2_TOL·Σ_j|f_ij| + ulp)."""
+    from repro_torch.kernels.repulsion import ops as rep_ops
+    from repro_torch.kernels.repulsion.ref import repulsion_chunked
+    from repro_torch.kernels.segment.ref import attraction_sum_ref
+
+    worst = {}
+    k2 = cap.fn("repulsion_nbody")
+    k7 = cap.fn("attraction_sum")
+    for name in HALF_TYPES:
+        t = getattr(torch, name)
+        (p, m, kr, radii), att = half_inputs(torch, np, cap, name)
+        got = k2(p, m, kr, radii=radii)
+        check(got.dtype == t and bool(torch.isfinite(got).all()),
+              f"K2 {name}: dtype {got.dtype}, finite {bool(torch.isfinite(got).all())}")
+        check(bits_equal(torch, got, k2(p, m, kr, radii=radii)), f"K2 {name}: two launches differ")
+        plain = repulsion_chunked(p, m, kr, radii=radii)
+        scale = k2_row_scale(torch, p.float(), m.float(), kr,
+                             None if radii is None else radii.float())
+        bound = K2_TOL * scale + half_ulp(torch, got, plain)
+        err = (got.float() - plain.float()).abs()
+        worst[name] = float((err / bound).max())
+        log(f"K2 {name} n={p.shape[0]}: worst |Δf| / (K2_TOL·Σ|f_ij| + ulp) {worst[name]}, "
+            f"max|Δf| {float(err.max())}, max|f| {float(plain.float().abs().max())}")
+        check(bool((err <= bound).all()), f"K2 {name}: |Δf| above K2_TOL·Σ|f_ij| + one ulp")
+        n = p.shape[0]
+        i0, nl = n // MD_RANKS, n - n // MD_RANKS
+        rows = rep_ops.repulsion_rows(p, m, i0, nl, kr, radii=radii)
+        check(bits_equal(torch, rows, got[i0:i0 + nl]),
+              f"K2 rows {name}: differ from the whole launch's rows")
+        for tag, (pos, dst, w, lay) in att.items():
+            a = k7(pos, dst, w, lay)
+            check(a.dtype == t and bool(torch.isfinite(a).all()),
+                  f"K7 attraction{tag} {name}: dtype {a.dtype} or non-finite")
+            check(bits_equal(torch, a, k7(pos, dst, w, lay)),
+                  f"K7 attraction{tag} {name}: two launches differ")
+            cpu = attraction_sum_ref(pos.cpu(), dst.cpu(), w.cpu(), lay.offsets.cpu())
+            check(bits_equal(torch, a.cpu(), cpu),
+                  f"K7 attraction{tag} {name}: differs from the plain version on the CPU")
+            log(f"K7 attraction{tag} {name} E={dst.shape[0]} n={pos.shape[0]}: bitwise the "
+                f"plain version on the CPU and run to run")
+    return worst
+
+
+class PosWatch:
+    """Wraps K2's two entries and K7's attraction (the module attributes FA2
+    calls through) to record the type and address of every ``pos`` handed
+    to them, and, as a dispatch mode, counts the operations that make a
+    float32 tensor of the layout's shape from a bfloat16 one (a widened
+    copy of pos)."""
+
+    def __init__(self, torch, n: int):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from repro_torch.kernels.repulsion import ops as rep_ops
+        from repro_torch.kernels.segment import ops as seg_ops
+
+        self.torch, self.n, self.seen, self.copies = torch, n, [], 0
+        self.sites = [(rep_ops, "repulsion"), (rep_ops, "repulsion_rows"),
+                      (seg_ops, "attraction_sum")]
+        watch = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                watch.count(args, out)
+                return out
+
+        self.mode = Mode()
+
+    def count(self, args, out):
+        torch, shape = self.torch, (self.n, 2)
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        if not any(isinstance(o, torch.Tensor) and o.dtype == torch.float32
+                   and tuple(o.shape) == shape for o in outs):
+            return
+        if any(isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16
+               and tuple(a.shape) == shape for a in args):
+            self.copies += 1
+
+    @contextlib.contextmanager
+    def watching(self, copies: bool):
+        """Record the kernels' pos while inside; with ``copies``, count the
+        widened copies too (the dispatch mode costs ≈ 0.1 s an iteration
+        at the main path's size)."""
+        saved = []
+        for mod, attr in self.sites:
+            real = getattr(mod, attr)
+
+            def wrapper(pos, *args, _real=real, _attr=attr, **kw):
+                self.seen.append((_attr, pos.dtype, pos.data_ptr()))
+                return _real(pos, *args, **kw)
+
+            saved.append((mod, attr, real))
+            setattr(mod, attr, wrapper)
+        try:
+            with self.mode if copies else contextlib.nullcontext():
+                yield self
+        finally:
+            for mod, attr, real in saved:
+                setattr(mod, attr, real)
+
+
+def half_layout_phase(torch, np, cap: Capture, edges, res, cfg) -> dict:
+    """Half-width layouts on the card: the kernel checks above; the main
+    path's supergraph laid out in bfloat16 by ``layout_supergraph`` (100
+    iterations: K2 and the attraction launched 100 times each on bfloat16
+    pos, no float32 copy of pos made, finite, bitwise run to run) and
+    drawn by ``BGVResult.render``; the full path's grid layout in bfloat16
+    (500 iterations, finite, bitwise run to run); a 3-iteration bfloat16
+    layout at the CPU tests' size against the CPU within 2⁻⁷·max|pos|.
+    Returns the runs' launches by path, the main run's positions and the
+    numbers it printed."""
+    from repro_torch.core import forceatlas2 as fa2
+    from repro_torch.core.pipeline import layout_supergraph
+    from repro_torch.device import host_array
+    from repro_torch.graph.utils import degrees, pad_edges
+    from repro_torch.render import raster
+
+    out = {"k2_worst": half_kernel_checks(torch, np, cap)}
+    sg = dataclasses.replace(res.supergraph, **{
+        f.name: getattr(res.supergraph, f.name).to("cuda")
+        for f in dataclasses.fields(res.supergraph)})
+    hcfg = dataclasses.replace(cfg, layout=dataclasses.replace(cfg.layout, dtype="bfloat16"))
+    s_layout = min(max(1 << (max(res.n_supernodes, 2) - 1).bit_length(), 64), cfg.s_cap)
+    # The widened copies are counted on a 3-iteration run of the same path
+    # (every iteration runs the same operations), the rest on the 100.
+    watch = PosWatch(torch, s_layout)
+    short = dataclasses.replace(hcfg, layout=dataclasses.replace(hcfg.layout, iterations=3))
+    with watch.watching(copies=True):
+        layout_supergraph(sg, short, device="cuda")
+    out["pos_copies"] = watch.copies
+    watch = PosWatch(torch, s_layout)
+    torch.cuda.synchronize()
+    cap.reset()
+    t0 = time.perf_counter()
+    with watch.watching(copies=False):
+        pos, its = layout_supergraph(sg, hcfg, device="cuda")
+    torch.cuda.synchronize()
+    out["main_layout_s"] = time.perf_counter() - t0
+    launches = cap.counts()
+    log(f"bfloat16 main-path layout: {its} iterations in {out['main_layout_s']:.3f} s "
+        f"(the float32 main path's layout_s {res.timings['layout_s']:.3f} s), launches K2 "
+        f"{launches['repulsion_nbody']}, attraction {launches['attraction_sum']}; widened "
+        f"copies of pos in 3 iterations {out['pos_copies']}")
+    check(pos.dtype == torch.bfloat16 and bool(torch.isfinite(pos).all()),
+          f"bfloat16 main-path layout: dtype {pos.dtype} or non-finite")
+    check(its == ITERATIONS and launches["repulsion_nbody"] == its
+          and launches["attraction_sum"] == its,
+          f"bfloat16 main-path layout: {its} iterations, K2 {launches['repulsion_nbody']}, "
+          f"attraction {launches['attraction_sum']} launches")
+    types = {(attr, str(dt)) for attr, dt, _ in watch.seen}
+    check(types == {("repulsion", "torch.bfloat16"), ("attraction_sum", "torch.bfloat16")},
+          f"bfloat16 main-path layout: the kernels were handed {sorted(types)}")
+    # Each iteration hands the attraction and then K2 the same bfloat16 pos.
+    ptrs = [p for _, _, p in watch.seen]
+    check(len(ptrs) == 2 * its and ptrs[0::2] == ptrs[1::2],
+          "bfloat16 main-path layout: K2 and the attraction read different pos")
+    check(out["pos_copies"] == 0,
+          f"bfloat16 main-path layout: {out['pos_copies']} float32 copies of pos")
+    again, _ = layout_supergraph(sg, hcfg, device="cuda")
+    check(bits_equal(torch, again, pos), "bfloat16 main-path layout: two runs differ")
+    hres = dataclasses.replace(res, positions=host_array(pos), timings=dict(res.timings))
+    with tempfile.TemporaryDirectory() as tmp:
+        image, _ = hres.render(str(Path(tmp) / "bf16.png"))
+    frac, counts = raster.image_summary(image)
+    log(f"bfloat16 main-path image non-background {frac}, palette colors {(counts > 0).sum()}")
+    check(frac >= 0.01 and (counts > 0).sum() >= 3, "bfloat16 main-path image")
+    out["positions"] = hres.positions
+    del again, sg
+
+    # The full path's grid layout in bfloat16 (K5 and K6 widen to float32).
+    n, e = NODES, len(edges)
+    edges_t = torch.as_tensor(pad_edges(edges, e, n), device="cuda")
+    mass = degrees(edges_t, n).to(torch.float32) + 1.0
+    w = torch.ones(e, device="cuda")
+    lcfg = fa2.FA2Config(iterations=FULL_ITERATIONS, repulsion="grid", grid_size=GRID,
+                         grid_window=WINDOW, use_radii=False, dtype="bfloat16")
+    torch.cuda.synchronize()
+    cap.reset()
+    t0 = time.perf_counter()
+    gpos, _, gits = fa2.layout(edges_t, w, mass, n, lcfg, device="cuda")
+    torch.cuda.synchronize()
+    out["full_layout_s"] = time.perf_counter() - t0
+    full = cap.counts()
+    log(f"bfloat16 full-path grid layout: {gits} iterations in {out['full_layout_s']:.3f} s, "
+        f"launches {json.dumps({k: v for k, v in full.items() if v})}")
+    check(gpos.dtype == torch.bfloat16 and bool(torch.isfinite(gpos).all()),
+          "bfloat16 full-path layout: dtype or non-finite")
+    for k in FULL_KERNELS:
+        check(full[k] == gits == FULL_ITERATIONS,
+              f"bfloat16 full-path layout: {k} launched {full[k]} times in {gits} iterations")
+    gagain, _, _ = fa2.layout(edges_t, w, mass, n, lcfg, device="cuda")
+    check(bits_equal(torch, gagain, gpos), "bfloat16 full-path layout: two runs differ")
+    del gpos, gagain, edges_t, mass, w
+
+    # The CPU tests' size: the card against the CPU.
+    rng = np.random.default_rng(SEED)
+    sn, se = HALF_CPU_NODES, HALF_CPU_EDGES
+    sedges = rng.integers(0, sn, (se, 2)).astype(np.int32)
+    sedges[-20:] = sn
+    sw = rng.integers(1, 6, se).astype(np.float32)
+    smass = rng.integers(1, 400, sn).astype(np.float32)
+    smass[-10:] = 0.0
+    spos0 = rng.uniform(-1000, 1000, (sn, 2)).astype(np.float32)
+    scfg = fa2.FA2Config(iterations=HALF_CPU_ITERATIONS, dtype="bfloat16")
+    card, host = (fa2.layout(sedges, sw, smass, sn, scfg, pos0=torch.as_tensor(spos0),
+                             device=dev)[0].float().cpu() for dev in ("cuda", "cpu"))
+    scale = float(host.abs().max())
+    out["small_vs_cpu"] = float((card - host).abs().max()) / scale
+    log(f"bfloat16 layout at {sn} nodes, {HALF_CPU_ITERATIONS} iterations: card against CPU "
+        f"max|Δpos| / max|pos| {out['small_vs_cpu']} (bitwise {torch.equal(card, host)})")
+    check(out["small_vs_cpu"] <= HALF_CPU_TOL,
+          f"bfloat16 small layout: card against CPU {out['small_vs_cpu']} > {HALF_CPU_TOL}")
+    out["launches"] = {"bf16": launches, "full_bf16": full}
+    log("bfloat16 phase " + json.dumps({k: v for k, v in out.items()
+                                          if k not in ("positions", "launches")}))
+    return out
+
+
 # ------------------------------------------------------------- phase 6
 def serve_phase(torch, np, cap: Capture, edges, res, cfg):
     """The tile service over the main path's result (``TilePyramid`` at
@@ -2183,13 +2497,16 @@ def kernel_row(by_path, name, ms, plain_ms, lib_ms, err, bytes_, ops, shape,
     return r
 
 
-def time_kernels(torch, np, cap: Capture, main_launches, full_launches, multi_launches):
+def time_kernels(torch, np, cap: Capture, main_launches, full_launches, multi_launches,
+                 half_launches):
     """One row per kernel entry and path (``KERNELS``). ``launches`` is the
     entry's count from the measured run of its path: the main path for K1,
     K2, K3, K4 and K8's keys-in entry, the full path for K3 again and
     K5–K7, the multi-device phase (rank 0) for K2's and K6's row entries;
     K1's generic scatter_combine and K8's hashed entry are on no path
-    (their launches are 0). The row entries are timed on the range rank 1
+    (their launches are 0); the bfloat16 rows' from the half-width runs
+    (``half_launches``: paths "bf16", "full_bf16", "multi_bf16"). The row
+    entries are timed on the range rank 1
     of 2 owns, of the single-rank paths' recorded inputs (the same arrays
     the 2-rank run hands them). ``library_ms`` is the time of one PyTorch
     call computing the same function, or null where there is none;
@@ -2202,7 +2519,8 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches, multi_la
     from repro_torch.kernels.repulsion.ref import repulsion_chunked, repulsion_chunked_rows
 
     rows = []
-    by_path = {"main": main_launches, "full": full_launches, "multi": multi_launches}
+    by_path = {"main": main_launches, "full": full_launches, "multi": multi_launches,
+               **half_launches}
 
     def row(*args, **kw):
         rows.append(kernel_row(by_path, *args, **kw))
@@ -2318,7 +2636,54 @@ def time_kernels(torch, np, cap: Capture, main_launches, full_launches, multi_la
         f"n={n4} live={int(live.sum())} bbox_pairs={pairs} out={ng}x{h}x{wd} "
         f"(accumulating form, no fill: {into_ms} ms)")
     time_grid_kernels(torch, np, cap, row)
+    time_half_kernels(torch, np, cap, row)
     return rows
+
+
+def time_half_kernels(torch, np, cap: Capture, row):
+    """K2's two entries and K7's attraction on both paths, on the bfloat16
+    casts of the paths' recorded inputs (``half_inputs``), beside their
+    plain versions (and, for the attraction, ``index_add_`` of its
+    materialised bfloat16 terms); the bounds count 2 bytes an element."""
+    from repro_torch.kernels.repulsion import ops as rep_ops
+    from repro_torch.kernels.repulsion.ref import repulsion_chunked, repulsion_chunked_rows
+    from repro_torch.kernels.segment import ops as seg_ops
+    from repro_torch.kernels.segment.ref import attraction_sum_ref
+
+    (p, m, kr, radii), att = half_inputs(torch, np, cap, "bfloat16")
+    k2 = cap.fn("repulsion_nbody")
+    n, r = p.shape[0], radii is not None
+    fk, fp = k2(p, m, kr, radii=radii), repulsion_chunked(p, m, kr, radii=radii)
+    row("repulsion_nbody_bf16",
+        cuda_ms(torch, lambda: k2(p, m, kr, radii=radii), REPS),
+        cuda_ms(torch, lambda: repulsion_chunked(p, m, kr, radii=radii), 2),
+        None, float((fk.float() - fp.float()).abs().max()),
+        *bytes_ops(rep_ops.repulsion_cost(n, r, p.element_size())), f"n={n} radii={r} bfloat16")
+    i0, nl = n // MD_RANKS, n - n // MD_RANKS
+    fr = rep_ops.repulsion_rows(p, m, i0, nl, kr, radii=radii)
+    row("repulsion_rows_bf16",
+        cuda_ms(torch, lambda: rep_ops.repulsion_rows(p, m, i0, nl, kr, radii=radii), REPS),
+        cuda_ms(torch, lambda: repulsion_chunked_rows(p, m, i0, nl, kr, radii=radii), 2),
+        None, float((fr.float() - fp[i0:i0 + nl].float()).abs().max()),
+        *bytes_ops(rep_ops.repulsion_rows_cost(n, nl, r, p.element_size())),
+        f"n={n} rows [{i0}, {i0 + nl}) radii={r} bfloat16")
+    k7 = cap.fn("attraction_sum")
+    for tag, suffix in (("", ""), ("@full", "_full")):
+        pos, dst, w, lay = att[tag]
+        got = k7(pos, dst, w, lay)
+        cpu = attraction_sum_ref(pos.cpu(), dst.cpu(), w.cpu(), lay.offsets.cpu())
+        _, terms, src = attraction_old(torch, pos, dst, w, lay.offsets)
+        idx = src.long()
+        out = torch.zeros((pos.shape[0], 2), dtype=pos.dtype, device=pos.device)
+        row(f"attraction_sum{suffix}_bf16",
+            cuda_ms(torch, lambda: k7(pos, dst, w, lay), REPS),
+            cuda_ms(torch, lambda: attraction_sum_ref(pos, dst, w, lay.offsets), REPS),
+            cuda_ms(torch, lambda: out.index_add_(0, idx, terms), REPS),
+            float((got.cpu().float() - cpu.float()).abs().max()),
+            *bytes_ops(seg_ops.attraction_sum_cost(pos.shape[0], terms.shape[0],
+                                                   pos.element_size())),
+            f"E={dst.shape[0]} rows, {terms.shape[0]} kept, N={pos.shape[0]} bfloat16",
+            "index_add_ of the materialised kept terms (bfloat16)")
 
 
 def time_count_scatter(torch, cap: Capture, row, tag: str):
@@ -2736,6 +3101,8 @@ def md_rank(mesh, npy: str, out_dir: str, delta: int) -> None:
     import repro_torch
     from repro_torch.core import cms as cms_lib
     from repro_torch.core import forceatlas2 as fa2
+    from repro_torch.core.pipeline import layout_supergraph
+    from repro_torch.device import host_array
     from repro_torch.kernels import build
     from repro_torch.render import raster
     from repro_torch.resilience import StreamCheckpointer, latest_step, load_arrays
@@ -2810,6 +3177,19 @@ def md_rank(mesh, npy: str, out_dir: str, delta: int) -> None:
     info["grid_launches"] = dict(build.LAUNCHES)
     info["grid_iterations"] = iters
     arrays["grid_positions"] = pos.cpu().numpy()
+
+    # 3. The supergraph laid out in bfloat16, node-partitioned (K2's row
+    # entry and K7's attraction in bfloat16).
+    hcfg = dataclasses.replace(cfg, layout=dataclasses.replace(cfg.layout, dtype="bfloat16"))
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hpos, hits = layout_supergraph(sg, hcfg, device=dev, mesh=mesh, shard_layout=True)
+    torch.cuda.synchronize()
+    info["bf16_s"] = time.perf_counter() - t0
+    info["bf16_launches"] = dict(build.LAUNCHES)
+    info["bf16_iterations"] = hits
+    arrays["bf16_positions"] = host_array(hpos)
     np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"), **arrays)
     with open(os.path.join(out_dir, f"rank{mesh.rank}.json"), "w") as f:
         json.dump(info, f)
@@ -2847,7 +3227,7 @@ def md_runner_pipeline(mesh=None, **kw):
                                        device=None if mesh is not None else "cuda", **kw)
 
 
-def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
+def multi_device_phase(torch, np, edges, res, cfg, smi: str, half_positions) -> tuple:
     """The multi-device paths on one card, D ranks under gloo.
 
     1. ``biggraphvis`` + ``render`` (rank 0) on phase 4's graph and config
@@ -2872,9 +3252,14 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
     4. MD_RUNNER_RANKS ranks stream the stream launcher's graph with a
        checkpoint every chunk and are killed mid-round; one rank resumes
        from their checkpoint, bitwise an uninterrupted one-rank run.
+    5. (In the ranks' run, after 2.) The supergraph laid out in bfloat16 on
+       the ranks (``layout_supergraph(..., shard_layout=True)``): K2's row
+       entry and the attraction launched once an iteration on every rank,
+       the whole K2 never; positions within 2⁻⁷·max|pos| of the one-rank
+       bfloat16 layout (``half_positions``, phase 5b).
 
     Returns rank 0's launches (the ``kernels`` line's counts for the row
-    entries)."""
+    entries) and those of its bfloat16 layout."""
     import os
 
     from repro_torch.core import cms as cms_lib
@@ -2966,6 +3351,7 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
                   f"multi-device: rank {r}'s {k} differs from rank 0's")
     out["ranks"] = [info for _, info in ranks]
     log("multi-device main path " + json.dumps(out["ranks"], default=str))
+    md_half_checks(np, ranks, half_positions)
 
     # The grid force pass, single-rank, on the same inputs.
     lcfg = fa2.FA2Config(iterations=MD_GRID_ITERATIONS, repulsion="grid", grid_size=GRID,
@@ -3054,7 +3440,27 @@ def multi_device_phase(torch, np, edges, res, cfg, smi: str) -> dict:
               f"{MD_RUNNER_RANKS}-rank checkpoint resumed on one rank: supergraph.{f} differs")
     multi = dict(lead["launches"])
     multi["near_field_rows"] = lead["grid_launches"]["near_field_rows"]
-    return multi
+    return multi, lead["bf16_launches"]
+
+
+def md_half_checks(np, ranks, half_positions) -> None:
+    """Check 5 of ``multi_device_phase`` on the ranks' results."""
+    s_layout = len(half_positions)
+    scale = float(np.abs(half_positions).max())
+    for r, (a, info) in enumerate(ranks):
+        la, its = info["bf16_launches"], info["bf16_iterations"]
+        check(its == ITERATIONS and la["repulsion_rows"] == its and la["attraction_sum"] == its
+              and la["repulsion_nbody"] == 0,
+              f"multi-device rank {r}: the bfloat16 layout ran {its} iterations with "
+              f"launches K2 rows {la['repulsion_rows']}, attraction {la['attraction_sum']}, "
+              f"whole K2 {la['repulsion_nbody']}")
+        got = a["bf16_positions"][:s_layout]
+        err = float(np.abs(got - half_positions).max())
+        log(f"multi-device rank {r}: bfloat16 layout {info['bf16_s']:.3f} s, positions "
+            f"against one rank max|Δ| {err} of {scale} (bitwise "
+            f"{np.array_equal(got.view(np.uint32), half_positions.view(np.uint32))})")
+        check(err <= HALF_CPU_TOL * scale,
+              f"multi-device rank {r}: bfloat16 positions differ by {err} (> 2⁻⁷·{scale})")
 
 
 # ------------------------------------------------------------- phase 11
@@ -3704,8 +4110,8 @@ def models_phase(torch, np, cap: Capture, smi: str) -> dict:
 
     The LMs' weights come from ``lm_params`` (true fan-in).
 
-    * yi-6b at full width and depth (32 layers; 24.2 GB of float32
-      parameters, cast once to bfloat16) through ``LMEngine``: 8 slots ×
+    * yi-6b at full width, ENGINE_LAYERS (28) of its 32 layers (21.2 GB
+      of float32 parameters, cast once to bfloat16) through ``LMEngine``: 8 slots ×
       2,048 positions, 16 requests of 16–64 prompt tokens and 16 new
       tokens, at least 4 live at once; the teacher-forced gate
       (``teacher_forced``, TF_TOL) and every request's tokens equal to its
@@ -3744,8 +4150,8 @@ def models_phase(torch, np, cap: Capture, smi: str) -> dict:
     out = {"card": smi}
     cap.reset()
 
-    # yi-6b, full width and depth.
-    yi = get_config("yi-6b").model
+    # yi-6b, full width, ENGINE_LAYERS of its 32 layers.
+    yi = dataclasses.replace(get_config("yi-6b").model, n_layers=ENGINE_LAYERS)
     specs = tfm.param_specs(yi)
     t0 = time.perf_counter()
     params = lm_params(yi, torch.Generator(device="cuda").manual_seed(SEED))
@@ -5784,14 +6190,18 @@ def run() -> int:
             torch, np, cap, edges, delta)
     with phase("full path"):
         full_launches = full_path(torch, np, cap, edges, delta, main_wall)
+    with phase("bfloat16"):
+        half = half_layout_phase(torch, np, cap, edges, main_result, main_cfg)
     with phase("serve"):
         serve_phase(torch, np, cap, edges, main_result, main_cfg)
     with phase("launchers"):
         launcher_phase(np)
     with phase("multi-device"):
-        multi_launches = multi_device_phase(torch, np, edges, main_result, main_cfg, smi)
+        multi_launches, half["launches"]["multi_bf16"] = multi_device_phase(
+            torch, np, edges, main_result, main_cfg, smi, half["positions"])
     with phase("timing"):
-        rows = time_kernels(torch, np, cap, main_launches, full_launches, multi_launches)
+        rows = time_kernels(torch, np, cap, main_launches, full_launches, multi_launches,
+                            half["launches"])
     timed = sorted(k for k, v in KERNELS.items() if v[3] not in ("train", "step"))
     check(sorted(r["name"] for r in rows) == timed,
           f"kernel rows {sorted(r['name'] for r in rows)}, expected {timed}")

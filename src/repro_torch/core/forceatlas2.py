@@ -46,6 +46,14 @@ enabled.
 ``nan_guard`` rolls back an iteration whose forces hold a non-finite value
 (positions and controller memory kept, global speed halved) and traces it
 as a ``[-1, -1, damped]`` row, without reading anything back to the host.
+
+``FA2Config.dtype`` is the type of positions, forces, mass and weights in
+the loop, resolved by ``layout_dtype`` as the reference resolves it:
+"float32", "bfloat16" and "float16" as given, "float64" as float32 with a
+warning (the reference runs with 64-bit types off). K2 and K7's
+attraction read a half-width layout in its own type, compute in float32
+and round each force once (their plain versions the same); the grid
+kernels widen to float32 and round back, as the reference's do.
 """
 from __future__ import annotations
 
@@ -56,7 +64,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
-from repro_torch.device import resolve_device
+from repro_torch.device import host_array, resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.grid import ops as grid_ops
 from repro_torch.kernels.repulsion import ops as repulsion_ops
@@ -65,6 +73,8 @@ from repro_torch.obs.trace import get_tracer
 
 _GOLDEN_ANGLE = 2.3999632297286533  # π(3 − √5)
 _BACKENDS = ("exact", "grid", "grid_pallas", "grid_dense")
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16,
+           "float64": torch.float32}
 
 
 @dataclass(frozen=True)
@@ -86,6 +96,21 @@ class FA2Config:
     init: str = "random"  # "random" | "degree" | "bfs"
     init_bfs_rounds: int = 32  # BFS depth-propagation rounds for init="bfs"
     nan_guard: bool = False  # divergence sentinel (see module docstring)
+
+
+def layout_dtype(cfg: FA2Config) -> torch.dtype:
+    """The type the layout computes and returns in for ``cfg.dtype``, as the
+    reference resolves it with 64-bit types off (its default): "float32",
+    "bfloat16" and "float16" as given; "float64" truncated to float32, with
+    a ``UserWarning`` naming the truncation."""
+    if cfg.dtype not in _DTYPES:
+        raise ValueError(f"unknown layout dtype {cfg.dtype!r}: expected one of "
+                         f"{tuple(_DTYPES)}")
+    if cfg.dtype == "float64":
+        warnings.warn(
+            "FA2Config.dtype='float64' is not available with 64-bit types off and is "
+            "truncated to float32, as in the reference", UserWarning, stacklevel=3)
+    return _DTYPES[cfg.dtype]
 
 
 def _check_backend(cfg: FA2Config) -> None:
@@ -181,10 +206,12 @@ def init_positions_bfs(edges, mass, n: int, seed: int,
     return pos.to(dtype)
 
 
-def initial_positions(edges, mass, n: int, cfg: FA2Config):
+def initial_positions(edges, mass, n: int, cfg: FA2Config, *, dtype=None):
     """Dispatch ``cfg.init`` on ``mass``'s device; "random" and "bfs" draw
-    the reference's bits for ``cfg.seed``."""
-    dtype = getattr(torch, cfg.dtype)
+    the reference's bits for ``cfg.seed``. ``dtype``: the layout's type
+    when the caller has resolved it (None: ``layout_dtype(cfg)``)."""
+    if dtype is None:
+        dtype = layout_dtype(cfg)
     if cfg.init == "random":
         return init_positions(n, cfg.seed, dtype=dtype, device=mass.device)
     if cfg.init == "degree":
@@ -213,20 +240,21 @@ def _attraction(pos, edges, weights, n: int):
     edge order and then its v-terms. On the card ``[f; −f]`` is summed by
     K7 through the segment layout of ``[u; v]`` built for this call (a
     stable sort by id), which adds the same terms in the same order: the
-    same bits, every run. A fake ``pos`` (a dry run) takes the card's form."""
+    same bits, every run. A fake ``pos`` (a dry run) takes the card's form.
+    The terms are formed in the layout's type, as the reference forms them;
+    both forms add them in float32 and round each sum once to that type."""
     e = edges.long().clamp(0, n)
     u, v = e[:, 0], e[:, 1]
     pos_ext = torch.cat([pos, torch.zeros((1, 2), dtype=pos.dtype, device=pos.device)])
     f = weights[:, None] * (pos_ext[v] - pos_ext[u])  # force on u toward v
     if build.on_card(pos):
-        if f.dtype != torch.float32:
-            raise ValueError(f"the attraction sums in float32 on the card (K7), got {f.dtype}")
         return segment_ops.segment_sum_edges(torch.cat([f, -f]),
                                              torch.cat([u, v]).to(torch.int32), n)
-    force = torch.zeros((n + 1, 2), dtype=pos.dtype, device=pos.device)
-    force.index_add_(0, u, f)
-    force.index_add_(0, v, -f)
-    return force[:n]
+    wide = torch.promote_types(f.dtype, torch.float32)
+    force = torch.zeros((n + 1, 2), dtype=wide, device=pos.device)
+    force.index_add_(0, u, f.to(wide))
+    force.index_add_(0, v, -f.to(wide))
+    return force[:n].to(pos.dtype)
 
 
 def _attraction_edge_layout(edges, weights, n: int):
@@ -375,7 +403,7 @@ def recovery_count(trace) -> int:
     """Number of iterations the ``nan_guard`` sentinel rolled back in a
     ``layout``/``step`` trace (negative-g_swing rows)."""
     if isinstance(trace, torch.Tensor):
-        trace = trace.detach().cpu().numpy()
+        trace = host_array(trace)
     return int((np.asarray(trace)[:, 0] < 0).sum())
 
 
@@ -398,12 +426,12 @@ def _layout_inputs(edges, weights, mass, n: int, cfg: FA2Config, pos0, device):
     """``(mass, pos, radii, (dst, w2, layout))`` on ``device`` in the
     layout's type: initial positions, radii √mass and the source-sorted
     edges with their sources' segment layout."""
-    dtype = getattr(torch, cfg.dtype)
+    dtype = layout_dtype(cfg)
     edges = torch.as_tensor(edges, device=device)
     weights = torch.as_tensor(weights, device=device).to(dtype)
     mass = torch.as_tensor(mass, device=device)
     if pos0 is None:  # from the mass as given, as the reference starts
-        pos0 = initial_positions(edges, mass, n, cfg)
+        pos0 = initial_positions(edges, mass, n, cfg, dtype=dtype)
     mass = mass.to(dtype)
     pos = torch.as_tensor(pos0, device=device).to(dtype)
     radii = torch.sqrt(torch.clamp(mass, min=0.0))  # paper: radius ∝ √size

@@ -29,7 +29,7 @@ from repro_torch.core.coloring import color_groups
 from repro_torch.core.scoda import ScodaConfig, detect_communities
 from repro_torch.core.stream import StreamConfig, StreamStats, stream_pipeline
 from repro_torch.core.supergraph import Supergraph, build_supergraph
-from repro_torch.device import resolve_device, synchronize
+from repro_torch.device import host_array, resolve_device, synchronize
 from repro_torch.graph.utils import degrees, pad_edges
 from repro_torch.obs.metrics import REGISTRY
 from repro_torch.obs.trace import get_tracer
@@ -47,7 +47,9 @@ class BGVConfig:
 
 @dataclass
 class BGVResult:
-    positions: np.ndarray  # [s_cap, 2]
+    # [s_cap, 2] in the layout's type; a bfloat16 layout as float32 holding
+    # its values (numpy has no bfloat16)
+    positions: np.ndarray
     sizes: np.ndarray  # [s_cap]
     groups: np.ndarray  # [s_cap] color group
     labels: np.ndarray  # [n] node → dense community
@@ -238,7 +240,7 @@ def biggraphvis(source, n_nodes: int, cfg: BGVConfig,
         )
         groups = color_groups(sg.sizes)
     return BGVResult(
-        positions=pos.cpu().numpy(),
+        positions=host_array(pos),
         sizes=sg.sizes.cpu().numpy(),
         groups=groups.cpu().numpy(),
         labels=sg.labels.cpu().numpy(),
@@ -271,7 +273,8 @@ def full_layout_colored(edges_np: np.ndarray, n_nodes: int, cfg: BGVConfig,
     Stages run in the spans ``layout.full.detect``, ``layout.full.supergraph``
     and ``layout.full``, each ending in a device synchronize so its duration
     is the device's; the gauge ``layout.full_iterations_run`` holds the live
-    iteration count.
+    iteration count. ``pos`` is of the layout's type (``cfg.layout.dtype``),
+    a bfloat16 layout as float32 holding its values.
     """
     device = resolve_device(device)
     tr = cfg.obs if cfg.obs is not None else get_tracer()
@@ -321,4 +324,4 @@ def full_layout_colored(edges_np: np.ndarray, n_nodes: int, cfg: BGVConfig,
             REGISTRY.counter("errors.fa2_recoveries").inc(recovered)
     REGISTRY.gauge("layout.full_iterations_run").set(int(iters_run))
     node_groups = color_groups(sg.sizes)[torch.clamp(sg.labels, 0, cfg.s_cap - 1).long()]
-    return pos.cpu().numpy(), node_groups.cpu().numpy()
+    return host_array(pos), node_groups.cpu().numpy()

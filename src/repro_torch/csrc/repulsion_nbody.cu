@@ -47,6 +47,18 @@
 // then over a slice's tiles, then over the S slices, so a row errs by at
 // most about (8 + TILE + T/S + S) * 2^-24 of its sum of |f_ij|
 // (1.9e-5 at n = 65,536, the largest s_layout).
+//
+// Layout types: pos, mass, radii and out are float32, bfloat16 or float16
+// (the layout's type, FA2Config.dtype), all four of one type. The kernel
+// reads them in that type and widens them in registers; the pair terms,
+// the tile and slice sums and the scratch are float32 exactly as for a
+// float32 layout, and each output is rounded once to the layout's type
+// (sum_slices, which also runs for one slice when the type is not
+// float32). A half-width layout reads half the bytes; its plain version
+// widens, computes in float32 and rounds once the same way, so the two
+// differ by the float32 error above plus one rounding in the output type.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -58,6 +70,20 @@ constexpr int TILE = 256;     // sources staged per tile
 constexpr int U = 4;          // sources per unrolled step
 constexpr float EPS = 1e-4f;
 constexpr float EPS2 = 1e-8f;
+
+// The layout's element types: loads widen to float32, the one store of an
+// output rounds to nearest even.
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+template <class T> __device__ __forceinline__ T narrow(float x);
+template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ __half narrow<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 __device__ __forceinline__ float rcp_approx(float x) {
   float y;
@@ -92,10 +118,10 @@ __device__ __forceinline__ void tile_sum(const float4* src, int kend, int j0,
   }
 }
 
-template <bool RADII>
+template <bool RADII, class T>
 __global__ void __launch_bounds__(THREADS)
-repulsion_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
-                 const float* __restrict__ radii, int n, int row0, int rows,
+repulsion_kernel(const T* __restrict__ pos, const T* __restrict__ mass,
+                 const T* __restrict__ radii, int n, int row0, int rows,
                  float kr, int slices, float* __restrict__ part) {
   __shared__ float4 src[TILE];
   const int t = threadIdx.x;
@@ -111,9 +137,9 @@ repulsion_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
   for (int r = 0; r < R; ++r) {
     i[r] = b0 + r * THREADS + t;
     const bool live = i[r] < row_end;
-    x[r] = live ? pos[2 * i[r]] : 0.f;
-    y[r] = live ? pos[2 * i[r] + 1] : 0.f;
-    ri[r] = (live && RADII) ? radii[i[r]] : 0.f;
+    x[r] = live ? widen(pos[2 * i[r]]) : 0.f;
+    y[r] = live ? widen(pos[2 * i[r] + 1]) : 0.f;
+    ri[r] = (live && RADII) ? widen(radii[i[r]]) : 0.f;
     fx[r] = 0.f;
     fy[r] = 0.f;
   }
@@ -121,7 +147,8 @@ repulsion_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
     for (int k = t; k < TILE; k += THREADS) {
       const int j = j0 + k;
       src[k] = j < j_end
-          ? make_float4(pos[2 * j], pos[2 * j + 1], mass[j], RADII ? radii[j] : 0.f)
+          ? make_float4(widen(pos[2 * j]), widen(pos[2 * j + 1]), widen(mass[j]),
+                        RADII ? widen(radii[j]) : 0.f)
           : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     __syncthreads();
@@ -145,49 +172,68 @@ repulsion_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (i[r] < row_end) {
-      const float kmi = kr * mass[i[r]];
+      const float kmi = kr * widen(mass[i[r]]);
       dst[2 * (i[r] - row0)] = kmi * fx[r];
       dst[2 * (i[r] - row0) + 1] = kmi * fy[r];
     }
   }
 }
 
-// out[k] = part[0][k] + part[1][k] + ... + part[S-1][k], in that order.
+// out[k] = part[0][k] + part[1][k] + ... + part[S-1][k], in that order,
+// in float32, rounded once to T.
+template <class T>
 __global__ void sum_slices(const float* __restrict__ part, int slices, int len,
-                           float* __restrict__ out) {
+                           T* __restrict__ out) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= len) return;
   float acc = part[k];
   for (int s = 1; s < slices; ++s) acc += part[(size_t)s * len + k];
-  out[k] = acc;
+  out[k] = narrow<T>(acc);
+}
+
+template <class T>
+void launch(const void* pos, const void* mass, const void* radii, int n, int row0,
+            int rows, float kr, int use_radii, int slices, void* scratch, void* out,
+            cudaStream_t st) {
+  // One float32 slice goes to out directly; anything else to the scratch,
+  // summed (and rounded) by sum_slices.
+  const bool direct = slices == 1 && sizeof(T) == sizeof(float);
+  float* part = direct ? (float*)out : (float*)scratch;
+  const dim3 grid((rows + NODES - 1) / NODES, slices);
+  const T* p = (const T*)pos;
+  const T* m = (const T*)mass;
+  const T* r = (const T*)radii;
+  if (use_radii)
+    repulsion_kernel<true, T><<<grid, THREADS, 0, st>>>(p, m, r, n, row0, rows, kr, slices, part);
+  else
+    repulsion_kernel<false, T><<<grid, THREADS, 0, st>>>(p, m, r, n, row0, rows, kr, slices, part);
+  if (!direct) {
+    const int len = 2 * rows;
+    sum_slices<T><<<(len + 255) / 256, 256, 0, st>>>(part, slices, len, (T*)out);
+  }
 }
 
 }  // namespace
 
-// Targets [row0, row0 + rows) of n, out [rows, 2]. scratch: [slices,
-// rows, 2] float32, unused (may be null) when slices == 1, in which case
-// the one slice is written to out directly.
+// Targets [row0, row0 + rows) of n, out [rows, 2]; pos, mass, radii and out
+// of type `type` (0 float32, 1 bfloat16, 2 float16). scratch: [slices,
+// rows, 2] float32, unused (may be null) for one float32 slice, which is
+// written to out directly.
 extern "C" int repulsion_nbody_rows(const void* pos, const void* mass,
                                     const void* radii, int n, int row0, int rows,
-                                    float kr, int use_radii, int slices,
+                                    float kr, int use_radii, int slices, int type,
                                     void* scratch, void* out, void* stream) {
-  if (row0 < 0 || rows < 0 || row0 > n - rows) return (int)cudaErrorInvalidValue;
+  if (row0 < 0 || rows < 0 || row0 > n - rows || type < 0 || type > 2)
+    return (int)cudaErrorInvalidValue;
   if (rows > 0 && slices > 0) {
     cudaStream_t st = (cudaStream_t)stream;
-    float* part = slices == 1 ? (float*)out : (float*)scratch;
-    const dim3 grid((rows + NODES - 1) / NODES, slices);
-    if (use_radii)
-      repulsion_kernel<true><<<grid, THREADS, 0, st>>>(
-          (const float*)pos, (const float*)mass, (const float*)radii, n, row0,
-          rows, kr, slices, part);
+    if (type == 0)
+      launch<float>(pos, mass, radii, n, row0, rows, kr, use_radii, slices, scratch, out, st);
+    else if (type == 1)
+      launch<__nv_bfloat16>(pos, mass, radii, n, row0, rows, kr, use_radii, slices, scratch,
+                            out, st);
     else
-      repulsion_kernel<false><<<grid, THREADS, 0, st>>>(
-          (const float*)pos, (const float*)mass, (const float*)radii, n, row0,
-          rows, kr, slices, part);
-    if (slices > 1) {
-      const int len = 2 * rows;
-      sum_slices<<<(len + 255) / 256, 256, 0, st>>>(part, slices, len, (float*)out);
-    }
+      launch<__half>(pos, mass, radii, n, row0, rows, kr, use_radii, slices, scratch, out, st);
   }
   return (int)cudaGetLastError();
 }
@@ -195,9 +241,9 @@ extern "C" int repulsion_nbody_rows(const void* pos, const void* mass,
 // All n targets: the row range [0, n).
 extern "C" int repulsion_nbody(const void* pos, const void* mass,
                                const void* radii, int n, float kr,
-                               int use_radii, int slices, void* scratch,
+                               int use_radii, int slices, int type, void* scratch,
                                void* out, void* stream) {
-  return repulsion_nbody_rows(pos, mass, radii, n, 0, n, kr, use_radii, slices,
+  return repulsion_nbody_rows(pos, mass, radii, n, 0, n, kr, use_radii, slices, type,
                               scratch, out, stream);
 }
 

@@ -49,6 +49,8 @@
 //     stride.
 //   - Empty segments write 0. Unsorted ids are stably sorted by the
 //     wrapper first, which keeps each segment's rows in their order.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -225,7 +227,29 @@ segment_sum_kernel(const float* __restrict__ data, const int* __restrict__ seg,
 //     roundings of the CPU form w[:, None] * (pos_ext[d] - pos_ext[s]); the
 //     [E, 2] tensor of terms is never written to device memory. dst >= N
 //     reads the zero row, dst < 0 row 0, as clamp(0, N) does.
+//   - attraction_sum takes the layout's type (FA2Config.dtype): pos, w and
+//     out float32, bfloat16 or float16, all of one type. pos and w are
+//     read in that type and widened in registers; the terms are formed and
+//     summed in float32 exactly as for a float32 layout, and each node's
+//     sum is rounded once to the type on its store. The plain version
+//     widens, forms, sums and rounds the same way, so the two agree
+//     bitwise in every type.
 //   - Empty segments write 0.
+
+// The layout's element types: a read-only load widened to float32, and a
+// float32 rounded to nearest even on its store.
+__device__ __forceinline__ float load_wide(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_wide(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ float load_wide(const __half* p) {
+  return __half2float(__ushort_as_half(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+__device__ __forceinline__ void store_narrow(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_narrow(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store_narrow(__half* p, float x) { *p = __float2half_rn(x); }
 
 constexpr int LW = 8;                 // warps a block, wide layout entries
 constexpr int NLW = 4;                // warps a block, narrow layout entries
@@ -293,6 +317,7 @@ template <int D_>
 struct EdgeRows {
   static constexpr int W = D_;
   static constexpr int D = D_;
+  using Out = float;
   const float* data;
   const int* perm;
   __device__ __forceinline__ void begin(int, bool, int) {}
@@ -311,29 +336,32 @@ struct EdgeRows {
 };
 
 // FA2's attraction: the row (pos[dst] x, pos[dst] y, w) staged as the term
-// w (pos[dst] - pos[s]).
+// w (pos[dst] - pos[s]); pos, w and the output in the layout's type T,
+// widened on load.
+template <class T>
 struct AttractionRows {
   static constexpr int W = 3;
   static constexpr int D = 2;
-  const float* pos;
+  using Out = T;
+  const T* pos;
   const int* dst;
-  const float* w;
+  const T* w;
   int n;
   float px, py;  // this lane's segment's position
   int first;     // this lane's segment's first row
   __device__ __forceinline__ void begin(int s, bool live, int lo) {
-    px = live ? __ldg(pos + 2LL * s) : 0.f;
-    py = live ? __ldg(pos + 2LL * s + 1) : 0.f;
+    px = live ? load_wide(pos + 2LL * s) : 0.f;
+    py = live ? load_wide(pos + 2LL * s + 1) : 0.f;
     first = lo;
   }
   __device__ __forceinline__ int index(long long r, float& aux) const {
-    aux = __ldg(w + r);
+    aux = load_wide(w + r);
     return __ldg(dst + r);
   }
   __device__ __forceinline__ void gather(int d, float aux, float* v) const {
     const long long i = d < 0 ? 0 : d;
-    v[0] = d >= n ? 0.f : __ldg(pos + 2 * i);
-    v[1] = d >= n ? 0.f : __ldg(pos + 2 * i + 1);
+    v[0] = d >= n ? 0.f : load_wide(pos + 2 * i);
+    v[1] = d >= n ? 0.f : load_wide(pos + 2 * i + 1);
     v[2] = aux;
   }
   // Row r's segment is that of the last lane whose first row is <= r (the
@@ -435,7 +463,7 @@ __device__ __forceinline__ void add_staged(float (&acc)[D], float (*sh)[SPAN], i
 template <class Rows>
 __global__ void __launch_bounds__(32 * NLW)
 narrow_kernel(Rows rows, const int* __restrict__ offsets, const int* __restrict__ groups,
-              int n_groups, float* __restrict__ out) {
+              int n_groups, typename Rows::Out* __restrict__ out) {
   constexpr int D = Rows::D;
   __shared__ float staged[NLW][D][SPAN];
   const int lane = threadIdx.x & 31;
@@ -482,7 +510,7 @@ narrow_kernel(Rows rows, const int* __restrict__ offsets, const int* __restrict_
   }
   if (live) {
 #pragma unroll
-    for (int k = 0; k < D; ++k) out[(long long)s * D + k] = acc[k];
+    for (int k = 0; k < D; ++k) store_narrow(out + (long long)s * D + k, acc[k]);
   }
 }
 
@@ -543,6 +571,17 @@ void launch_narrow_edges(const float* data, const int* perm, const int* offsets,
   const long long blocks = ((long long)n_groups + NLW - 1) / NLW;
   narrow_kernel<EdgeRows<D>><<<(unsigned)blocks, 32 * NLW, 0, stream>>>(
       EdgeRows<D>{data, perm}, offsets, groups, n_groups, out);
+}
+
+template <class T>
+void launch_attraction(const void* pos, const int* dst, const void* w, const int* offsets,
+                       const int* groups, int n_groups, int n, void* out,
+                       cudaStream_t stream) {
+  const long long blocks = ((long long)n_groups + NLW - 1) / NLW;
+  AttractionRows<T> rows{static_cast<const T*>(pos), dst, static_cast<const T*>(w), n,
+                         0.f, 0.f, 0};
+  narrow_kernel<AttractionRows<T>><<<(unsigned)blocks, 32 * NLW, 0, stream>>>(
+      rows, offsets, groups, n_groups, static_cast<T*>(out));
 }
 
 }  // namespace
@@ -610,18 +649,24 @@ extern "C" int segment_sum_layout(const void* data, const void* perm, const void
 
 // FA2's attraction: out[s] = sum over r in [offsets[s], offsets[s + 1]) of
 // w[r] (pos_ext[dst[r]] - pos[s]), pos [n, 2], pos_ext pos with a zero row
-// n and dst clamped into [0, n]; groups as for segment_sum_layout.
+// n and dst clamped into [0, n]; groups as for segment_sum_layout. pos, w
+// and out of type `type` (0 float32, 1 bfloat16, 2 float16).
 extern "C" int attraction_sum(const void* pos, const void* dst, const void* w,
                               const void* offsets, const void* groups, int n_groups, int n,
-                              void* out, void* stream) {
-  if (n < 0 || n == 0x7fffffff || n_groups < 0) return (int)cudaErrorInvalidValue;
+                              int type, void* out, void* stream) {
+  if (n < 0 || n == 0x7fffffff || n_groups < 0 || type < 0 || type > 2)
+    return (int)cudaErrorInvalidValue;
   if (n > 0 && n_groups > 0) {
-    const long long blocks = ((long long)n_groups + NLW - 1) / NLW;
-    AttractionRows rows{static_cast<const float*>(pos), static_cast<const int*>(dst),
-                        static_cast<const float*>(w), n, 0.f, 0.f, 0};
-    narrow_kernel<AttractionRows><<<(unsigned)blocks, 32 * NLW, 0, (cudaStream_t)stream>>>(
-        rows, static_cast<const int*>(offsets), static_cast<const int*>(groups), n_groups,
-        static_cast<float*>(out));
+    const auto off = static_cast<const int*>(offsets);
+    const auto gr = static_cast<const int*>(groups);
+    const auto d = static_cast<const int*>(dst);
+    const auto st = (cudaStream_t)stream;
+    if (type == 0)
+      launch_attraction<float>(pos, d, w, off, gr, n_groups, n, out, st);
+    else if (type == 1)
+      launch_attraction<__nv_bfloat16>(pos, d, w, off, gr, n_groups, n, out, st);
+    else
+      launch_attraction<__half>(pos, d, w, off, gr, n_groups, n, out, st);
   }
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,7 @@ renderer is the one matrix product on the slice's path).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -36,3 +37,13 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def host_array(t) -> np.ndarray:
+    """A tensor as a host numpy array of its own type, but for bfloat16,
+    which numpy lacks: that leaves as float32 holding the same values (the
+    widening changes none)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()

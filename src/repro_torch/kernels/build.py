@@ -70,6 +70,9 @@ RULE_OBSERVERS: list = []
 # The H100 SXM's SM count: a rule sizes K2's scratch with it where no card
 # is present to ask.
 H100_SMS = 132
+# The floating types a layout's kernels (K2's entries, K7's attraction)
+# take, by the code their C entries read.
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -14,6 +14,13 @@ on the card, with the slices of the whole n and a ``[S, nl, 2]`` scratch,
 so its rows are bitwise those of the full launch; on the CPU the rows of
 the same plain version ``repulsion`` takes.
 
+Both entries take the layout's type (``FA2Config.dtype``): pos, mass and
+radii all float32, bfloat16 or float16, and the forces come back in it.
+The kernel reads the inputs in that type (no widened copy is made before
+the launch), computes and sums in float32 and rounds each output once; the
+scratch stays float32 and is used for every slice count when the type is
+not float32.
+
 A fake tensor takes the abstract rule (``build.route``): the output and
 the scratch the card's call allocates, sized for the card's SM count
 (132, the H100's, where no card is present), and ``repulsion_cost`` /
@@ -33,10 +40,11 @@ from repro_torch.kernels.repulsion.ref import (
 )
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int
+    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int
 ] + [ctypes.c_void_p] * 3
 _ROWS_ARGTYPES = [ctypes.c_void_p] * 3 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int,
 ] + [ctypes.c_void_p] * 3
 
 # The kernel's geometry (csrc/repulsion_nbody.cu): nodes per block and
@@ -51,17 +59,17 @@ MAX_SLICES = 16  # scratch ≤ 16 · n · 8 bytes
 OPS_PER_PAIR = {True: 17, False: 15}
 
 
-def repulsion_cost(n: int, radii: bool) -> tuple[int, int]:
-    """(operations, bytes) of one ``repulsion`` launch over n nodes: every
-    pair's arithmetic; pos, mass (and radii) read and the forces written
-    once."""
-    return OPS_PER_PAIR[radii] * n * n, n * (20 + 4 * radii)
+def repulsion_cost(n: int, radii: bool, size: int = 4) -> tuple[int, int]:
+    """(operations, bytes) of one ``repulsion`` launch over n nodes in a
+    layout type of ``size`` bytes an element: every pair's arithmetic; pos,
+    mass (and radii) read and the forces written once."""
+    return OPS_PER_PAIR[radii] * n * n, n * size * (5 + radii)
 
 
-def repulsion_rows_cost(n: int, nl: int, radii: bool) -> tuple[int, int]:
+def repulsion_rows_cost(n: int, nl: int, radii: bool, size: int = 4) -> tuple[int, int]:
     """(operations, bytes) of one ``repulsion_rows`` launch: its nl rows
     against all n sources; every source read once, its rows written."""
-    return OPS_PER_PAIR[radii] * nl * n, n * (12 + 4 * radii) + nl * 8
+    return OPS_PER_PAIR[radii] * nl * n, n * size * (3 + radii) + nl * 2 * size
 
 
 def source_slices(n: int, sms: int) -> int:
@@ -83,6 +91,27 @@ def slice_bounds(n: int, slices: int) -> list[tuple[int, int]]:
              min(n, (s + 1) * tiles // slices * SOURCE_TILE)) for s in range(slices)]
 
 
+def _layout_type(pos, mass, radii, dev, n: int) -> torch.dtype:
+    """The layout type of the card's inputs (one of ``build.FLOAT_CODES``,
+    the same for all), checked with their shapes, device and layout."""
+    dtype = pos.dtype
+    if dtype not in build.FLOAT_CODES:
+        raise TypeError(f"pos: dtype {dtype}, expected one of {tuple(build.FLOAT_CODES)}")
+    build.require(pos, "pos", dtype, dev, (n, 2))
+    build.require(mass, "mass", dtype, dev, (n,))
+    if radii is not None:
+        build.require(radii, "radii", dtype, dev, (n,))
+    return dtype
+
+
+def _scratch(slices: int, rows: int, dtype: torch.dtype, dev):
+    """The float32 [S, rows, 2] partials, or None for one float32 slice
+    (written to the output directly)."""
+    if slices == 1 and dtype == torch.float32:
+        return None
+    return torch.empty((slices, rows, 2), dtype=torch.float32, device=dev)
+
+
 def repulsion(pos, mass, kr: float, radii=None):
     """FA2 repulsion forces. pos [n,2], mass [n] (radii [n] or None) → [n,2].
 
@@ -95,22 +124,20 @@ def repulsion(pos, mass, kr: float, radii=None):
         if n <= 2048:
             return repulsion_ref(pos, mass, kr, radii=radii)
         return repulsion_chunked(pos, mass, kr, radii=radii)
-    build.require(pos, "pos", torch.float32, dev, (n, 2))
-    build.require(mass, "mass", torch.float32, dev, (n,))
-    if radii is not None:
-        build.require(radii, "radii", torch.float32, dev, (n,))
-    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    dtype = _layout_type(pos, mass, radii, dev, n)
+    out = torch.empty((n, 2), dtype=dtype, device=dev)
     slices = source_slices(n, build.sm_count(dev))
-    scratch = torch.empty((slices, n, 2), dtype=torch.float32, device=dev) if slices > 1 else None
+    scratch = _scratch(slices, n, dtype, dev)
     if form == "rule":
         del scratch
-        return build.rule("repulsion_nbody", out, *repulsion_cost(n, radii is not None))
+        return build.rule("repulsion_nbody", out,
+                          *repulsion_cost(n, radii is not None, pos.element_size()))
     fn = build.entry("repulsion_nbody", _ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(
             build.ptr(pos), build.ptr(mass),
             build.ptr(radii) if radii is not None else None,
-            n, float(kr), int(radii is not None), slices,
+            n, float(kr), int(radii is not None), slices, build.FLOAT_CODES[dtype],
             build.ptr(scratch) if scratch is not None else None,
             build.ptr(out), build.stream(dev),
         )
@@ -132,23 +159,21 @@ def repulsion_rows(pos, mass, i0: int, nl: int, kr: float, radii=None):
         if n <= 2048:
             return repulsion_ref(pos, mass, kr, radii=radii)[i0:i0 + nl]
         return repulsion_chunked_rows(pos, mass, i0, nl, kr, radii=radii)
-    build.require(pos, "pos", torch.float32, dev, (n, 2))
-    build.require(mass, "mass", torch.float32, dev, (n,))
-    if radii is not None:
-        build.require(radii, "radii", torch.float32, dev, (n,))
-    out = torch.empty((nl, 2), dtype=torch.float32, device=dev)
+    dtype = _layout_type(pos, mass, radii, dev, n)
+    out = torch.empty((nl, 2), dtype=dtype, device=dev)
     slices = source_slices(n, build.sm_count(dev))
-    scratch = (torch.empty((slices, nl, 2), dtype=torch.float32, device=dev)
-               if slices > 1 else None)
+    scratch = _scratch(slices, nl, dtype, dev)
     if form == "rule":
         del scratch
-        return build.rule("repulsion_rows", out, *repulsion_rows_cost(n, nl, radii is not None))
+        return build.rule("repulsion_rows", out, *repulsion_rows_cost(
+            n, nl, radii is not None, pos.element_size()))
     fn = build.entry("repulsion_nbody", _ROWS_ARGTYPES, "repulsion_nbody_rows")
     with torch.cuda.device(dev):
         code = fn(
             build.ptr(pos), build.ptr(mass),
             build.ptr(radii) if radii is not None else None,
             n, int(i0), int(nl), float(kr), int(radii is not None), slices,
+            build.FLOAT_CODES[dtype],
             build.ptr(scratch) if scratch is not None else None,
             build.ptr(out), build.stream(dev),
         )

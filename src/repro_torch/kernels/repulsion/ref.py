@@ -15,6 +15,10 @@ version the chip smoke holds the kernel against at full width.
 ``repulsion_chunked_rows`` is rows ``[i0, i0 + nl)`` of it (the sharded
 layout's form), bitwise those rows: each row's sum runs over the same
 j-chunks in the same order whichever rows are computed beside it.
+
+A half-width layout (bfloat16, float16) is widened to float32, computed as
+a float32 layout is and rounded once to its type, as the kernel does; a
+float32 layout's forces are the same bits as before that rule.
 """
 from __future__ import annotations
 
@@ -38,18 +42,30 @@ def _pair_sum(pi, mi, ri, pj, mj, rj, same, kr: float, use_radii: bool):
     return torch.stack([(mag * dx).sum(1), (mag * dy).sum(1)], dim=1)
 
 
+def _widened(pos, mass, radii):
+    """``(pos, mass, r)``: the inputs in the type the sums run in
+    (float32 for a half-width layout, the inputs' own otherwise), ``r`` the
+    radii or, without them, the mass (a placeholder no pair reads)."""
+    wide = torch.promote_types(pos.dtype, torch.float32)
+    pos, mass = pos.to(wide), mass.to(wide)
+    r = radii.to(wide) if radii is not None else mass
+    return pos, mass, r
+
+
 def repulsion_ref(pos, mass, kr: float, radii=None):
     """O(n²) dense reference. pos [n,2], mass [n] → forces [n,2]."""
     n = pos.shape[0]
+    dtype = pos.dtype
+    pos, mass, r = _widened(pos, mass, radii)
     eye = torch.eye(n, dtype=torch.bool, device=pos.device)
-    r = radii if radii is not None else mass
-    return _pair_sum(pos, mass, r, pos, mass, r, eye, kr, radii is not None)
+    return _pair_sum(pos, mass, r, pos, mass, r, eye, kr, radii is not None).to(dtype)
 
 
 def repulsion_chunked(pos, mass, kr: float, radii=None, chunk: int = 1024):
     """j-chunked form of ``repulsion_ref``: same math, O(n·chunk) memory."""
     n = pos.shape[0]
-    r = radii if radii is not None else mass
+    dtype = pos.dtype
+    pos, mass, r = _widened(pos, mass, radii)
     idx = torch.arange(n, device=pos.device)
     acc = torch.zeros((n, 2), dtype=pos.dtype, device=pos.device)
     for j0 in range(0, n, chunk):
@@ -59,7 +75,7 @@ def repulsion_chunked(pos, mass, kr: float, radii=None, chunk: int = 1024):
             pos, mass, r, pos[j0:j1], mass[j0:j1], r[j0:j1], same, kr,
             radii is not None,
         )
-    return acc
+    return acc.to(dtype)
 
 
 def repulsion_chunked_rows(pos, mass, i0: int, nl: int, kr: float, radii=None,
@@ -70,7 +86,8 @@ def repulsion_chunked_rows(pos, mass, i0: int, nl: int, kr: float, radii=None,
     lockstep with ``repulsion_chunked``: the sharded layout's bitwise
     agreement with one rank rests on it."""
     n = pos.shape[0]
-    r = radii if radii is not None else mass
+    dtype = pos.dtype
+    pos, mass, r = _widened(pos, mass, radii)
     rows = slice(i0, i0 + nl)
     idx = torch.arange(n, device=pos.device)
     acc = torch.zeros((nl, 2), dtype=pos.dtype, device=pos.device)
@@ -81,4 +98,4 @@ def repulsion_chunked_rows(pos, mass, i0: int, nl: int, kr: float, radii=None,
             pos[rows], mass[rows], r[rows], pos[j0:j1], mass[j0:j1], r[j0:j1],
             same, kr, radii is not None,
         )
-    return acc
+    return acc.to(dtype)

@@ -56,8 +56,8 @@ _OFFSETS_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_
                      ctypes.c_void_p]
 _LAYOUT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-_ATTRACTION_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                                ctypes.c_void_p]
+_ATTRACTION_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_void_p, ctypes.c_void_p]
 # A group of a layout (a warp of the narrow kernels): a block of 32
 # consecutive segments, or, where the block's rows number more than
 # SPLIT_ROWS, the part of it whose first rows lie in one window of
@@ -87,12 +87,13 @@ def sum_through_cost(e: int, d: int, n: int) -> tuple[int, int]:
     return e * d, e * (4 * d + 4) + 4 * (n + 1) + 4 * n * d
 
 
-def attraction_sum_cost(n: int, kept: int) -> tuple[int, int]:
-    """``attraction_sum``: 6 operations per kept row (two subtracts, two
-    multiplies, two adds); each kept row's destination and weight read
-    (its destination's position from cache), each node's position and
-    offset read and force written."""
-    return 6 * kept, kept * 8 + 20 * n
+def attraction_sum_cost(n: int, kept: int, size: int = 4) -> tuple[int, int]:
+    """``attraction_sum`` in a layout type of ``size`` bytes an element: 6
+    operations per kept row (two subtracts, two multiplies, two adds); each
+    kept row's int32 destination and its weight read (its destination's
+    position from cache), each node's position and int32 offset read and
+    force written."""
+    return 6 * kept, kept * (4 + size) + n * (4 + 4 * size)
 
 
 @dataclass(frozen=True)
@@ -254,7 +255,10 @@ def attraction_sum(pos, dst, w, layout: SegmentLayout):
     over r in ``[offsets[s], offsets[s + 1])``, in row order; ``pos_ext`` is
     ``pos`` [n, 2] with a zero row n, ``dst`` clamped into ``[0, n]``. →
     [n, 2]. On the card K7's ``attraction_sum`` entry forms each term as it
-    adds it (float32 only)."""
+    adds it. ``pos`` and ``w`` are of the layout's type (float32, bfloat16
+    or float16, both the same), read in it; the terms and sums are float32
+    and each node's sum is rounded once to that type, which the result
+    takes."""
     dev = pos.device
     n, e = pos.shape[0], dst.shape[0]
     if layout.perm is not None or layout.n_segments != n:
@@ -262,19 +266,23 @@ def attraction_sum(pos, dst, w, layout: SegmentLayout):
     form = build.route(pos, "attraction_sum")
     if form == "plain":
         return attraction_sum_ref(pos, dst, w, layout.offsets)
-    build.require(pos, "pos", torch.float32, dev, (n, 2))
+    dtype = pos.dtype
+    if dtype not in build.FLOAT_CODES:
+        raise TypeError(f"pos: dtype {dtype}, expected one of {tuple(build.FLOAT_CODES)}")
+    build.require(pos, "pos", dtype, dev, (n, 2))
     build.require(dst, "dst", torch.int32, dev, (e,))
-    build.require(w, "w", torch.float32, dev, (e,))
+    build.require(w, "w", dtype, dev, (e,))
     build.require(layout.offsets, "offsets", torch.int32, dev, (n + 1,))
     groups = layout.groups
     build.require(groups, "groups", torch.int32, dev)
-    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((n, 2), dtype=dtype, device=dev)
     if form == "rule":
-        return build.rule("attraction_sum", out, *attraction_sum_cost(n, e))
+        return build.rule("attraction_sum", out, *attraction_sum_cost(n, e, pos.element_size()))
     fn = build.entry("segment_sum", _ATTRACTION_ARGTYPES, "attraction_sum")
     with torch.cuda.device(dev):
         code = fn(build.ptr(pos), build.ptr(dst), build.ptr(w), build.ptr(layout.offsets),
-                  build.ptr(groups), groups.numel() - 1, n, build.ptr(out), build.stream(dev))
+                  build.ptr(groups), groups.numel() - 1, n, build.FLOAT_CODES[dtype],
+                  build.ptr(out), build.stream(dev))
     build.check("segment_sum", code)
     build.LAUNCHES["attraction_sum"] += 1
     return out

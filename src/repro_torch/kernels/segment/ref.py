@@ -85,10 +85,15 @@ def attraction_sum_ref(pos, dst, w, offsets):
     r in ``[offsets[s], offsets[s + 1])`` in row order, ``pos_ext`` being
     ``pos`` with a zero row n and ``dst`` clamped into ``[0, n]``. The
     arithmetic of the CPU form ``w[:, None] * (pos_ext[d] − pos_ext[s])``
-    summed by ``index_add_``."""
-    n = pos.shape[0]
+    summed by ``index_add_``. A half-width layout (bfloat16, float16) is
+    widened to float32, formed and summed as a float32 layout is, and each
+    node's sum rounded once to its type."""
+    n, dtype = pos.shape[0], pos.dtype
+    wide = torch.promote_types(dtype, torch.float32)
+    pos, w = pos.to(wide), w.to(wide)
     lo, hi, seg = _segment_of_rows(offsets)
-    pos_ext = torch.cat([pos, torch.zeros((1, 2), dtype=pos.dtype, device=pos.device)])
+    pos_ext = torch.cat([pos, torch.zeros((1, 2), dtype=wide, device=pos.device)])
     d = dst[lo:hi].long().clamp(0, n)
     f = w[lo:hi, None] * (pos_ext[d] - pos[seg])
-    return torch.zeros((n, 2), dtype=pos.dtype, device=pos.device).index_add_(0, seg, f)
+    out = torch.zeros((n, 2), dtype=wide, device=pos.device).index_add_(0, seg, f)
+    return out.to(dtype)

@@ -50,7 +50,7 @@ import torch
 
 from repro_torch.core.pipeline import BGVConfig, BGVResult, full_layout_colored
 from repro_torch.data.edge_store import as_edge_store
-from repro_torch.device import resolve_device
+from repro_torch.device import host_array, resolve_device
 from repro_torch.obs.meters import jit_compile_count  # noqa: F401  (public surface)
 from repro_torch.obs.metrics import REGISTRY, ensure_error_counters
 from repro_torch.obs.trace import get_tracer
@@ -191,7 +191,7 @@ def community_subgraph(
 def _host(x) -> np.ndarray:
     """A host array of ``x`` (a tensor on any device, or array-like)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return host_array(x)
     return np.asarray(x)
 
 

@@ -314,6 +314,35 @@ BOUND_ROWS = [
         _fake((685230, 2)), _fake(685230), _fake(685230, torch.int32), _fake((4096, 2)),
         _fake(4096), 80.0), "0.545"),
 ]
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_layout_rules_give_the_type_and_its_bytes(dtype, monkeypatch):
+    """K2's entries and K7's attraction on fake tensors of a half-width
+    layout: the output in the layout's type (the card's call allocates it
+    so) and the bytes at 2 an element (int32 ids and offsets at 4), the
+    operations those of float32; nothing launches."""
+    n, nl, e = 16384, 8192, 524288
+    seen = []
+    monkeypatch.setattr(build, "RULE_OBSERVERS", [lambda *a: seen.append(a)])
+    launches = dict(build.LAUNCHES)
+    with FakeTensorMode():
+        f = rep_ops.repulsion(_fake((n, 2), dtype), _fake(n, dtype), 1.0, radii=_fake(n, dtype))
+        fr = rep_ops.repulsion_rows(_fake((n, 2), dtype), _fake(n, dtype), nl, nl, 1.0,
+                                    radii=_fake(n, dtype))
+        fa = seg_ops.attraction_sum(_fake((n, 2), dtype), _fake(e, torch.int32),
+                                    _fake(e, dtype),
+                                    seg_ops.segment_layout(_sorted_ids(e), n, sorted=True))
+    assert build.LAUNCHES == launches
+    assert (f.dtype, tuple(f.shape)) == (dtype, (n, 2))
+    assert (fr.dtype, tuple(fr.shape)) == (dtype, (nl, 2))
+    assert (fa.dtype, tuple(fa.shape)) == (dtype, (n, 2))
+    got = {name: (ops, nbytes) for name, ops, nbytes in seen}
+    assert got["repulsion_nbody"] == (17 * n * n, n * 2 * 6)  # pos (2), mass, radii, out (2)
+    assert got["repulsion_rows"] == (17 * nl * n, n * 2 * 4 + nl * 2 * 2)
+    assert got["attraction_sum"] == (6 * e, e * (4 + 2) + n * (4 + 4 * 2))
+    assert got["repulsion_nbody"][1] * 2 == rep_ops.repulsion_cost(n, True)[1]
+    assert got["attraction_sum"][0] == seg_ops.attraction_sum_cost(n, e)[0]
+
+
 # K6's rows: (entry, cost arguments, same-cell pairs of the row's input, its
 # bound ms as printed). A rule on fake tensors cannot read the cells and
 # counts every in-range band slot as a pair; the printed bounds count the

@@ -177,3 +177,107 @@ def test_random_and_bfs_inits_are_seeded_and_grid_backends_raise():
         with pytest.raises(ValueError, match="unknown repulsion backend"):
             fa2.layout(edges, w, mass, n, fa2.FA2Config(repulsion=backend),
                        device="cpu")
+
+
+# A bfloat16 layout: the port widens K2's and the attraction's inputs to
+# float32 and rounds each force once (its kernels and plain versions alike),
+# where the reference forms and sums every pair term in bfloat16. Positions
+# agree within 2^-7·max|pos| (two bfloat16 ulps of the largest coordinate;
+# measured 3.98e-3 at 1 and 3.92e-3 at 3 iterations, radii on and off); the
+# speed controller doubles that by 5 iterations (7.75e-3), so the gate holds
+# up to 3. Trace rows agree within 2^-7 of their column's largest value
+# (measured 4.0e-3).
+BF16_TOL = 2.0**-7
+
+
+def _bf16_host(x):
+    """A bfloat16 array of either package as float32 holding its values."""
+    if isinstance(x, torch.Tensor):
+        assert x.dtype == torch.bfloat16
+        return x.float().numpy()
+    assert x.dtype == jnp.bfloat16
+    return np.asarray(x.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("iterations", [1, 3])
+@pytest.mark.parametrize("use_radii", [True, False])
+def test_bfloat16_layout_from_shared_pos0(iterations, use_radii):
+    edges, w, mass, pos0, n = _inputs()
+    jcfg = jfa2.FA2Config(iterations=iterations, use_radii=use_radii, dtype="bfloat16")
+    want_p, want_t, want_it = jfa2.layout(
+        jnp.asarray(edges), jnp.asarray(w), jnp.asarray(mass), n, jcfg,
+        pos0=jnp.asarray(pos0),
+    )
+    got_p, got_t, got_it = fa2.layout(
+        edges, w, mass, n, config_from_reference(jcfg),
+        pos0=state_from_numpy("pos0", pos0), device="cpu",
+    )
+    assert got_p.dtype == got_t.dtype == torch.bfloat16
+    gp, wp = _bf16_host(got_p), _bf16_host(want_p)
+    assert np.isfinite(gp).all()
+    np.testing.assert_allclose(gp, wp, rtol=0, atol=BF16_TOL * np.abs(wp).max())
+    gt, wt = _bf16_host(got_t), _bf16_host(want_t)
+    for c in range(3):
+        np.testing.assert_allclose(gt[:, c], wt[:, c], rtol=0,
+                                   atol=BF16_TOL * float(np.abs(wt[:, c]).max()))
+    assert got_it == int(want_it) == iterations
+
+
+def test_bfloat16_single_step_matches():
+    """One ``step`` on a bfloat16 state: the two-scatter attraction forms
+    its terms in bfloat16 as the reference does and adds them in float32."""
+    edges, w, mass, pos0, n = _inputs(seed=5)
+    jcfg = jfa2.FA2Config(dtype="bfloat16")
+    bf = jnp.bfloat16
+    radii = np.sqrt(mass)
+    jstate = (jnp.asarray(pos0, bf), jnp.zeros((n, 2), bf), jnp.asarray(1.0, bf))
+    (jp, _, _), jrow = jfa2.step(jstate, jnp.asarray(edges), jnp.asarray(w, bf),
+                                 jnp.asarray(mass, bf), jnp.asarray(radii, bf), jcfg, n)
+    t = torch.bfloat16
+    p = torch.as_tensor(pos0).to(t)
+    (tp, _, _), trow = fa2.step(
+        (p, torch.zeros_like(p), torch.tensor(1.0, dtype=t)), torch.as_tensor(edges),
+        torch.as_tensor(w).to(t), torch.as_tensor(mass).to(t),
+        torch.as_tensor(radii).to(t), config_from_reference(jcfg), n,
+    )
+    assert tp.dtype == trow.dtype == t
+    gp, wp = _bf16_host(tp), _bf16_host(jp)
+    np.testing.assert_allclose(gp, wp, rtol=0, atol=BF16_TOL * np.abs(wp).max())
+    gr, wr = _bf16_host(trow), _bf16_host(jrow)
+    np.testing.assert_allclose(gr, wr, rtol=BF16_TOL)
+
+
+def test_bfloat16_recovery_count_matches():
+    """``recovery_count`` reads a bfloat16 ``nan_guard`` trace (numpy has no
+    bfloat16: the trace leaves as float32)."""
+    edges, w, mass, pos0, n = _inputs(seed=4, poison=4)
+    jcfg = jfa2.FA2Config(iterations=6, nan_guard=True, dtype="bfloat16")
+    want_p, want_t, _ = jfa2.layout(jnp.asarray(edges), jnp.asarray(w), jnp.asarray(mass),
+                                    n, jcfg, pos0=jnp.asarray(pos0))
+    got_p, got_t, _ = fa2.layout(edges, w, mass, n, config_from_reference(jcfg),
+                                 pos0=torch.as_tensor(pos0), device="cpu")
+    assert got_t.dtype == torch.bfloat16
+    assert fa2.recovery_count(got_t) == jfa2.recovery_count(want_t) == 6
+    np.testing.assert_array_equal(_bf16_host(got_p), _bf16_host(want_p))  # never moved
+
+
+def test_float64_layout_is_the_references_float32():
+    """With 64-bit types off (the reference's default) "float64" computes in
+    float32 and warns: positions, trace and the warning as the reference's."""
+    edges, w, mass, pos0, n = _inputs(seed=7)
+    jcfg = jfa2.FA2Config(iterations=3, dtype="float64")
+    with pytest.warns(UserWarning, match="float64"):
+        want_p, want_t, _ = jfa2.layout(jnp.asarray(edges), jnp.asarray(w),
+                                        jnp.asarray(mass), n, jcfg, pos0=jnp.asarray(pos0))
+    with pytest.warns(UserWarning, match="float64"):
+        got_p, got_t, _ = fa2.layout(edges, w, mass, n, config_from_reference(jcfg),
+                                     pos0=torch.as_tensor(pos0), device="cpu")
+    assert np.asarray(want_p).dtype == np.float32 and got_p.dtype == torch.float32
+    assert got_t.dtype == torch.float32
+    _close_pos(got_p, want_p)
+    _close_trace(got_t, want_t)
+    f32, _, _ = fa2.layout(edges, w, mass, n, fa2.FA2Config(iterations=3),
+                           pos0=torch.as_tensor(pos0), device="cpu")
+    assert torch.equal(got_p, f32)
+    with pytest.raises(ValueError, match="unknown layout dtype"):
+        fa2.layout(edges, w, mass, n, fa2.FA2Config(dtype="int8"), device="cpu")

@@ -217,3 +217,58 @@ def test_grid_knobs_in_config_and_signatures():
                                              grid_window=16, grid_rebuild=3)
     assert (got.layout.grid_size, got.layout.grid_window, got.layout.grid_rebuild) == (
         32, 16, 3)
+
+
+# ``layout.dtype="bfloat16"`` on the issue's planted-partition graph (3,000
+# nodes: exact repulsion) and on 5,000 nodes (grid). The port forms and sums
+# K2's pair terms and the attraction's in float32 and rounds each force once;
+# the reference does that arithmetic in bfloat16. After one iteration the
+# positions agree within 2^-7·max|pos| (measured 3.97e-3); the speed
+# controller amplifies each node's one-ulp differences, and after three
+# they agree within 2^-6·max|pos| (measured 7.81e-3 from the degree init,
+# 1.17e-2 from the random one at 3,000 nodes, where the reference's own
+# bfloat16 layout is 1.89e-2 from its float32 layout from the same start).
+@pytest.mark.parametrize("case,iterations,init", [
+    ("ppart-3000", 1, "random"), ("ppart-3000", 3, "random"), ("ppart-3000", 3, "degree"),
+    ("grid-5000", 1, "degree"), ("grid-5000", 3, "degree")])
+def test_full_layout_colored_bfloat16_matches_reference(case, iterations, init):
+    if case == "ppart-3000":
+        n = 3000
+        edges, _ = planted_partition(n, 30, 0.04, 0.0008, seed=0)
+    else:
+        n = 5000
+        edges, _ = planted_partition(n, 40, 0.02, 0.0004, seed=1)
+    cfg = repro.default_config(n, len(edges), mode_degree(edges, n), iterations=5,
+                               init=init)
+    cfg = dataclasses.replace(cfg, layout=dataclasses.replace(cfg.layout, dtype="bfloat16"))
+    want_p, want_g = repro.full_layout_colored(edges, n, cfg, iterations=iterations)
+    tr = Tracer()
+    tcfg = dataclasses.replace(config_from_reference(cfg), obs=tr)
+    got_p, got_g = repro_torch.full_layout_colored(edges, n, tcfg, iterations=iterations,
+                                                   device="cpu")
+    full = [s for s in tr.spans() if s.name == "layout.full"]
+    assert full[0].attrs["repulsion"] == ("grid" if n > 4096 else "exact")
+    assert np.asarray(want_p).dtype == jnp.bfloat16 and got_p.dtype == np.float32
+    # float32 holding bfloat16 values
+    assert np.array_equal(torch.as_tensor(got_p).to(torch.bfloat16).float().numpy(), got_p)
+    np.testing.assert_array_equal(got_g, np.asarray(want_g))
+    want = np.asarray(want_p).astype(np.float32)
+    tol = 2.0**-7 if iterations == 1 else 2.0**-6
+    assert np.isfinite(got_p).all()
+    np.testing.assert_allclose(got_p, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+def test_full_layout_colored_float64_is_the_references_float32():
+    """"float64" truncated to float32 with a warning, in both packages."""
+    n = 1200
+    edges, _ = planted_partition(n, 40, 0.02 * 5000 / n, 0.0004, seed=1)
+    cfg = repro.default_config(n, len(edges), mode_degree(edges, n), iterations=5)
+    cfg = dataclasses.replace(cfg, layout=dataclasses.replace(cfg.layout, dtype="float64"))
+    with pytest.warns(UserWarning, match="float64"):
+        want_p, want_g = repro.full_layout_colored(edges, n, cfg, iterations=3)
+    with pytest.warns(UserWarning, match="float64"):
+        got_p, got_g = repro_torch.full_layout_colored(edges, n, config_from_reference(cfg),
+                                                       iterations=3, device="cpu")
+    assert np.asarray(want_p).dtype == got_p.dtype == np.float32
+    np.testing.assert_array_equal(got_g, np.asarray(want_g))
+    _close_pos(got_p, want_p)

@@ -301,6 +301,57 @@ def test_repulsion_source_slices_cover_every_source_once(n):
     assert (node_blocks * s >= 4 * 132 or s == min(rep_ops.MAX_SLICES, tiles))
 
 
+def _half_layout_entries():
+    """K2's and K7's attraction entries, each a call on (pos, mass, radii,
+    w) of one layout type: the plain versions and the wrappers on CPU
+    tensors. n = 2,100 puts the wrappers on the chunked form."""
+    from repro_torch.kernels.repulsion.ref import repulsion_chunked_rows
+    from repro_torch.kernels.segment.ref import attraction_sum_ref
+
+    rng = np.random.default_rng(11)
+    n, e = 2100, 9000
+    src = np.sort(rng.integers(0, n + 1, e)).astype(np.int32)  # n: trash rows
+    dst = _t(rng.integers(0, n + 1, e).astype(np.int32))
+    lay = seg_ops.segment_layout(_t(src), n, sorted=True)
+    return n, {
+        "repulsion_ref": lambda p, m, r, w: repulsion_ref(p[:300], m[:300], 80.0, radii=r[:300]),
+        "repulsion_ref_no_radii": lambda p, m, r, w: repulsion_ref(p[:300], m[:300], 80.0),
+        "repulsion_chunked": lambda p, m, r, w: repulsion_chunked(p, m, 80.0, radii=r,
+                                                                  chunk=512),
+        "repulsion_chunked_rows": lambda p, m, r, w: repulsion_chunked_rows(
+            p, m, 700, 900, 80.0, radii=r, chunk=512),
+        "repulsion": lambda p, m, r, w: rep_ops.repulsion(p, m, 80.0, radii=r),
+        "repulsion_rows": lambda p, m, r, w: rep_ops.repulsion_rows(p, m, 1050, 1050, 80.0,
+                                                                    radii=r),
+        "attraction_sum_ref": lambda p, m, r, w: attraction_sum_ref(p, dst, w, lay.offsets),
+        "attraction_sum": lambda p, m, r, w: seg_ops.attraction_sum(p, dst, w, lay),
+    }
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("entry", ["repulsion_ref", "repulsion_ref_no_radii",
+                                   "repulsion_chunked", "repulsion_chunked_rows", "repulsion",
+                                   "repulsion_rows", "attraction_sum_ref", "attraction_sum"])
+def test_half_layout_plain_is_float32_rounded_once(dtype, entry):
+    """A bfloat16 or float16 layout through K2's and K7's attraction plain
+    versions: bitwise the float32 computation on the same (half-width)
+    values, rounded once to the layout's type, as the kernels compute."""
+    n, entries = _half_layout_entries()
+    fn = entries[entry]
+    rng = np.random.default_rng(12)
+    t = getattr(torch, dtype)
+    # Spread and radii that keep float16's forces finite (below 65,504).
+    pos = _t(rng.uniform(-2000, 2000, (n, 2)).astype(np.float32)).to(t)
+    mass = _t(rng.uniform(0.5, 2.0, n).astype(np.float32)).to(t)
+    radii = _t(rng.uniform(0.0, 0.5, n).astype(np.float32)).to(t)
+    w = _t(rng.uniform(0.05, 0.5, 9000).astype(np.float32)).to(t)
+    got = fn(pos, mass, radii, w)
+    assert got.dtype == t
+    want = fn(pos.float(), mass.float(), radii.float(), w.float()).to(t)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 # ----------------------------------------------------- K3: count scatter
 def _count_case(case):
     rng = np.random.default_rng(3)

@@ -171,3 +171,53 @@ def test_disk_sources_match_reference_in_memory(runs, tmp_path):
 def test_write_png_rejects_bad_images(tmp_path):
     with pytest.raises(ValueError):
         write_png(str(tmp_path / "x.png"), np.zeros((4, 4), np.uint8))
+
+
+# A bfloat16 layout (``layout.dtype="bfloat16"``): the reference returns an
+# ml_dtypes bfloat16 ``positions`` array, the port float32 holding the same
+# kind of values (numpy has no bfloat16 where the port runs). Within
+# 2^-7·max|pos| (test_torch_fa2.py states why); every integer output
+# bitwise.
+@pytest.mark.parametrize("iterations", [1, 3])
+@pytest.mark.parametrize("init", ["degree", "random"])
+def test_bfloat16_biggraphvis_matches_reference(iterations, init, tmp_path):
+    import dataclasses
+
+    n, k, p_in, p_out = CASES["ppart-300"]
+    edges, _ = planted_partition(n, k, p_in, p_out, seed=0)
+    cfg = repro.default_config(n, len(edges), mode_degree(edges, n),
+                               iterations=iterations, init=init)
+    cfg = dataclasses.replace(cfg, layout=dataclasses.replace(cfg.layout, dtype="bfloat16"))
+    scfg = JaxStreamConfig(chunk_size=2048)
+    want = repro.biggraphvis(edges, n, cfg, scfg)
+    tcfg = config_from_reference(cfg)
+    got = repro_torch.biggraphvis(edges, n, tcfg, config_from_reference(scfg), device="cpu")
+    assert got.n_supernodes == want.n_supernodes
+    assert got.n_superedges == want.n_superedges
+    _eq(got.labels, want.labels, "labels")
+    _eq(got.sizes, want.sizes, "sizes")
+    _eq(got.groups, want.groups, "groups")
+    for f in ("edges", "weights", "sizes", "n_supernodes", "n_superedges", "labels"):
+        _eq(getattr(got.supergraph, f), getattr(want.supergraph, f), f)
+    assert abs(got.modularity - want.modularity) <= 1e-6
+    assert np.asarray(want.positions).dtype == jnp.bfloat16
+    assert got.positions.dtype == np.float32
+    wpos = np.asarray(want.positions).astype(np.float32)
+    scale = np.abs(wpos).max()
+    np.testing.assert_allclose(got.positions, wpos, rtol=0, atol=2.0**-7 * scale)
+
+    # The layout's bfloat16 tensor widened to float32 is what the result
+    # holds, and ``render`` draws exactly those positions.
+    pos, _ = layout_supergraph(got.supergraph, tcfg, device="cpu")
+    assert pos.dtype == torch.bfloat16
+    widened = pos.to(torch.float32).numpy()
+    np.testing.assert_array_equal(got.positions.view(np.uint32), widened.view(np.uint32))
+    rcfg = repro.RenderConfig(width=200, height=160, supersample=2)
+    img, stats = got.render(str(tmp_path / "bf16.png"), cfg=config_from_reference(rcfg))
+    direct, _ = raster.render_arrays(
+        widened, np.sqrt(np.maximum(got.sizes, 0.0)), got.groups, got.supergraph.edges.numpy(),
+        edge_weights=got.supergraph.weights.numpy(), cfg=config_from_reference(rcfg),
+        device="cpu")
+    np.testing.assert_array_equal(img, direct)
+    np.testing.assert_array_equal(read_png(str(tmp_path / "bf16.png")), img)
+    assert stats.nodes_drawn == int((np.asarray(want.sizes) > 0).sum())

@@ -258,8 +258,11 @@ def test_divisibility_fallback_is_silent_and_identical(ranks, single):
         assert res["warnings"] == []
 
 
-@pytest.mark.parametrize("rep", ["exact", "grid", "adaptive"])
+@pytest.mark.parametrize("rep", ["exact", "grid", "adaptive", "exact_bf16"])
 def test_layout_sharded_matches_layout_bitwise(ranks, rep):
+    """Every rank's layout bitwise the one-rank layout; "exact_bf16" is a
+    bfloat16 layout, compared widened to float32 (a widening keeps every
+    bit of the value)."""
     edges = torch.as_tensor(W.graph()[:512])
     w = torch.ones(edges.shape[0])
     mass = torch.zeros(W.N).index_add_(0, edges[:, 0].long(), torch.ones(edges.shape[0])) + 1
@@ -267,9 +270,12 @@ def test_layout_sharded_matches_layout_bitwise(ranks, rep):
         cfg = fa2.FA2Config(iterations=30, repulsion="grid", grid_size=8, grid_window=8,
                             grid_rebuild=2, stop_tolerance=0.5, min_iterations=3,
                             nan_guard=True)
+    elif rep == "exact_bf16":
+        cfg = fa2.FA2Config(iterations=4, dtype="bfloat16")
     else:
         cfg = fa2.FA2Config(iterations=4, repulsion=rep, grid_size=8, grid_window=8)
     pos, trace, it = fa2.layout(edges, w, mass, W.N, cfg, device="cpu")
+    pos, trace = pos.float(), trace.float()
     for got in ranks:
         gp, gt, git = got[f"layout_{rep}"]
         assert np.array_equal(_bits(gp), _bits(pos.numpy()))

@@ -132,6 +132,12 @@ def _case_layouts(mesh, out):
         cfg = fa2.FA2Config(iterations=4, repulsion=rep, grid_size=8, grid_window=8)
         pos, trace, it = fa2.layout_sharded(edges, w, mass, N, cfg, mesh, device="cpu")
         out[f"layout_{rep}"] = (pos.numpy(), trace.numpy(), it)
+    # A bfloat16 exact layout (K2's row entry and the attraction in the
+    # layout's type), widened to float32 to leave: numpy has no bfloat16.
+    cfg = fa2.FA2Config(iterations=4, dtype="bfloat16")
+    pos, trace, it = fa2.layout_sharded(edges, w, mass, N, cfg, mesh, device="cpu")
+    assert pos.dtype == trace.dtype == torch.bfloat16
+    out["layout_exact_bf16"] = (pos.float().numpy(), trace.float().numpy(), it)
     # The adaptive stop, grid rebuilt every other iteration, nan_guard on.
     cfg = fa2.FA2Config(iterations=30, repulsion="grid", grid_size=8, grid_window=8,
                         grid_rebuild=2, stop_tolerance=0.5, min_iterations=3,
